@@ -1,0 +1,163 @@
+"""Public kernel API of the port: layout builders + ``impl`` dispatch.
+
+``impl`` for every op:
+
+* ``"auto"`` — the Hopper CUDA kernel for a CUDA tensor, the plain
+  PyTorch version for a CPU tensor.
+* ``"cuda"`` — the CUDA kernel (a CPU tensor raises).
+* ``"ref"``  — the plain PyTorch version, on any device.
+
+Shapes, layouts and errors follow ``repro/kernels/ops.py``.  Each CUDA
+wrapper counts its launches in a plain integer; :func:`launch_counts`
+reads them and :func:`reset_launch_counts` sets them to 0.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import block_importance as _bi
+from . import block_sparse_matmul as _bsm
+from . import flash_attention as _fa
+from . import ref as _ref
+
+__all__ = ["IMPLS", "compress_fullblock", "compress_fullblock_torch",
+           "block_sparse_matmul", "block_importance", "flash_attention",
+           "launch_counts", "reset_launch_counts"]
+
+IMPLS = ("auto", "cuda", "ref")
+_KERNELS = {"flash_attention": _fa, "block_sparse_matmul": _bsm,
+            "block_importance": _bi}
+
+
+def _resolve(impl: str, t: torch.Tensor) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "auto":
+        return "cuda" if t.is_cuda else "ref"
+    return impl
+
+
+def launch_counts() -> Dict[str, int]:
+    """CUDA kernel launches per op since the last reset."""
+    return {name: mod.launches for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Layout builders (run once, at pruning time)
+# ---------------------------------------------------------------------------
+
+def compress_fullblock(w: np.ndarray, keep: np.ndarray, bm: int,
+                       bn: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack a FullBlock-pruned matrix into the kernel layout (numpy).
+
+    A copy of ``repro.kernels.ops.compress_fullblock``.  ``keep``:
+    (K/bm, N/bn) bool block keep-grid.  Returns ``w_comp`` (Gn, L, bm, bn)
+    and ``idx`` (Gn, L) int32 with -1 padding, L = max surviving K-blocks
+    over the output-column groups.
+    """
+    K, N = w.shape
+    gk, gn = keep.shape
+    if gk * bm != K or gn * bn != N:
+        raise ValueError(f"keep grid {keep.shape} mismatches {w.shape}/({bm},{bn})")
+    L = max(1, int(keep.sum(axis=0).max()))
+    w_comp = np.zeros((gn, L, bm, bn), dtype=w.dtype)
+    idx = np.full((gn, L), -1, dtype=np.int32)
+    for j in range(gn):
+        ks = np.nonzero(keep[:, j])[0]
+        for l, kblk in enumerate(ks):
+            w_comp[j, l] = w[kblk * bm:(kblk + 1) * bm, j * bn:(j + 1) * bn]
+            idx[j, l] = kblk
+    return w_comp, idx
+
+
+def compress_fullblock_torch(w: torch.Tensor, keep: torch.Tensor, bm: int, bn: int,
+                             L: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compress_fullblock` on the tensor's own device, by indexing.
+
+    Gives the same bytes as the numpy builder.  ``L`` may raise the slot
+    count above the minimum (extra slots are -1 padding), so that the
+    layers of a stacked weight share one shape.
+    """
+    K, N = w.shape
+    gk, gn = keep.shape
+    if gk * bm != K or gn * bn != N:
+        raise ValueError(f"keep grid {tuple(keep.shape)} mismatches {tuple(w.shape)}/({bm},{bn})")
+    keep = keep.to(torch.bool)
+    counts = keep.sum(dim=0)
+    L_min = max(1, int(counts.max()))
+    L = L_min if L is None else L
+    if not L_min <= L <= gk:
+        raise ValueError(f"L={L} outside [{L_min}, {gk}] for this keep grid")
+    # kept K-blocks of each column group first, in ascending order
+    order = torch.sort((~keep).to(torch.uint8), dim=0, stable=True).indices   # (gk, gn)
+    kblk = order[:L].T                                                       # (gn, L)
+    valid = torch.arange(L, device=w.device)[None, :] < counts[:, None]      # (gn, L)
+    idx = torch.where(valid, kblk, torch.full_like(kblk, -1)).to(torch.int32)
+    blocks = w.reshape(gk, bm, gn, bn).permute(2, 0, 1, 3)                    # (gn, gk, bm, bn)
+    w_comp = blocks[torch.arange(gn, device=w.device)[:, None], kblk.clamp(min=0)]
+    w_comp = torch.where(valid[:, :, None, None], w_comp, torch.zeros_like(w_comp))
+    return w_comp.contiguous(), idx
+
+
+# ---------------------------------------------------------------------------
+# Dispatch wrappers
+# ---------------------------------------------------------------------------
+
+def block_sparse_matmul(x: torch.Tensor, w_comp: torch.Tensor, idx: torch.Tensor, *,
+                        impl: str = "auto") -> torch.Tensor:
+    """(B, K) @ FullBlock-compressed weight (Gn, L, bm, bn) → (B, Gn*bn)."""
+    if _resolve(impl, x) == "ref":
+        return _ref.block_sparse_matmul_ref(x, w_comp, idx)
+    return _bsm.block_sparse_matmul_cuda(x, w_comp, idx)
+
+
+def block_importance(w: torch.Tensor, bm: int, bn: int, criterion: str = "l1", *,
+                     impl: str = "auto", tile_n: int = 0) -> torch.Tensor:
+    """Eq. 1 block losses (M/bm, N/bn) f32.  ``tile_n`` keeps the TPU
+    kernel's column-strip contract: it must tile N in whole blocks."""
+    if criterion not in _bi.CRITERIA:
+        raise ValueError(f"criterion must be one of {tuple(_bi.CRITERIA)}, got {criterion!r}")
+    if _resolve(impl, w) == "ref":
+        return _ref.block_importance_ref(w, bm, bn, criterion)
+    M, N = w.shape
+    if M % bm or N % bn:
+        raise ValueError(f"matrix {tuple(w.shape)} not divisible by block ({bm},{bn})")
+    TN = tile_n or N
+    if TN % bn or N % TN:
+        raise ValueError(f"tile_n={TN} must tile N={N} in whole blocks of {bn}")
+    return _bi.block_importance_cuda(w, bm, bn, criterion)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    impl: str = "auto", tile_q: int = 128,
+                    tile_k: int = 128) -> torch.Tensor:
+    """Fused attention over (B, S, H, hd) tensors with GQA broadcast.
+
+    q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd) with Hq % Hkv == 0.  The
+    CUDA path requires Sq and Skv to tile by ``tile_q``/``tile_k``, as
+    the TPU kernel does.
+    """
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if _resolve(impl, q) == "ref":
+        G = Hq // Hkv
+        if G > 1:
+            k = k.repeat_interleave(G, dim=2)
+            v = v.repeat_interleave(G, dim=2)
+        qf = q.transpose(1, 2).reshape(B * Hq, Sq, hd)
+        kf = k.transpose(1, 2).reshape(B * Hq, Skv, hd)
+        vf = v.transpose(1, 2).reshape(B * Hq, Skv, hd)
+        of = _ref.flash_attention_ref(qf, kf, vf, causal=causal, window=window)
+        return of.reshape(B, Hq, Sq, hd).transpose(1, 2)
+    if Sq % tile_q or Skv % tile_k:
+        raise ValueError(f"Sq={Sq}/Skv={Skv} must tile by {tile_q}/{tile_k}")
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -1,0 +1,223 @@
+"""PyTorch port, kernels: plain versions ≡ the JAX package's jnp oracles,
+layout builders byte-equal to the reference, the ``impl`` dispatch and
+its errors, and the port's import boundary.
+
+The CUDA kernels themselves run only on a card (tests/test_torch_gpu.py
+and chip_smoke.py).  Inputs are made with numpy from a seed and handed
+to both packages.  Tolerances are those of tests/test_kernels.py.
+"""
+import ast
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import _jax_reference
+from repro_torch.kernels import ops
+
+ROOT = Path(__file__).resolve().parents[1]
+RNG = np.random.default_rng(11)
+TOL = {np.float32: 3e-5, "bfloat16": 3e-2}
+
+
+@pytest.fixture(scope="module")
+def R():
+    return _jax_reference.load()
+
+
+def _both(a: np.ndarray, dtype):
+    """The same values as a jax array and a torch CPU tensor."""
+    if dtype == "bfloat16":
+        j = jnp.asarray(a, jnp.bfloat16)
+        t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+        return j, t
+    return jnp.asarray(a, jnp.float32), torch.from_numpy(a.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions against the jnp oracles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Sq,Skv,hd,causal,window", [
+    (128, 128, 32, True, None),
+    (256, 256, 64, True, 64),
+    (128, 256, 32, False, None),
+    (256, 256, 16, True, None),
+    (128, 128, 32, False, 64),
+    (128, 128, 32, True, 64),
+])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_flash_attention_plain_matches_oracle(R, Sq, Skv, hd, causal, window, dtype):
+    B, Hq, Hkv = 2, 4, 2
+    qj, qt = _both(RNG.normal(size=(B, Sq, Hq, hd)), dtype)
+    kj, kt = _both(RNG.normal(size=(B, Skv, Hkv, hd)), dtype)
+    vj, vt = _both(RNG.normal(size=(B, Skv, Hkv, hd)), dtype)
+    want = R.ops.flash_attention(qj, kj, vj, causal=causal, window=window, impl="ref")
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window, impl="auto")
+    assert got.shape == (B, Sq, Hq, hd) and got.dtype == qt.dtype
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("K,N,bm,bn,B", [
+    (128, 64, 32, 32, 8),
+    (256, 128, 64, 64, 32),
+    (512, 256, 128, 128, 16),
+    (384, 128, 128, 64, 5),
+])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_block_sparse_matmul_plain_matches_oracle(R, K, N, bm, bn, B, dtype):
+    w = RNG.normal(size=(K, N)).astype(np.float32)
+    keep = RNG.random((K // bm, N // bn)) < 0.5
+    keep[0, :] = True
+    wj, wt = _both(w, dtype)
+    wc_np, idx_np = R.ops.compress_fullblock(np.asarray(wj), keep, bm, bn)
+    wc_t, idx_t = ops.compress_fullblock_torch(wt, torch.from_numpy(keep), bm, bn)
+    xj, xt = _both(RNG.normal(size=(B, K)), dtype)
+    want = np.asarray(R.kref.block_sparse_matmul_ref(xj, jnp.asarray(wc_np), jnp.asarray(idx_np)),
+                      np.float32)
+    got = ops.block_sparse_matmul(xt, wc_t, idx_t).float().numpy()
+    scale = max(np.abs(want).max(), 1.0)
+    np.testing.assert_allclose(got / scale, want / scale, atol=TOL[dtype])
+
+
+def test_block_sparse_matmul_padding_slot_mid_list():
+    """A -1 slot adds nothing wherever it sits, and later slots still count."""
+    x = torch.from_numpy(RNG.normal(size=(3, 64)).astype(np.float32))
+    wc = torch.from_numpy(RNG.normal(size=(2, 3, 16, 8)).astype(np.float32))
+    idx = torch.tensor([[0, -1, 3], [-1, 2, -1]], dtype=torch.int32)
+    y = ops.block_sparse_matmul(x, wc, idx)
+    want0 = x[:, 0:16] @ wc[0, 0] + x[:, 48:64] @ wc[0, 2]
+    want1 = x[:, 32:48] @ wc[1, 1]
+    torch.testing.assert_close(y, torch.cat([want0, want1], dim=1), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("M,N,bm,bn", [(64, 64, 8, 8), (128, 256, 32, 16), (256, 128, 64, 128)])
+@pytest.mark.parametrize("crit", ["l1", "l2"])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_block_importance_plain_matches_oracle(R, M, N, bm, bn, crit, dtype):
+    wj, wt = _both(RNG.normal(size=(M, N)), dtype)
+    want = np.asarray(R.kref.block_importance_ref(wj, bm, bn, crit))
+    got = ops.block_importance(wt, bm, bn, crit)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Layout builders
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K,N,bm,bn,frac", [
+    (64, 64, 16, 16, 0.5), (128, 96, 32, 16, 0.3), (256, 256, 128, 128, 0.7),
+    (64, 32, 16, 16, 0.0),
+])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_compress_fullblock_byte_equal(R, K, N, bm, bn, frac, dtype):
+    w = RNG.normal(size=(K, N)).astype(np.float32)
+    keep = RNG.random((K // bm, N // bn)) < frac
+    wj, wt = _both(w, dtype)
+    w_np = np.asarray(wj)
+    want_wc, want_idx = R.ops.compress_fullblock(w_np, keep, bm, bn)
+    np_wc, np_idx = ops.compress_fullblock(w_np, keep, bm, bn)
+    assert np_wc.dtype == want_wc.dtype and np_wc.tobytes() == want_wc.tobytes()
+    assert np_idx.tobytes() == want_idx.tobytes()
+    t_wc, t_idx = ops.compress_fullblock_torch(wt, torch.from_numpy(keep), bm, bn)
+    assert t_idx.dtype == torch.int32 and t_idx.numpy().tobytes() == want_idx.tobytes()
+    bits = t_wc.view(torch.int16) if t_wc.dtype == torch.bfloat16 else t_wc
+    want_bits = want_wc.view(np.int16) if dtype == "bfloat16" else want_wc
+    assert bits.numpy().tobytes() == want_bits.tobytes()
+
+
+def test_compress_fullblock_torch_padded_slots():
+    w = torch.arange(64 * 32, dtype=torch.float32).reshape(64, 32)
+    keep = torch.tensor([[True, False], [False, False], [True, True], [False, False]])
+    wc, idx = ops.compress_fullblock_torch(w, keep, 16, 16, L=3)
+    assert idx.tolist() == [[0, 2, -1], [2, -1, -1]]
+    assert torch.equal(wc[0, 1], w[32:48, 0:16]) and not wc[1, 1:].any()
+    with pytest.raises(ValueError, match="outside"):
+        ops.compress_fullblock_torch(w, keep, 16, 16, L=1)
+    with pytest.raises(ValueError, match="mismatches"):
+        ops.compress_fullblock_torch(w, keep, 8, 16)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch, errors, counters
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_path_and_count_nothing():
+    ops.reset_launch_counts()
+    x = torch.randn(4, 64)
+    ops.block_importance(torch.randn(32, 64), 16, 16)
+    ops.block_sparse_matmul(x, torch.randn(2, 1, 16, 8), torch.zeros(2, 1, dtype=torch.int32))
+    q = torch.randn(1, 128, 2, 64)
+    ops.flash_attention(q, q, q)
+    assert ops.launch_counts() == {"flash_attention": 0, "block_sparse_matmul": 0,
+                                   "block_importance": 0}
+
+
+def test_cuda_impl_refuses_cpu_tensors():
+    q = torch.randn(1, 128, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(q, q, q, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.block_importance(torch.randn(32, 32), 16, 16, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.block_sparse_matmul(torch.randn(2, 32), torch.randn(1, 1, 16, 16),
+                                torch.zeros(1, 1, dtype=torch.int32), impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        ops.block_importance(torch.randn(32, 32), 16, 16, impl="pallas")
+
+
+def test_kernel_path_keeps_reference_errors():
+    q = torch.randn(1, 96, 2, 64)
+    with pytest.raises(ValueError, match="must tile"):
+        ops.flash_attention(q, q, q, impl="cuda")                      # flash_attention.py:107
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(torch.randn(1, 128, 2, 48), torch.randn(1, 128, 2, 48),
+                            torch.randn(1, 128, 2, 48), impl="cuda")
+    with pytest.raises(ValueError, match="not a multiple of block rows"):   # block_sparse_matmul.py:59
+        ops.block_sparse_matmul(torch.randn(2, 40), torch.randn(1, 1, 16, 16),
+                                torch.zeros(1, 1, dtype=torch.int32), impl="cuda")
+    with pytest.raises(ValueError, match="not divisible by block"):    # block_importance.py:44
+        ops.block_importance(torch.randn(40, 32), 16, 16, impl="cuda")
+    with pytest.raises(ValueError, match="tile_n"):                     # block_importance.py:47
+        ops.block_importance(torch.randn(32, 64), 16, 16, impl="cuda", tile_n=24)
+    with pytest.raises(ValueError, match="criterion"):
+        ops.block_importance(torch.randn(32, 32), 16, 16, "l3")
+
+
+# ---------------------------------------------------------------------------
+# Import boundary and the reference loader
+# ---------------------------------------------------------------------------
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_reference_loader_leaves_sys_modules_as_found():
+    before = {n for n in sys.modules if n == "repro" or n.startswith("repro.")}
+    R = _jax_reference.load()
+    assert R.transformer.__name__ == "repro.models.transformer"
+    after = {n for n in sys.modules if n == "repro" or n.startswith("repro.")}
+    assert after == before
+    compat = sys.modules.get("repro.runtime.compat")
+    assert compat is None or hasattr(compat, "_SUPPORTED")      # absent, or the real module
+    pkg = sys.modules.get("repro.models")
+    assert pkg is None or not hasattr(pkg, "transformer")
