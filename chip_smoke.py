@@ -5,28 +5,42 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 Phases, each reported on its own line(s):
 
-1. build   — compile the port's CUDA kernels from ``src/repro_torch/kernels/csrc``;
-2. kernels — hold each kernel against its plain PyTorch version at the
-   shapes of the main path, in bf16 and f32, and time kernel, plain
-   version and the nearest single PyTorch call;
-3. prune   — init llama3-8b at full width (random bf16 weights from a
-   seed), check the kernel's Eq. 1 block losses against the plain ones,
-   then prune with FullBlock(128, 128, 0.5) and compress;
-4. serve   — serve 8 requests (prompts of 100..512 tokens, 32 new tokens
-   each) through ``ServeEngine(slots=4, max_len=1024)``;
-5. parity  — rerun the 8 prompts' prefill and the first request's first
-   4 decode steps with ``impl="ref"`` on the same compressed weights and
-   compare logits and served tokens; show that a planted fault breaks
-   the logit tolerance; check that the served logits are f32 products;
-6. the ``{"kernels": [...]}`` line; 7. the card's name and power limit.
+1. build    — compile the port's five CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+2. kernels  — hold each kernel against its plain PyTorch version at the
+   shapes of the main paths, in bf16 and f32 (int8 for the bit-serial
+   profile), and time kernel, plain version and the nearest single
+   PyTorch call;
+3. llama3-8b FullBlock path: init at full width (random bf16 weights
+   from a seed), check the kernel's Eq. 1 block losses against the plain
+   ones, prune with FullBlock(128, 128, 0.5), compress, serve 8 requests
+   (prompts of 100..512 tokens, 32 new tokens each) through
+   ``ServeEngine(slots=4, max_len=1024)``, then the parity phase:
+   rerun the 8 prompts' prefill and the first request's first 4 decode
+   steps with ``impl="ref"`` on the same compressed weights, show that a
+   planted fault breaks the logit tolerance, check that the served
+   logits are f32 products;
+4. qwen3-4b IntraBlock path: free the llama weights, init qwen3-4b at
+   full width, prune wq/wk/wv/w_gate/w_up/w_down with row-aligned
+   IntraBlock(4, 1, 0.5), compress to the gather layout, serve the same
+   8 requests, and run the same parity phase;
+5. profile  — §IV-B bit-serial profile of every pruned projection's
+   input (36 layers x 3 kinds, the 8 prompts' prefill), kernel against
+   plain version in every (layer, kind);
+6. microbench — ``microbench_kernels`` on the card, its samples written
+   as JSONL under ``build/`` and read back;
+7. the ``{"kernels": [...]}`` line; 8. the card's name and power limit.
 
-The launch counts are set to 0 just before phase 3 prunes and read just
-after phase 4, so they count the main path only.  Any failed check exits
-nonzero.  Without a CUDA device, or without the repository beside it,
-the script exits nonzero and prints no result.
+The launch counts are set to 0 just before each path and read just
+after it: the three FullBlock-path kernels from prune to the end of
+llama3-8b serving, ``intrablock_gather_matmul`` from prune to the end of
+qwen3-4b serving, ``bitserial_zero_profile`` over the profile call.  Any
+failed check exits nonzero.  Without a CUDA device, or without the
+repository beside it, the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -47,6 +61,10 @@ F32_FLOPS = 67e12
 
 KEYS = ("wq", "wk", "wv", "w_gate", "w_up", "w_down")
 BLOCK = 128
+INTRA_M = 4            # IntraBlock(4, 1, 0.5): 2 of every 4 rows, shared by all columns
+# rows one CIM array broadcasts an input group to: sub_rows of usecase_arch
+# (src/repro/core/presets.py:200)
+GROUP_ROWS = 32
 SEED = 0
 
 
@@ -254,6 +272,89 @@ def kernel_phase() -> dict:
                         line, shape=f"w_gate ({M},{N}) bf16, l1",
                         library="torch.linalg.vector_norm(ord=1) over the in-block axes, f32")
             del sets, w
+
+    # -- IntraBlock gather-matmul: qwen3-4b's pruned projections ------------
+    # (K, N) at row-aligned 2:4 (Kc = K/2), decode (B = 4) and prefill (B = 512).
+    # The library yardstick is torch.matmul on the decompressed masked-dense
+    # weight: one call computing the same function, reading twice the
+    # weight bytes.
+    from repro_torch.kernels import intrablock_matmul as igm_mod
+    iproj = {"wq": (2560, 4096), "wk": (2560, 1024), "w_gate": (2560, 9728),
+             "w_down": (9728, 2560)}
+    tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}   # of max |plain|
+
+    def intra_layout(K, N, dt):
+        perm = torch.rand(K // INTRA_M, INTRA_M, generator=g, device="cuda").argsort(dim=1)
+        kept = torch.zeros(K // INTRA_M, INTRA_M, dtype=torch.bool, device="cuda")
+        kept.scatter_(1, perm[:, :INTRA_M // 2], True)
+        mask = kept.reshape(K, 1).expand(K, N)
+        w = randn(K, N, dtype=torch.float32).mul_(1.0 / math.sqrt(K)).to(dt)
+        w_comp, row_idx = ops.compress_intrablock_torch(w, mask, INTRA_M)
+        return w_comp, row_idx, w * mask
+
+    for key, (K, N) in iproj.items():
+        Kc = K // 2
+        for dt in dtypes:
+            esize = torch.empty((), dtype=dt).element_size()
+            for B in (4, 512):
+                nbytes = B * K * esize + Kc * N * esize + Kc * 4 + B * N * esize
+                sets = [(randn(B, K, dtype=dt),) + intra_layout(K, N, dt)
+                        for _ in range(n_copies(nbytes))]
+                x, w_comp, row_idx, dense = sets[0]
+                out = igm_mod.intrablock_gather_matmul_cuda(x, w_comp, row_idx)
+                plain = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
+                torch.cuda.synchronize()
+                err = (out.float() - plain.float()).abs().max().item()
+                scale = plain.float().abs().max().item()
+                name = f"intrablock_gather_matmul {key} B={B} K={K} Kc={Kc} N={N} {str(dt)[6:]}"
+                check(err <= tol[dt] * scale, f"{name}: max_abs_err {err} > {tol[dt]}*{scale}")
+                line = {"max_abs_err": err,
+                        "tol": f"{tol[dt]} x max|plain| = {tol[dt] * scale:.4g}",
+                        "ms": cuda_ms(lambda a, wc, ix, d: igm_mod.intrablock_gather_matmul_cuda(
+                            a, wc, ix, check_range=False), sets),
+                        "plain_ms": cuda_ms(lambda a, wc, ix, d:
+                                            ref.intrablock_gather_matmul_ref(a, wc, ix), sets),
+                        "library_ms": cuda_ms(lambda a, wc, ix, d: torch.matmul(a, d), sets),
+                        **bound(nbytes, 2 * B * Kc * N, peak[dt])}
+                report(name, line)
+                if key == "w_gate" and B == 4 and dt == torch.bfloat16:
+                    rows["intrablock_gather_matmul"] = dict(
+                        line, shape=f"decode x ({B},{K}) gathered by row_idx ({Kc},) @ w_comp "
+                                    f"({Kc},{N}), row-aligned IntraBlock(4,1,0.5), bf16",
+                        library="torch.matmul on the decompressed masked-dense weight")
+                del sets, x, w_comp, row_idx, dense
+
+    # -- bit-serial zero profile: int8 activations of the §IV-B profile -------
+    # (V, K): 2048 tokens of the d_model and d_ff inputs, a ragged case and
+    # n_bits < 8; exact equality.  No single PyTorch call computes the
+    # count, so these rows have no library time.
+    from repro_torch.core.input_sparsity import quantize_int8
+    from repro_torch.kernels import bitserial_profile as bsp_mod
+    for (V, K, n_bits) in [(2048, 2560, 8), (2048, 9728, 8), (100, 100, 8), (100, 100, 5)]:
+        sets = []
+        for _ in range(n_copies(V * K)):
+            q = quantize_int8(torch.randn(V, K, generator=g, device="cuda"))
+            q[0, :4] = -128
+            sets.append((q,))
+        q = sets[0][0]
+        out = bsp_mod.bitserial_zero_profile_cuda(q, GROUP_ROWS, n_bits)
+        plain = ref.bitserial_zero_profile_ref(q, GROUP_ROWS, n_bits)
+        name = f"bitserial_zero_profile V={V} K={K} g={GROUP_ROWS} n_bits={n_bits} int8"
+        check(out.tolist() == plain.tolist(), f"{name}: kernel {out.tolist()} != plain "
+                                              f"{plain.tolist()}")
+        line = {"max_abs_err": 0.0, "tol": "exact", "counts": out.tolist(),
+                "ms": cuda_ms(lambda a: bsp_mod.bitserial_zero_profile_cuda(
+                    a, GROUP_ROWS, n_bits), sets),
+                "plain_ms": cuda_ms(lambda a: ref.bitserial_zero_profile_ref(
+                    a, GROUP_ROWS, n_bits), sets),
+                "library_ms": None,
+                **bound(V * K + 8, 2 * V * K, F32_FLOPS)}
+        report(name, line)
+        if (V, K) == (2048, 9728):
+            rows["bitserial_zero_profile"] = dict(
+                line, shape=f"q ({V},{K}) int8, groups of {GROUP_ROWS}, 8 bits",
+                library="none: no single PyTorch call computes the zero-plane count")
+        del sets, q
     return rows
 
 
@@ -266,7 +367,6 @@ def main_path(cfg, rows: dict) -> None:
     from repro_torch.core.pruning import block_losses, keep_from_losses
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.sparsity.apply import compress_params, prune_params, sparsity_report
 
     spec = FlexBlockSpec((FullBlock(BLOCK, BLOCK, 0.5),))
@@ -310,6 +410,24 @@ def main_path(cfg, rows: dict) -> None:
     print(f"[prune] compressed w_comp (L, Gn, slots, bm, bn): {json.dumps(comp)}; "
           f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
 
+    prompts, reqs, counts = serve_phase(cfg, cparams)
+    # ---- end of the main path ------------------------------------------------
+    for name in ("flash_attention", "block_sparse_matmul", "block_importance"):
+        check(counts[name] > 0, f"{name} was not launched on the llama3-8b path")
+        rows[name]["launches"] = counts[name]
+
+    parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15,
+                 faults=fullblock_faults(cfg, cparams))
+
+
+def serve_phase(cfg, cparams):
+    """Serve 8 requests (prompts of 100..512 tokens from numpy seed 0, 32
+    new tokens each) through ``ServeEngine(slots=4, max_len=1024)``; read
+    the launch counts at the end of serving.  Returns (prompts, requests,
+    counts)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request, ServeEngine
+
     rng = np.random.default_rng(SEED)
     lens = rng.integers(100, 513, size=8)
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
@@ -323,24 +441,39 @@ def main_path(cfg, rows: dict) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    # ---- end of the main path ------------------------------------------------
     snap = engine.stats_snapshot()
     for i, r in enumerate(reqs):
         check(r.done and len(r.output) == 32 and r.reject_reason is None,
               f"request {i}: done={r.done} tokens={len(r.output or [])}")
     decode_tokens = snap["tokens_generated"] - len(reqs)
-    print(f"[serve] 8 requests, prompt lengths {lens.tolist()}, 32 new tokens each: all done "
-          f"in {wall:.2f}s wall; TTFT p50 {snap['ttft_s']['p50'] * 1e3:.1f} ms; "
+    print(f"[serve] {cfg.name}: 8 requests, prompt lengths {lens.tolist()}, 32 new tokens "
+          f"each: all done in {wall:.2f}s wall; TTFT p50 {snap['ttft_s']['p50'] * 1e3:.1f} ms; "
           f"step p50 {snap['token_latency_s']['p50'] * 1e3:.2f} ms over {snap['steps']} steps; "
           f"{snap['tokens_per_s']:.1f} tokens/s (engine busy time, prefill included); "
           f"{decode_tokens} decode tokens", flush=True)
-    print(f"[serve] launches on the main path: {json.dumps(counts)}", flush=True)
-    for name, n in counts.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    print(f"[serve] {cfg.name}: launches on the path: {json.dumps(counts)}", flush=True)
 
-    parity_phase(cfg, cparams, prompts, [r.output for r in reqs])
-    for name in rows:
-        rows[name]["launches"] = counts[name]
+    # Host or device: time the host's issue of one 4-slot decode step (the
+    # path has no synchronisation inside decode_step) against the time to
+    # its end on the card.  Issue close to the whole step means the card
+    # waits on the host.
+    from repro_torch.models.transformer import decode_step
+    cache = dict(engine.cache, pos=torch.full((4,), 600, dtype=torch.int64, device="cuda"))
+    tokens = torch.zeros(4, dtype=torch.int64, device="cuda")
+    issue, step = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_step(cparams, tokens, cfg, cache, impl="auto")
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        issue.append(t1 - t0)
+        step.append(time.perf_counter() - t0)
+    issue, step = sorted(issue[1:])[2], sorted(step[1:])[2]
+    print(f"[serve] {cfg.name}: one decode step, median of 5: host issue {issue * 1e3:.2f} ms, "
+          f"to its end on the card {step * 1e3:.2f} ms (issue {issue / step:.0%} of the step)",
+          flush=True)
+    return prompts, reqs, counts
 
 
 def step_logits(cparams, cfg, prompt: np.ndarray, impl: str, feed=()) -> torch.Tensor:
@@ -358,25 +491,59 @@ def step_logits(cparams, cfg, prompt: np.ndarray, impl: str, feed=()) -> torch.T
     return torch.stack(out)
 
 
-def parity_phase(cfg, cparams, prompts, served) -> None:
+def fullblock_faults(cfg, cparams) -> dict:
+    """Planted faults in layer 16's w_down (shared w_comp, copied idx):
+    the whole projection left out, and one live 128x128 block dropped."""
+    from repro_torch.models.layers import BlockSparseLinear
+
+    wd, l = cparams["layers"]["w_down"], cfg.n_layers // 2
+    faults = {}
+    for what in ("w_down of one layer left out", "one block of one layer dropped"):
+        idx = wd.idx.clone()
+        if what.startswith("w_down"):
+            idx[l] = -1
+        else:
+            idx[l, 0, int((idx[l, 0] >= 0).nonzero()[0])] = -1
+        faults[what] = dict(cparams, layers=dict(cparams["layers"], w_down=BlockSparseLinear(
+            wd.w_comp, idx, wd.in_features, wd.out_shape)))
+    return faults
+
+
+def intrablock_faults(cfg, cparams) -> dict:
+    """Planted faults in layer 18's w_down: its w_comp zeroed (the whole
+    projection left out), and its row_idx moved to the neighbouring row
+    of each pair (r xor 1: every gathered input is the wrong one, each
+    still inside its 4-row block)."""
+    from repro_torch.models.layers import IntraBlockLinear
+
+    wd, l = cparams["layers"]["w_down"], cfg.n_layers // 2
+    zeroed = wd.w_comp.clone()
+    zeroed[l] = 0
+    shifted = wd.row_idx.clone()
+    shifted[l] ^= 1
+    bad = {"w_down of one layer left out": IntraBlockLinear(
+               zeroed, wd.row_idx, wd.in_features, wd.out_shape),
+           "w_down row_idx of one layer shifted to the neighbouring row": IntraBlockLinear(
+               wd.w_comp, shifted, wd.in_features, wd.out_shape)}
+    return {what: dict(cparams, layers=dict(cparams["layers"], w_down=w))
+            for what, w in bad.items()}
+
+
+def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> None:
     """The served path against ``impl="ref"`` on the same compressed weights.
 
     Logits: the last prompt token of all 8 prompts, plus 4 decode steps of
     the first request fed its served tokens, kernels vs plain.  Greedy
     tokens: each served token against the plain path's argmax, required
     to agree where the plain top-2 margin exceeds 2*tol (a smaller margin
-    can flip within the tolerance).  Two faults planted in a copy of the
-    weights give the logit error that a wrong path shows; the first must
-    exceed the tolerance.  Last, the served logits must be f32 products,
+    can flip within the tolerance).  ``faults`` maps a name to a copy of
+    the params with a fault planted in it; the logit error each gives is
+    reported, and the first must exceed the tolerance.  Last, the served logits must be f32 products,
     as the reference's ``preferred_element_type=f32`` unembedding gives.
     """
-    from repro_torch.models.layers import BlockSparseLinear, rms_norm
+    from repro_torch.models.layers import rms_norm
     from repro_torch.models.transformer import _run
 
-    # Logits have std ~1 at this init.  On an H100 the kernel path stays
-    # within 0.07 of the plain one (bf16 over 32 layers), while leaving out
-    # one layer's w_down moves them by 0.38: 0.15 sits between the two.
-    tol = 0.15
     feed = served[0][:4]
     auto = [step_logits(cparams, cfg, prompts[0], "auto", feed)]
     plain = [step_logits(cparams, cfg, prompts[0], "ref", feed)]
@@ -393,48 +560,182 @@ def parity_phase(cfg, cparams, prompts, served) -> None:
     picked = plain.argmax(dim=1).tolist()
     decided = [i for i, m in enumerate(margins) if m > 2 * tol]
     wrong = [i for i in decided if picked[i] != want[i]]
-    print(f"[parity] kernels vs impl=ref over {len(margins)} steps (8 prompts' last token, "
-          f"4 decode steps of request 0): max |dlogit| {err.max().item():.4f} (tol {tol}), "
-          f"per step {[round(e, 4) for e in err.tolist()]}", flush=True)
-    print(f"[parity] served tokens vs impl=ref argmax: agree on "
+    print(f"[parity] {cfg.name}: kernels vs impl=ref over {len(margins)} steps (8 prompts' last "
+          f"token, 4 decode steps of request 0): max |dlogit| {err.max().item():.4f} "
+          f"(tol {tol}), per step {[round(e, 4) for e in err.tolist()]}", flush=True)
+    print(f"[parity] {cfg.name}: served tokens vs impl=ref argmax: agree on "
           f"{sum(p == w for p, w in zip(picked, want))} of {len(want)} steps; "
           f"{len(decided)} steps have a ref top-2 margin above 2*tol and must agree, "
           f"{len(wrong)} do not; margins {[round(m, 4) for m in margins]}", flush=True)
 
-    # Planted faults in layer 16's w_down (shared w_comp, copied idx):
-    # the whole projection left out, and one live 128x128 block dropped.
-    wd, l = cparams["layers"]["w_down"], cfg.n_layers // 2
-    faults = {}
-    for what in ("w_down of one layer left out", "one block of one layer dropped"):
-        idx = wd.idx.clone()
-        if what.startswith("w_down"):
-            idx[l] = -1
-        else:
-            idx[l, 0, int((idx[l, 0] >= 0).nonzero()[0])] = -1
-        bad = dict(cparams, layers=dict(cparams["layers"], w_down=BlockSparseLinear(
-            wd.w_comp, idx, wd.in_features, wd.out_shape)))
-        got = step_logits(bad, cfg, prompts[0], "auto", feed)
-        faults[what] = (got - plain[:5]).abs().max().item()
-    print(f"[parity] planted faults, max |dlogit| vs impl=ref on request 0: "
-          + json.dumps({k: round(v, 4) for k, v in faults.items()}), flush=True)
+    fault_err = {what: (step_logits(bad, cfg, prompts[0], "auto", feed) - plain[:5])
+                 .abs().max().item() for what, bad in faults.items()}
+    print(f"[parity] {cfg.name}: planted faults, max |dlogit| vs impl=ref on request 0: "
+          + json.dumps({k: round(v, 4) for k, v in fault_err.items()}), flush=True)
 
     # f32 unembedding: the served prefill logits against an f32 product
-    # of the final hidden state and the whole lm_head widened to f32.
+    # of the final hidden state and the whole unembedding widened to f32.
     x, _, _ = _run(cparams, torch.as_tensor(prompts[0], dtype=torch.long,
                                              device="cuda")[None], cfg, "auto", False)
     h = rms_norm(x[0, -1:], cparams["final_norm"], cfg.norm_eps)
-    w = cparams["lm_head"]
+    w = cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]
     f32 = (h.float() @ w.float())[0]
     rounded = (h @ w).float()[0]
     e32 = (auto[0] - f32).abs().max().item()
     e16 = (rounded - f32).abs().max().item()
-    print(f"[parity] served prefill logits vs an f32 unembedding: max |d| {e32:.3e} "
-          f"(tol 1e-4); bf16-rounded logits would differ by {e16:.3e}", flush=True)
+    del f32, rounded
+    print(f"[parity] {cfg.name}: served prefill logits vs an f32 unembedding: max |d| "
+          f"{e32:.3e} (tol 1e-4); bf16-rounded logits would differ by {e16:.3e}", flush=True)
     check(err.max().item() <= tol, f"logits differ by {err.max().item()} > {tol}")
     check(not wrong, f"served tokens differ from impl=ref at decided steps {wrong}")
-    check(faults["w_down of one layer left out"] > tol,
-          f"a missing projection stays within the logit tolerance {tol}")
+    first = next(iter(fault_err))
+    check(fault_err[first] > tol, f"{first}: stays within the logit tolerance {tol}")
     check(e32 <= 1e-4, f"served logits are not f32 products: {e32} > 1e-4")
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-5: the qwen3-4b IntraBlock path and its §IV-B profile
+# ---------------------------------------------------------------------------
+
+def intrablock_path(cfg, rows: dict) -> None:
+    from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sparsity.apply import compress_params, prune_params, sparsity_report
+
+    spec = FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),))
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    n_all = sum(t.numel() for t in params["layers"].values()) + params["embed"].numel()
+    print(f"[prune] init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_all / 1e9:.3f} G params (tied embedding included) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    # ---- the IntraBlock path: counts from here to the end of serving -------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, masks = prune_params(params, spec, keys=KEYS, align_cols=True, impl="auto",
+                                 device="cuda")
+    rep = sparsity_report(params, masks)
+    aligned = {}
+    for key in KEYS:
+        m = masks["layers"][key]
+        m = m.reshape(m.shape[0], m.shape[1], -1)
+        aligned[key] = bool(torch.equal(m, m[:, :, :1].expand_as(m)))
+    cparams = compress_params(params, masks, m=INTRA_M)
+    del params, masks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[prune] {cfg.name}: IntraBlock({INTRA_M},1,0.5) row-aligned, pruned + compressed "
+          f"in {time.perf_counter() - t0:.1f}s; density "
+          + json.dumps({k.split('/')[-1]: round(v, 6) for k, v in rep.items()})
+          + f"; row-aligned {json.dumps(aligned)}", flush=True)
+    for key in KEYS:
+        check(abs(rep[f"layers/{key}"] - 0.5) < 1e-9, f"{key}: density {rep[f'layers/{key}']}")
+        check(aligned[key], f"{key}: a mask is not row-aligned")
+    comp = {k: [tuple(cparams["layers"][k].w_comp.shape),
+                tuple(cparams["layers"][k].row_idx.shape)] for k in KEYS}
+    print(f"[prune] {cfg.name}: compressed w_comp (L, Kc, N), row_idx (L, Kc): "
+          f"{json.dumps(comp)}; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+
+    prompts, reqs, counts = serve_phase(cfg, cparams)
+    # ---- end of the IntraBlock path ------------------------------------------
+    for name in ("intrablock_gather_matmul", "flash_attention"):
+        check(counts[name] > 0, f"{name} was not launched on the {cfg.name} path")
+    check(counts["block_sparse_matmul"] == 0, "a FullBlock matmul ran on the IntraBlock path")
+    rows["intrablock_gather_matmul"]["launches"] = counts["intrablock_gather_matmul"]
+
+    # Logits have std ~1 at this init.  On an H100 the kernel path stays
+    # within 0.068 of the plain one (bf16 over 36 layers), while leaving out
+    # layer 18's w_down moves them by 0.40: 0.15 sits between the two.
+    parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15,
+                 faults=intrablock_faults(cfg, cparams))
+    profile_phase(cfg, cparams, prompts, rows)
+
+
+def profile_phase(cfg, cparams, prompts, rows: dict) -> None:
+    """§IV-B: the skippable bit-serial ratio of every pruned projection's
+    input, from the 8 prompts' prefill concatenated over tokens, int8, in
+    groups of GROUP_ROWS; each (layer, kind) held to the plain count."""
+    from repro_torch.core.input_sparsity import (capture_mlp_activations,
+                                                 profile_activations, quantize_int8)
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import _run
+
+    kinds = ("attn_in", "mlp_in", "down_in")
+    names = [f"l{l:02d}/{k}" for l in range(cfg.n_layers) for k in kinds]
+
+    def apply_fn(params, prompt_list):
+        parts = {}
+        for p in prompt_list:
+            tokens = torch.as_tensor(p, dtype=torch.long, device="cuda")[None]
+            _run(params, tokens, cfg, "auto", False,
+                 tap=lambda l, k, a: parts.setdefault(f"l{l:02d}/{k}", []).append(a[0]))
+        return None, {k: torch.cat(v) for k, v in parts.items()}
+
+    t0 = time.perf_counter()
+    acts = capture_mlp_activations(apply_fn, cparams, prompts, names)
+    torch.cuda.synchronize()
+    n_tok = acts[names[0]].shape[0]
+    held = sum(a.numel() * a.element_size() for a in acts.values())
+    t_cap = time.perf_counter() - t0
+
+    # ---- the profile: counts over this call only -------------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ratios = profile_activations(acts, GROUP_ROWS)
+    t_prof = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # ---- end of the profile ------------------------------------------------------
+    check(counts["bitserial_zero_profile"] == len(names),
+          f"bitserial_zero_profile launched {counts['bitserial_zero_profile']} times, "
+          f"want {len(names)}")
+    rows["bitserial_zero_profile"]["launches"] = counts["bitserial_zero_profile"]
+
+    differ = []
+    for name, a in acts.items():
+        q = quantize_int8(a.reshape(-1, a.shape[-1]))
+        k = ops.bitserial_zero_profile(q, GROUP_ROWS, impl="cuda").tolist()
+        p = ops.bitserial_zero_profile(q, GROUP_ROWS, impl="ref").tolist()
+        if k != p:
+            differ.append((name, k, p))
+    summary = {}
+    for kind in kinds:
+        vals = [ratios[f"l{l:02d}/{kind}"] for l in range(cfg.n_layers)]
+        summary[kind] = {"min": min(vals), "mean": sum(vals) / len(vals), "max": max(vals),
+                         "features": acts[f"l00/{kind}"].shape[-1]}
+    print(f"[profile] {cfg.name}: {n_tok} prefill tokens of 8 prompts, {len(names)} "
+          f"(layer, kind) activations ({held / 2**30:.2f} GiB bf16 held) captured in "
+          f"{t_cap:.2f}s, profiled in {t_prof:.2f}s; int8, groups of {GROUP_ROWS} rows, 8 bits; "
+          f"skippable ratio per kind over {cfg.n_layers} layers: {json.dumps(summary)}",
+          flush=True)
+    print(f"[profile] kernel vs plain [skippable, total]: {len(names) - len(differ)} of "
+          f"{len(names)} (layer, kind) pairs equal; launches {json.dumps(counts)}", flush=True)
+    check(not differ, f"bit-serial counts differ kernel vs plain: {differ[:4]}")
+    check(all(0.0 <= r <= 1.0 for r in ratios.values()), "a skippable ratio outside [0, 1]")
+
+
+def microbench_phase() -> None:
+    """``microbench_kernels`` on the card; its samples go to JSONL under
+    build/ and must read back unchanged."""
+    from repro_torch.calibrate.harvest import microbench_kernels, read_samples, write_samples
+
+    rep = microbench_kernels(sizes=(256, 512), repeats=3)
+    path = write_samples(rep.samples, HERE / "build" / "microbench_samples.jsonl", append=False)
+    back = read_samples(path)
+    for s in rep.samples:
+        meta = dict(s.meta)
+        print(f"[microbench] {s.op_class} {meta['shape']}: {s.time_s * 1e3:.4f} ms, "
+              f"{s.flops / s.time_s / 1e12:.3f} TFLOP/s, {s.bytes / s.time_s / 1e9:.1f} GB/s "
+              f"({meta['impl']}, {meta['device']})", flush=True)
+    check(len(rep.samples) == 8, f"{len(rep.samples)} microbench samples, want 8")
+    check(all(dict(s.meta)["impl"] == "cuda" and s.time_s > 0 for s in rep.samples),
+          "a microbench sample is not a timed CUDA sample")
+    check(back == rep.samples, "microbench samples do not read back unchanged")
+    print(f"[microbench] {len(back)} samples written to {path.relative_to(HERE)} and read back "
+          f"unchanged", flush=True)
 
 
 def main() -> int:
@@ -451,7 +752,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     t0 = time.perf_counter()
@@ -459,16 +761,33 @@ def main() -> int:
     print(f"[build] {len(libs)} kernels built from src/repro_torch/kernels/csrc in "
           f"{time.perf_counter() - t0:.1f}s: {sorted(libs)}", flush=True)
 
-    sources = {"flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:94"),
-               "block_sparse_matmul": ("cuda",
-                                       "src/repro_torch/kernels/csrc/block_sparse_matmul.cu",
-                                       "src/repro/kernels/block_sparse_matmul.py:49"),
-               "block_importance": ("cuda", "src/repro_torch/kernels/csrc/block_importance.cu",
-                                    "src/repro/kernels/block_importance.py:34")}
+    csrc, kdir = "src/repro_torch/kernels/csrc", "src/repro/kernels"
+    sources = {"flash_attention": ("cuda", f"{csrc}/flash_attention.cu",
+                                   f"{kdir}/flash_attention.py:94"),
+               "block_sparse_matmul": ("cuda", f"{csrc}/block_sparse_matmul.cu",
+                                       f"{kdir}/block_sparse_matmul.py:49"),
+               "block_importance": ("cuda", f"{csrc}/block_importance.cu",
+                                    f"{kdir}/block_importance.py:34"),
+               "intrablock_gather_matmul": ("cuda", f"{csrc}/intrablock_matmul.cu",
+                                            f"{kdir}/intrablock_matmul.py:41"),
+               "bitserial_zero_profile": ("cuda", f"{csrc}/bitserial_profile.cu",
+                                          f"{kdir}/bitserial_profile.py:41")}
     try:
+        t0 = time.perf_counter()
         rows = kernel_phase()
+        print(f"[time] kernels phase {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
         main_path(get_config("llama3-8b"), rows)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] llama3-8b path {time.perf_counter() - t0:.1f}s; device memory after "
+              f"freeing it {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+        t0 = time.perf_counter()
+        intrablock_path(get_config("qwen3-4b"), rows)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] qwen3-4b path {time.perf_counter() - t0:.1f}s", flush=True)
+        microbench_phase()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

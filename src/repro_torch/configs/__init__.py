@@ -8,6 +8,7 @@ from .base import ArchConfig
 
 _ARCH_MODULES = {
     "llama3-8b": "llama3_8b",
+    "qwen3-4b": "qwen3_4b",
 }
 
 

@@ -1,10 +1,19 @@
-"""FullBlock pruning (paper §IV-D) on tensors, on their own device.
+"""FlexBlock pruning (paper §IV-D) on tensors, on their own device.
 
-Port of ``block_losses``, ``fullblock_mask`` and ``flexblock_mask`` of
-``repro/core/pruning.py``.  The Eq. 1 block losses come from the
-``block_importance`` op, so on a CUDA tensor they run in the Hopper
-kernel.  The ``r·n_blocks`` lowest-loss blocks are pruned; ties break by
-block index exactly as the reference's stable argsort does.
+Port of ``block_losses``, ``fullblock_mask``, ``intrablock_mask`` and
+``flexblock_mask`` of ``repro/core/pruning.py``.
+
+* FullBlock: the Eq. 1 block losses come from the ``block_importance``
+  op, so on a CUDA tensor they run in the Hopper kernel.  The
+  ``r·n_blocks`` lowest-loss blocks are pruned; ties break by block
+  index exactly as the reference's stable argsort does.
+* IntraBlock: per block, the pattern that keeps the most importance
+  (Eq. 2): top-φ with stable ties for the full pattern set, else the
+  first best pattern of ``pattern_set``.  ``align_cols`` shares one
+  pattern per row-block across every column.  ρ(w) is taken in the
+  weight's dtype as the reference does; the column sums of
+  ``align_cols`` are taken in f32 (the reference sums in the array's
+  dtype, so for bf16 weights near-ties may order differently).
 """
 from __future__ import annotations
 
@@ -13,10 +22,10 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
-from .flexblock import FlexBlockSpec, FullBlock
+from .flexblock import FlexBlockSpec, FullBlock, IntraBlock
 
 __all__ = ["block_losses", "keep_from_losses", "fullblock_keep", "fullblock_mask",
-           "flexblock_mask"]
+           "intrablock_mask", "flexblock_mask"]
 
 
 def block_losses(w: torch.Tensor, m: int, n: int, criterion: str = "l1", *,
@@ -71,13 +80,57 @@ def fullblock_mask(w: torch.Tensor, pattern: FullBlock, criterion: str = "l1", *
     return _expand(keep, p.m, p.n, w.shape)
 
 
+def intrablock_mask(w: torch.Tensor, pattern: IntraBlock, criterion: str = "l1", *,
+                    align_cols: bool = False) -> torch.Tensor:
+    """Binary keep-mask (bool) for IntraBlock sparsity via Eq. 2.
+
+    For the default (exhaustive) pattern set this is top-φ magnitude
+    selection per block; for a restricted ``pattern_set`` each block
+    takes ``argmax_P Σ_{P=1} ρ(w)`` (the first on ties).  With
+    ``align_cols`` the importance is summed over the column grid, so one
+    pattern per row-block is shared by every column: such masks compress
+    to a row subset (:func:`~repro_torch.kernels.ops.compress_intrablock_torch`).
+    """
+    if criterion not in ("l1", "l2"):
+        raise ValueError(f"criterion must be l1 or l2, got {criterion!r}")
+    m, n = pattern.m, pattern.n
+    M, N = w.shape
+    pm, pn = (-M) % m, (-N) % n
+    if pm or pn:
+        w = torch.nn.functional.pad(w, (0, pn, 0, pm))
+    gm, gn = w.shape[0] // m, w.shape[1] // n
+    rho = w.abs() if criterion == "l1" else w.square()
+    # (gm, gn, m*n) per-block element importances
+    imp = rho.reshape(gm, m, gn, n).permute(0, 2, 1, 3).reshape(gm, gn, m * n)
+    if align_cols:
+        # one shared pattern per row-block: the column-broadcast sums give
+        # every column the same choice, so choose once and expand
+        imp = imp.float().sum(dim=1, keepdim=True)
+    if pattern.pattern_set is None:
+        top = torch.sort(-imp, dim=-1, stable=True).indices[..., :pattern.phi]
+        keep = torch.zeros(imp.shape, dtype=torch.bool, device=w.device)
+        keep.scatter_(-1, top, True)
+    else:
+        pats = torch.tensor(pattern.patterns(), dtype=torch.float64, device=w.device)
+        best = torch.argmax(imp.double() @ pats.T, dim=-1)             # (gm, gn')
+        keep = pats[best].to(torch.bool)
+    keep = keep.expand(gm, gn, m * n)
+    mask = keep.reshape(gm, gn, m, n).permute(0, 2, 1, 3).reshape(gm * m, gn * n)
+    return mask[:M, :N]
+
+
 def flexblock_mask(w: torch.Tensor, spec: FlexBlockSpec, criterion: str = "l1", *,
-                   impl: str = "auto") -> torch.Tensor:
-    """The spec's keep-mask (bool).  Only FullBlock specs are ported."""
+                   align_cols: bool = False, impl: str = "auto") -> torch.Tensor:
+    """Compose the spec's patterns into one keep-mask (bool).
+
+    Coarse FullBlock first, then IntraBlock on the surviving weights
+    ``w * mask``, as the §IV-D workflow (and the reference) orders them.
+    """
     spec = spec.bind(tuple(w.shape))
     spec.validate_for(tuple(w.shape))
+    mask = torch.ones(w.shape, dtype=torch.bool, device=w.device)
+    if spec.full is not None:
+        mask &= fullblock_mask(w, spec.full, criterion, impl=impl)
     if spec.intra is not None:
-        raise NotImplementedError("IntraBlock pruning is not ported to repro_torch yet")
-    if spec.is_dense:
-        return torch.ones(w.shape, dtype=torch.bool, device=w.device)
-    return fullblock_mask(w, spec.full, criterion, impl=impl)
+        mask &= intrablock_mask(w * mask, spec.intra, criterion, align_cols=align_cols)
+    return mask

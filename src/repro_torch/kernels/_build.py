@@ -47,6 +47,15 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "bi_bf16": [P, P, I, I, I, I, I, P],
         "bi_f32": [P, P, I, I, I, I, I, P],
     },
+    "intrablock_matmul": {
+        # x, w_comp, row_idx, y, B, K, Kc, N, stream
+        "igm_bf16": [P, P, P, P, I, I, I, I, P],
+        "igm_f32": [P, P, P, P, I, I, I, I, P],
+    },
+    "bitserial_profile": {
+        # q, counter (8 bytes scratch), out (int32[2]), V, K, group_rows, n_bits, stream
+        "bsp_count": [P, P, P, I, I, I, I, P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -18,18 +18,23 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from . import bitserial_profile as _bsp
 from . import block_importance as _bi
 from . import block_sparse_matmul as _bsm
 from . import flash_attention as _fa
+from . import intrablock_matmul as _igm
 from . import ref as _ref
 
 __all__ = ["IMPLS", "compress_fullblock", "compress_fullblock_torch",
-           "block_sparse_matmul", "block_importance", "flash_attention",
+           "compress_intrablock", "compress_intrablock_torch", "decompress_intrablock",
+           "block_sparse_matmul", "intrablock_gather_matmul", "block_importance",
+           "bitserial_zero_profile", "flash_attention",
            "launch_counts", "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "ref")
 _KERNELS = {"flash_attention": _fa, "block_sparse_matmul": _bsm,
-            "block_importance": _bi}
+            "block_importance": _bi, "intrablock_gather_matmul": _igm,
+            "bitserial_zero_profile": _bsp}
 
 
 def _resolve(impl: str, t: torch.Tensor) -> str:
@@ -107,6 +112,69 @@ def compress_fullblock_torch(w: torch.Tensor, keep: torch.Tensor, bm: int, bn: i
     return w_comp.contiguous(), idx
 
 
+def compress_intrablock(w: np.ndarray, mask: np.ndarray,
+                        m: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pack a *row-aligned* IntraBlock(m,1)-pruned matrix (numpy).
+
+    A copy of ``repro.kernels.ops.compress_intrablock``.  When the
+    survivors of every m-row block sit in the same rows for every column
+    (``intrablock_mask(..., align_cols=True)``), compression is a row
+    subset: ``w_comp`` (Kc, N) = ``w[row_idx]`` with ``row_idx`` (Kc,)
+    int32.  Raises if the mask is not row-aligned or the survivor counts
+    are not uniform per block.
+    """
+    K, N = w.shape
+    if K % m:
+        raise ValueError(f"K={K} not a multiple of intra block m={m}")
+    nblocks = K // m
+    mb = mask.reshape(nblocks, m, N).astype(bool)
+    if not np.all(mb == mb[:, :, :1]):
+        raise ValueError(
+            "mask is not row-aligned across columns; per-column IntraBlock "
+            "has no gather layout — use decompress_intrablock()")
+    pattern = mb[:, :, 0]                       # (nblocks, m)
+    counts = pattern.sum(axis=1)
+    phi = int(counts.max())
+    if phi == 0:
+        raise ValueError("mask keeps nothing")
+    if not np.all(counts == phi):
+        raise ValueError(f"non-uniform survivors per block: {set(counts.tolist())}")
+    row_idx = np.nonzero(pattern.reshape(-1))[0].astype(np.int32)   # (nblocks*phi,)
+    w_comp = np.ascontiguousarray(w[row_idx, :])
+    return w_comp, row_idx
+
+
+def decompress_intrablock(w: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """General per-column IntraBlock: masked-dense weights (numpy copy of
+    the reference's)."""
+    return np.asarray(w) * np.asarray(mask, dtype=w.dtype)
+
+
+def compress_intrablock_torch(w: torch.Tensor, mask: torch.Tensor,
+                              m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compress_intrablock` on the tensor's own device.
+
+    Gives the same bytes and raises the same errors as the numpy version.
+    """
+    K, N = w.shape
+    if K % m:
+        raise ValueError(f"K={K} not a multiple of intra block m={m}")
+    mb = mask.reshape(K // m, m, N).to(torch.bool)
+    pattern = mb[:, :, 0]                                          # (nblocks, m)
+    if not torch.equal(mb, pattern[:, :, None].expand_as(mb)):
+        raise ValueError(
+            "mask is not row-aligned across columns; per-column IntraBlock "
+            "has no gather layout — use decompress_intrablock()")
+    counts = pattern.sum(dim=1)
+    phi = int(counts.max()) if counts.numel() else 0
+    if phi == 0:
+        raise ValueError("mask keeps nothing")
+    if not bool((counts == phi).all()):
+        raise ValueError(f"non-uniform survivors per block: {set(counts.tolist())}")
+    row_idx = torch.nonzero(pattern.reshape(-1)).reshape(-1).to(torch.int32)
+    return w[row_idx.long()].contiguous(), row_idx
+
+
 # ---------------------------------------------------------------------------
 # Dispatch wrappers
 # ---------------------------------------------------------------------------
@@ -117,6 +185,24 @@ def block_sparse_matmul(x: torch.Tensor, w_comp: torch.Tensor, idx: torch.Tensor
     if _resolve(impl, x) == "ref":
         return _ref.block_sparse_matmul_ref(x, w_comp, idx)
     return _bsm.block_sparse_matmul_cuda(x, w_comp, idx)
+
+
+def intrablock_gather_matmul(x: torch.Tensor, w_comp: torch.Tensor, row_idx: torch.Tensor, *,
+                             impl: str = "auto", check_range: bool = True) -> torch.Tensor:
+    """``x[:, row_idx] @ w_comp``: x (B, K), w_comp (Kc, N), row_idx (Kc,)
+    int32 → (B, N).  ``check_range`` as in
+    :func:`~repro_torch.kernels.intrablock_matmul.intrablock_gather_matmul_cuda`."""
+    if _resolve(impl, x) == "ref":
+        return _ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
+    return _igm.intrablock_gather_matmul_cuda(x, w_comp, row_idx, check_range=check_range)
+
+
+def bitserial_zero_profile(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
+                           impl: str = "auto") -> torch.Tensor:
+    """int32 ``[skippable, total]`` zero-plane slots of int8 q (V, K)."""
+    if _resolve(impl, q) == "ref":
+        return _ref.bitserial_zero_profile_ref(q, group_rows, n_bits)
+    return _bsp.bitserial_zero_profile_cuda(q, group_rows, n_bits)
 
 
 def block_importance(w: torch.Tensor, bm: int, bn: int, criterion: str = "l1", *,

@@ -13,7 +13,8 @@ from typing import Optional
 import torch
 
 __all__ = ["flash_attention_ref", "block_sparse_matmul_ref",
-           "block_importance_ref"]
+           "intrablock_gather_matmul_ref", "block_importance_ref",
+           "bitserial_zero_profile_ref", "check_slot_count"]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -56,6 +57,15 @@ def block_sparse_matmul_ref(x: torch.Tensor, w_comp: torch.Tensor,
     return acc.reshape(B, Gn * bn).to(x.dtype)
 
 
+def intrablock_gather_matmul_ref(x: torch.Tensor, w_comp: torch.Tensor,
+                                 row_idx: torch.Tensor) -> torch.Tensor:
+    """y = x[:, row_idx] @ w_comp: the row-aligned IntraBlock matmul, the
+    row gather standing in for the CIM mux input selection.  The sum is
+    taken in f32 and cast to ``x.dtype`` once, as the oracle does."""
+    xg = x[:, row_idx.long()]
+    return (xg.float() @ w_comp.float()).to(x.dtype)
+
+
 def block_importance_ref(w: torch.Tensor, bm: int, bn: int,
                          criterion: str = "l1") -> torch.Tensor:
     """Eq. 1 block losses: (M/bm, N/bn) f32 sums of ρ(w) per block."""
@@ -64,3 +74,36 @@ def block_importance_ref(w: torch.Tensor, bm: int, bn: int,
         raise ValueError(f"matrix {tuple(w.shape)} not divisible by block ({bm},{bn})")
     rho = w.abs() if criterion == "l1" else w.square()
     return rho.float().reshape(M // bm, bm, N // bn, bn).sum(dim=(1, 3))
+
+
+def check_slot_count(V: int, K: int, group_rows: int, n_bits: int) -> int:
+    """The slot count V·⌈K/g⌉·n_bits, raising where it does not fit int32
+    (the ``[skippable, total]`` result is int32 and must not wrap)."""
+    if group_rows < 1 or n_bits < 0:
+        raise ValueError(f"group_rows must be >= 1 and n_bits >= 0, got {group_rows}, {n_bits}")
+    total = V * (-(-K // group_rows)) * n_bits
+    if total >= 2**31:
+        raise ValueError(f"V*G*n_bits = {total} slots overflow the int32 result")
+    return total
+
+
+def bitserial_zero_profile_ref(q: torch.Tensor, group_rows: int,
+                               n_bits: int = 8) -> torch.Tensor:
+    """int32 ``[skippable, total]``: of the (vector, group, bit) slots of
+    int8 ``q`` (V, K), those whose bit b of |q| is 0 across the group.
+
+    K is zero-padded to whole groups (padding is skippable).  |−128| is
+    128, so its bit 7 is set.
+    """
+    V, K = q.shape
+    total = check_slot_count(V, K, group_rows, n_bits)
+    mag = q.to(torch.int32).abs()
+    pad = (-K) % group_rows
+    if pad:
+        mag = torch.nn.functional.pad(mag, (0, pad))
+    grouped = mag.reshape(V, mag.shape[1] // group_rows, group_rows)
+    skippable = torch.zeros((), dtype=torch.int64, device=q.device)
+    for b in range(n_bits):
+        group_or = ((grouped >> b) & 1).amax(dim=-1)
+        skippable += (group_or == 0).sum()
+    return torch.stack([skippable, skippable.new_tensor(total)]).to(torch.int32)

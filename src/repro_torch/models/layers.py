@@ -4,20 +4,23 @@ attention with GQA and windows, the attention sub-block and the gated
 MLP.
 
 Projections are either dense weights in the reference layout (``wq``
-(d, Hq, hd), ``wo`` (Hq, hd, d), ``w_up`` (d, F), ...) or
-:class:`BlockSparseLinear` modules holding the FullBlock-compressed
-layout, which run through the ``block_sparse_matmul`` op.
+(d, Hq, hd), ``wo`` (Hq, hd, d), ``w_up`` (d, F), ...) or compressed
+modules: :class:`BlockSparseLinear` holds the FullBlock layout and runs
+through the ``block_sparse_matmul`` op, :class:`IntraBlockLinear` holds
+the row-aligned IntraBlock layout and runs through the
+``intrablock_gather_matmul`` op.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..kernels.intrablock_matmul import check_row_idx
 
 Params = Dict[str, Any]
 
@@ -57,13 +60,53 @@ class BlockSparseLinear(nn.Module):
         return ops.block_sparse_matmul(x, self.w_comp, self.idx, impl=impl)
 
 
+class IntraBlockLinear(nn.Module):
+    """A row-aligned IntraBlock-compressed projection ``x @ W`` for a stack
+    of layers.
+
+    Holds ``w_comp`` (L, Kc, N), the surviving rows of each layer's (K, N)
+    matrix, and ``row_idx`` (L, Kc) int32, their rows in that matrix, plus
+    ``in_features`` (K) and the output shape of one token.  The indices
+    are checked to lie in [0, K) once, when the module is built, so the
+    per-call op skips that check (it would synchronise with the card on
+    every projection).  :meth:`layer` selects one layer; a per-layer
+    module maps (B, K) → (B, N) through the ``intrablock_gather_matmul`` op.
+    """
+
+    def __init__(self, w_comp: torch.Tensor, row_idx: torch.Tensor, in_features: int,
+                 out_shape: Tuple[int, ...], *, _checked: bool = False):
+        super().__init__()
+        if row_idx.dtype != torch.int32 or row_idx.shape != w_comp.shape[:-1]:
+            raise ValueError(f"row_idx must be int32 of shape {tuple(w_comp.shape[:-1])}, "
+                             f"got {row_idx.dtype} {tuple(row_idx.shape)}")
+        if not _checked:
+            check_row_idx(row_idx, in_features)
+        self.register_buffer("w_comp", w_comp)
+        self.register_buffer("row_idx", row_idx)
+        self.in_features = in_features
+        self.out_shape = tuple(out_shape)
+
+    def layer(self, l: int) -> "IntraBlockLinear":
+        return IntraBlockLinear(self.w_comp[l], self.row_idx[l], self.in_features,
+                                self.out_shape, _checked=True)
+
+    def forward(self, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+        if self.row_idx.dim() != 1:
+            raise ValueError("call a single layer: use .layer(l) first")
+        return ops.intrablock_gather_matmul(x, self.w_comp, self.row_idx, impl=impl,
+                                            check_range=False)
+
+
+COMPRESSED = (BlockSparseLinear, IntraBlockLinear)
+
+
 def project(x: torch.Tensor, w, impl: str = "auto", n_in: int = 1) -> torch.Tensor:
     """Contract the last ``n_in`` dims of ``x`` with the leading ``n_in``
     dims of a dense weight (e.g. ``wo`` (Hq, hd, d) takes ``n_in=2``), or
     run a compressed one."""
     lead = x.shape[:x.dim() - n_in]
     x2 = x.reshape(math.prod(lead), -1)
-    if isinstance(w, BlockSparseLinear):
+    if isinstance(w, COMPRESSED):
         return w(x2, impl).reshape(*lead, *w.out_shape)
     y = x2 @ w.reshape(x2.shape[1], -1)
     return y.reshape(*lead, *w.shape[n_in:])
@@ -221,7 +264,10 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_block(x: torch.Tensor, p: Params, cfg, impl: str = "auto") -> torch.Tensor:
+def mlp_block(x: torch.Tensor, p: Params, cfg, impl: str = "auto",
+              tap: Optional[Callable[[str, torch.Tensor], None]] = None) -> torch.Tensor:
+    """Gated (or plain) GELU MLP; ``tap("down_in", h)`` sees the input of
+    ``w_down`` when given."""
     # jax.nn.gelu defaults to the tanh approximation
     if cfg.gated_mlp:
         g = project(x, p["w_gate"], impl)
@@ -229,4 +275,6 @@ def mlp_block(x: torch.Tensor, p: Params, cfg, impl: str = "auto") -> torch.Tens
         h = F.gelu(g, approximate="tanh") * u
     else:
         h = F.gelu(project(x, p["w_up"], impl), approximate="tanh")
+    if tap is not None:
+        tap("down_in", h)
     return project(h, p["w_down"], impl)

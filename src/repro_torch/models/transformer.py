@@ -4,7 +4,8 @@
 Parameters are a plain dict laid out like the reference pytree: layer
 weights stacked on a leading L axis (``wq`` (L, d, Hq, hd), ``wo``
 (L, Hq, hd, d), ...), plus ``embed``, ``final_norm`` and ``lm_head``.
-A pruned projection may be a :class:`~.layers.BlockSparseLinear`
+A pruned projection may be a compressed module
+(:class:`~.layers.BlockSparseLinear` or :class:`~.layers.IntraBlockLinear`)
 instead of a dense tensor.  The reference's ``lax.scan`` over layers is
 a Python loop here.
 
@@ -18,13 +19,13 @@ Entry points:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from .layers import BlockSparseLinear, attention_block, mlp_block, rms_norm
+from .layers import COMPRESSED, attention_block, mlp_block, rms_norm
 
 __all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step"]
 
@@ -99,19 +100,24 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
 
 
 def _layer(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
-    return {k: (w.layer(l) if isinstance(w, BlockSparseLinear) else w[l])
+    return {k: (w.layer(l) if isinstance(w, COMPRESSED) else w[l])
             for k, w in layers.items()}
 
 
 def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, cache_kv=None,
-                   cache_len=None, impl: str = "auto"):
+                   cache_len=None, impl: str = "auto", tap=None):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if tap is not None:
+        tap("attn_in", h)
     mix, kv = attention_block(h, lp, cfg, positions=positions, cache_kv=cache_kv,
                               cache_len=cache_len, impl=impl)
     if cfg.post_norms:
         mix = rms_norm(mix, lp["post_ln1"], cfg.norm_eps)
     x = x + mix
-    ff = mlp_block(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg, impl)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if tap is not None:
+        tap("mlp_in", h)
+    ff = mlp_block(h, lp, cfg, impl, tap)
     if cfg.post_norms:
         ff = rms_norm(ff, lp["post_ln2"], cfg.norm_eps)
     return x + ff, kv
@@ -135,15 +141,20 @@ def _unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
-         keep_cache: bool):
+         keep_cache: bool, tap: Optional[Callable[[int, str, torch.Tensor], None]] = None):
+    """The decoder stack over full sequences.  ``tap(l, kind, act)``, when
+    given, sees the inputs of layer ``l``'s pruned projections as they are
+    made: ``attn_in`` (wq/wk/wv), ``mlp_in`` (w_gate/w_up) and
+    ``down_in`` (w_down), each (B, S, features) (the §IV-B profile)."""
     _check_supported(cfg)
     x = params["embed"][tokens]
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
     for l in range(cfg.n_layers):
+        layer_tap = None if tap is None else (lambda kind, a, l=l: tap(l, kind, a))
         x, (k, v) = _decoder_layer(x, _layer(params["layers"], l), cfg,
-                                   positions=positions, impl=impl)
+                                   positions=positions, impl=impl, tap=layer_tap)
         if keep_cache:
             ks.append(k)
             vs.append(v)

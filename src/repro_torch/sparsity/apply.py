@@ -7,9 +7,11 @@
   op, so on the card in the Hopper kernel.
 * ``sparsity_report`` — per-tensor density.
 * ``compress_params`` — replaces each masked projection with a
-  :class:`~repro_torch.models.layers.BlockSparseLinear` in the
-  ``compress_fullblock`` layout, which the model runs through the
-  ``block_sparse_matmul`` op.
+  compressed module: a :class:`~repro_torch.models.layers.BlockSparseLinear`
+  in the ``compress_fullblock`` layout (``block_sparse_matmul`` op), or,
+  for row-aligned IntraBlock masks, an
+  :class:`~repro_torch.models.layers.IntraBlockLinear` in the
+  ``compress_intrablock`` layout (``intrablock_gather_matmul`` op).
 """
 from __future__ import annotations
 
@@ -20,8 +22,8 @@ import torch
 from .. import resolve_device
 from ..core.flexblock import FlexBlockSpec
 from ..core.pruning import flexblock_mask
-from ..kernels.ops import compress_fullblock_torch
-from ..models.layers import BlockSparseLinear
+from ..kernels.ops import compress_fullblock_torch, compress_intrablock_torch
+from ..models.layers import BlockSparseLinear, IntraBlockLinear
 
 __all__ = ["PRUNABLE_KEYS", "prune_params", "sparsity_report", "compress_params"]
 
@@ -37,15 +39,17 @@ def _as_matrix(w: torch.Tensor) -> torch.Tensor:
 
 
 def prune_params(params: Dict[str, Any], spec: FlexBlockSpec, *, criterion: str = "l1",
-                 keys: Tuple[str, ...] = PRUNABLE_KEYS, impl: str = "auto",
-                 device: Optional[Union[str, torch.device]] = None
+                 align_cols: bool = False, keys: Tuple[str, ...] = PRUNABLE_KEYS,
+                 impl: str = "auto", device: Optional[Union[str, torch.device]] = None
                  ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Prune every eligible stacked layer weight; returns (params, masks).
 
     ``masks["layers"]`` mirrors ``params["layers"]``: a bool tensor of the
-    weight's shape per pruned key, None elsewhere.  The weights are moved
-    to ``device`` (default ``cuda``); the given tensors are left as they
-    were.
+    weight's shape per pruned key, None elsewhere.  ``align_cols`` shares
+    each IntraBlock pattern across the columns of a matrix (see
+    :func:`~repro_torch.core.pruning.intrablock_mask`).  The weights are
+    moved to ``device`` (default ``cuda``); the given tensors are left as
+    they were.
     """
     dev = resolve_device(device)
     layers = params["layers"]
@@ -62,7 +66,8 @@ def prune_params(params: Dict[str, Any], spec: FlexBlockSpec, *, criterion: str 
             if 1 in mat.shape:
                 mask[l] = True
                 continue
-            mask[l] = flexblock_mask(mat, spec, criterion, impl=impl).reshape(w.shape[1:])
+            mask[l] = flexblock_mask(mat, spec, criterion, align_cols=align_cols,
+                                     impl=impl).reshape(w.shape[1:])
         masks["layers"][name] = mask
         new_layers[name] = w * mask
     out = dict(params)
@@ -84,16 +89,26 @@ def sparsity_report(params: Dict[str, Any], masks: Dict[str, Any]) -> Dict[str, 
     return rep
 
 
-def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: int,
-                    bn: int) -> Dict[str, Any]:
-    """Turn each masked projection into the FullBlock-compressed layout.
+def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: Optional[int] = None,
+                    bn: Optional[int] = None, *, m: Optional[int] = None) -> Dict[str, Any]:
+    """Turn each masked projection into a compressed layout.
 
-    A projection's per-layer (K, N) mask must be whole bm×bn blocks (a
-    FullBlock mask).  The layers of one key share the slot count Ls (the
-    largest over layers; extra slots are -1 padding).  The returned dict
-    holds no reference to the dense projections it replaced, so once the
-    caller drops the input params those weights are freed.
+    Give ``bm, bn`` for FullBlock masks, or ``m`` for row-aligned
+    IntraBlock(m, 1) masks (``prune_params(..., align_cols=True)``).
+
+    * FullBlock: a projection's per-layer (K, N) mask must be whole
+      bm×bn blocks.  The layers of one key share the slot count Ls (the
+      largest over layers; extra slots are -1 padding).
+    * IntraBlock: each layer's mask must be row-aligned with the same
+      survivor count in every m-row block, as ``compress_intrablock``
+      requires; the layers of one key must keep the same row count Kc.
+
+    The returned dict holds no reference to the dense projections it
+    replaced, so once the caller drops the input params those weights are
+    freed.
     """
+    if (m is None) == (bm is None or bn is None):
+        raise ValueError("give either bm and bn (FullBlock) or m (IntraBlock)")
     new_layers = dict(params["layers"])
     for name, mask in masks["layers"].items():
         if mask is None:
@@ -103,22 +118,38 @@ def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: int,
             raise ValueError(f"{name}: only (L, K, ...) input-major projections compress")
         L, K = w.shape[0], w.shape[1]
         mats = w.reshape(L, K, -1)
-        N = mats.shape[2]
-        if K % bm or N % bn:
-            raise ValueError(f"{name}: ({K}, {N}) does not tile by ({bm}, {bn})")
-        blk = mask.reshape(L, K // bm, bm, N // bn, bn)
-        keep = blk.any(dim=4).any(dim=2)                       # (L, gk, gn)
-        full = keep[:, :, None, :, None].expand_as(blk)
-        if not torch.equal(full, blk):
-            raise ValueError(f"{name}: mask is not whole ({bm}, {bn}) blocks")
-        Ls = max(1, int(keep.sum(dim=1).max()))
-        comps, idxs = [], []
-        for l in range(L):
-            wc, ix = compress_fullblock_torch(mats[l], keep[l], bm, bn, L=Ls)
-            comps.append(wc)
-            idxs.append(ix)
-        new_layers[name] = BlockSparseLinear(torch.stack(comps), torch.stack(idxs), K,
-                                             tuple(w.shape[2:]))
+        masks_l = mask.reshape(L, K, -1)
+        if m is not None:
+            new_layers[name] = _compress_intra(name, mats, masks_l, m, tuple(w.shape[2:]))
+        else:
+            new_layers[name] = _compress_full(name, mats, masks_l, bm, bn, tuple(w.shape[2:]))
     out = dict(params)
     out["layers"] = new_layers
     return out
+
+
+def _compress_full(name, mats, mask, bm, bn, out_shape) -> BlockSparseLinear:
+    L, K, N = mats.shape
+    if K % bm or N % bn:
+        raise ValueError(f"{name}: ({K}, {N}) does not tile by ({bm}, {bn})")
+    blk = mask.reshape(L, K // bm, bm, N // bn, bn)
+    keep = blk.any(dim=4).any(dim=2)                       # (L, gk, gn)
+    full = keep[:, :, None, :, None].expand_as(blk)
+    if not torch.equal(full, blk):
+        raise ValueError(f"{name}: mask is not whole ({bm}, {bn}) blocks")
+    Ls = max(1, int(keep.sum(dim=1).max()))
+    comps, idxs = zip(*(compress_fullblock_torch(mats[l], keep[l], bm, bn, L=Ls)
+                        for l in range(L)))
+    return BlockSparseLinear(torch.stack(comps), torch.stack(idxs), K, out_shape)
+
+
+def _compress_intra(name, mats, mask, m, out_shape) -> IntraBlockLinear:
+    L, K, _ = mats.shape
+    try:
+        comps, idxs = zip(*(compress_intrablock_torch(mats[l], mask[l], m) for l in range(L)))
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
+    if len({c.shape[0] for c in comps}) != 1:
+        raise ValueError(f"{name}: layers keep different row counts "
+                         f"{sorted({c.shape[0] for c in comps})}")
+    return IntraBlockLinear(torch.stack(comps), torch.stack(idxs), K, out_shape)

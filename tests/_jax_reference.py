@@ -32,6 +32,9 @@ MODULES = {
     "transformer": "repro.models.transformer",
     "apply": "repro.sparsity.apply",
     "engine": "repro.serve.engine",
+    "input_sparsity": "repro.core.input_sparsity",
+    "harvest": "repro.calibrate.harvest",
+    "fit": "repro.calibrate.fit",
 }
 
 

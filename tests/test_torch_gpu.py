@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.flexblock import FlexBlockSpec, FullBlock
+from repro_torch.core.flexblock import FlexBlockSpec, FullBlock, IntraBlock
+from repro_torch.core.input_sparsity import profile_activations
+from repro_torch.core.pruning import intrablock_mask
 from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as TT
 from repro_torch.serve.engine import Request, ServeEngine
@@ -89,4 +91,115 @@ def test_pruned_model_kernel_path_matches_plain_path(gen):
         engine.submit(r)
     engine.run()
     assert all(r.done and len(r.output) == 4 for r in reqs)
-    assert all(n > 0 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("flash_attention", "block_sparse_matmul",
+                                       "block_importance"))
+
+
+@pytest.mark.parametrize("B,K,N,m", [(4, 256, 384, 4), (5, 200, 130, 4), (70, 512, 1000, 4),
+                                     (129, 96, 64, 2), (1, 64, 8, 2), (16, 328, 136, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_intrablock_gather_matmul_kernel_matches_plain(gen, B, K, N, m, dtype):
+    """Ragged B (row tiles of 16/64), N (tiles of 128; N % 8 != 0 takes the
+    scalar weight loads) and Kc (chunks of 64)."""
+    w = _randn(gen, K, N, dtype=dtype)
+    mask = intrablock_mask(w.float(), IntraBlock(m, 1, 0.5), align_cols=True)
+    w_comp, row_idx = ops.compress_intrablock_torch(w, mask, m)
+    x = _randn(gen, B, K, dtype=dtype)
+    before = ops.launch_counts()["intrablock_gather_matmul"]
+    out = ops.intrablock_gather_matmul(x, w_comp, row_idx)
+    assert ops.launch_counts()["intrablock_gather_matmul"] == before + 1
+    want = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
+    assert out.shape == (B, N) and out.dtype == dtype
+    scale = max(want.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(out.float() / scale, want.float() / scale,
+                               atol=1e-2 if dtype == torch.bfloat16 else 1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_intrablock_gather_matmul_any_indices_and_unaligned_weights(gen, dtype):
+    """Repeated, unordered indices, and a w_comp whose storage starts off
+    a 16-byte boundary (N % 8 == 0, so only the pointer forces the scalar
+    weight loads)."""
+    B, K, Kc, N = 33, 300, 150, 256
+    row_idx = torch.randint(0, K, (Kc,), generator=gen, device="cuda", dtype=torch.int32)
+    buf = _randn(gen, Kc * N + 1, dtype=dtype)
+    w_comp = buf[1:].view(Kc, N)
+    x = _randn(gen, B, K, dtype=dtype)
+    want = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
+    scale = max(want.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(ops.intrablock_gather_matmul(x, w_comp, row_idx).float() / scale,
+                               want.float() / scale,
+                               atol=1e-2 if dtype == torch.bfloat16 else 1e-5, rtol=0)
+
+
+def test_intrablock_gather_matmul_rejects_bad_indices(gen):
+    x, w_comp = _randn(gen, 4, 64), _randn(gen, 32, 16)
+    for bad in (64, -1):
+        row_idx = torch.arange(32, dtype=torch.int32, device="cuda")
+        row_idx[5] = bad
+        with pytest.raises(ValueError, match="row_idx"):
+            ops.intrablock_gather_matmul(x, w_comp, row_idx)
+    with pytest.raises(TypeError, match="int32"):
+        ops.intrablock_gather_matmul(x, w_comp, torch.arange(32, device="cuda"))
+    with pytest.raises(TypeError, match="share"):
+        ops.intrablock_gather_matmul(x.bfloat16(), w_comp, row_idx.clamp(0, 63))
+
+
+@pytest.mark.parametrize("V,K,g,n_bits,lim", [
+    (16, 64, 16, 8, 40), (100, 96, 32, 8, 40), (128, 256, 64, 8, 40),   # tests/test_kernels.py
+    (100, 100, 32, 8, 128), (100, 100, 32, 8, 6), (7, 45, 4, 5, 128), (3, 33, 32, 3, 9),
+    (2048, 2560, 32, 8, 128), (2048, 9728, 32, 8, 12), (5, 64, 16, 32, 128),
+])
+def test_bitserial_zero_profile_kernel_equals_plain(gen, V, K, g, n_bits, lim):
+    """Exact equality, over ragged K (zero-padded, skippable), −128, small
+    magnitudes (many zero planes) and n_bits below and above 8."""
+    q = torch.randint(-lim, lim, (V, K), generator=gen, device="cuda").to(torch.int8)
+    q[0, : min(K, 3)] = -128
+    before = ops.launch_counts()["bitserial_zero_profile"]
+    out = ops.bitserial_zero_profile(q, g, n_bits)
+    assert ops.launch_counts()["bitserial_zero_profile"] == before + 1
+    want = ref.bitserial_zero_profile_ref(q, g, n_bits)
+    assert out.dtype == torch.int32 and out.tolist() == want.tolist()
+    # a misaligned start takes the byte-by-byte loads
+    buf = torch.empty(V * K + 1, dtype=torch.int8, device="cuda")
+    qm = buf[1:].view(V, K)
+    qm.copy_(q)
+    assert ops.bitserial_zero_profile(qm, g, n_bits).tolist() == want.tolist()
+
+
+def test_bitserial_zero_profile_guards(gen):
+    big = torch.zeros(1, 1, dtype=torch.int8, device="cuda").expand(2**16, 2**13)
+    with pytest.raises(ValueError, match="overflow"):
+        ops.bitserial_zero_profile(big, 1)                 # 2**32 slots
+    q = torch.zeros(4, 32, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="n_bits"):
+        ops.bitserial_zero_profile(q, 8, 33)
+    assert ops.bitserial_zero_profile(q, 8).tolist() == [4 * 4 * 8] * 2
+
+
+def test_intrablock_model_kernel_path_matches_plain_path(gen):
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), d_model=256, head_dim=64,
+                              n_heads=4, n_kv_heads=2, d_ff=512)
+    params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    params, masks = prune_params(params, FlexBlockSpec((IntraBlock(4, 1, 0.5),)),
+                                 align_cols=True,
+                                 keys=("wq", "wk", "wv", "w_gate", "w_up", "w_down"))
+    cp = compress_params(params, masks, m=4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 40), generator=gen, device="cuda")
+    la = TT.forward(cp, toks, cfg)
+    lr = TT.forward(cp, toks, cfg, impl="ref")
+    assert (la - lr).abs().max().item() < 0.1
+    engine = ServeEngine(cfg, cp, slots=2, max_len=128, dtype=torch.bfloat16)
+    reqs = [Request(prompt=toks[0, :n].cpu().numpy(), max_new_tokens=4) for n in (40, 17, 9)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    assert all(r.done and len(r.output) == 4 for r in reqs)
+    assert ops.launch_counts()["intrablock_gather_matmul"] > 0
+    acts = {}
+    TT._run(cp, toks, cfg, "auto", False,
+            tap=lambda l, kind, a: acts.__setitem__(f"{l}/{kind}", a))
+    assert len(acts) == 3 * cfg.n_layers
+    assert profile_activations(acts, 32) == profile_activations(acts, 32, impl="ref")

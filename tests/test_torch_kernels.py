@@ -107,6 +107,61 @@ def test_block_importance_plain_matches_oracle(R, M, N, bm, bn, crit, dtype):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
+@pytest.mark.parametrize("K,N,m,B", [(64, 32, 2, 8), (128, 64, 4, 16), (256, 128, 8, 7)])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_intrablock_gather_matmul_plain_matches_pallas_and_oracle(R, K, N, m, B, dtype):
+    """The shapes of tests/test_kernels.py; tolerance TOL of max |y| (the
+    bf16 outputs may differ by one rounding of the f32 sum)."""
+    w = RNG.normal(size=(K, N)).astype(np.float32)
+    mask = R.pruning.intrablock_mask(w, R.flexblock.IntraBlock(m, 1, (m - 1) / m),
+                                     align_cols=True)
+    wc, ridx = R.ops.compress_intrablock(w, mask, m)
+    wcj, wct = _both(wc, dtype)
+    xj, xt = _both(RNG.normal(size=(B, K)), dtype)
+    got = ops.intrablock_gather_matmul(xt, wct, torch.from_numpy(ridx))
+    assert got.shape == (B, N) and got.dtype == xt.dtype
+    got = got.float().numpy()
+    want_ref = np.asarray(R.kref.intrablock_gather_matmul_ref(xj, wcj, jnp.asarray(ridx)),
+                          np.float32)
+    want_pal = np.asarray(R.ops.intrablock_gather_matmul(
+        xj, wcj, jnp.asarray(ridx), impl="pallas_interpret", tile_b=8, tile_n=32), np.float32)
+    scale = max(np.abs(want_ref).max(), 1.0)
+    for want in (want_ref, want_pal):
+        np.testing.assert_allclose(got / scale, want / scale, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("V,K,g,n_bits,lim", [
+    (16, 64, 16, 8, 40), (100, 96, 32, 8, 40), (128, 256, 64, 8, 40),   # tests/test_kernels.py
+    (100, 100, 32, 8, 129), (37, 70, 32, 5, 129), (20, 64, 8, 3, 9), (8, 32, 8, 8, 1),
+])
+def test_bitserial_zero_profile_plain_equals_pallas(R, V, K, g, n_bits, lim):
+    """Exact: ragged K, −128 (|−128| = 128 sets bit 7), n_bits < 8, and an
+    all-zero input (lim 1) where every slot is skippable."""
+    qn = RNG.integers(-lim + 1, lim, size=(V, K)).clip(-128, 127).astype(np.int8)
+    if lim > 128:
+        qn[0, :3] = -128
+    want_pal = np.asarray(R.ops.bitserial_zero_profile(jnp.asarray(qn), g, n_bits,
+                                                       impl="pallas_interpret"))
+    want_ref = np.asarray(R.kref.bitserial_zero_profile_ref(jnp.asarray(qn), g, n_bits))
+    got = ops.bitserial_zero_profile(torch.from_numpy(qn), g, n_bits)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want_pal)
+    np.testing.assert_array_equal(got.numpy(), want_ref)
+    if lim == 1:
+        assert got[0] == got[1]
+
+
+def test_bitserial_zero_profile_refuses_an_int32_overflow():
+    """2**16 x 2**13 int8 in groups of 1 has 2**32 slots: the int32 result
+    would wrap, so both paths raise before counting (an expanded view, so
+    nothing that size is allocated)."""
+    big = torch.zeros(1, 1, dtype=torch.int8).expand(2**16, 2**13)
+    with pytest.raises(ValueError, match="overflow"):
+        ops.bitserial_zero_profile(big, 1)
+    with pytest.raises(ValueError, match="overflow"):
+        ops.bitserial_zero_profile(big, 1, impl="cuda")
+
+
 # ---------------------------------------------------------------------------
 # Layout builders
 # ---------------------------------------------------------------------------
@@ -144,6 +199,44 @@ def test_compress_fullblock_torch_padded_slots():
         ops.compress_fullblock_torch(w, keep, 8, 16)
 
 
+@pytest.mark.parametrize("K,N,m,ratio", [(64, 32, 2, 0.5), (128, 48, 4, 0.5), (96, 16, 4, 0.75),
+                                         (64, 8, 8, 0.5)])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_compress_intrablock_byte_equal(R, K, N, m, ratio, dtype):
+    w = RNG.normal(size=(K, N)).astype(np.float32)
+    mask = R.pruning.intrablock_mask(w, R.flexblock.IntraBlock(m, 1, ratio), align_cols=True)
+    wj, wt = _both(w, dtype)
+    w_np = np.asarray(wj)
+    want_wc, want_idx = R.ops.compress_intrablock(w_np, mask, m)
+    np_wc, np_idx = ops.compress_intrablock(w_np, mask, m)
+    assert np_wc.dtype == want_wc.dtype and np_wc.tobytes() == want_wc.tobytes()
+    assert np_idx.dtype == want_idx.dtype and np_idx.tobytes() == want_idx.tobytes()
+    t_wc, t_idx = ops.compress_intrablock_torch(wt, torch.from_numpy(mask), m)
+    assert t_idx.dtype == torch.int32 and t_idx.numpy().tobytes() == want_idx.tobytes()
+    bits = t_wc.view(torch.int16) if t_wc.dtype == torch.bfloat16 else t_wc
+    want_bits = want_wc.view(np.int16) if dtype == "bfloat16" else want_wc
+    assert bits.numpy().tobytes() == want_bits.tobytes()
+    np.testing.assert_array_equal(ops.decompress_intrablock(w_np, mask),
+                                  R.ops.decompress_intrablock(w_np, mask))
+
+
+def test_compress_intrablock_rejects_what_the_reference_rejects(R):
+    w = RNG.normal(size=(16, 8)).astype(np.float32)
+    unaligned = R.pruning.intrablock_mask(w, R.flexblock.IntraBlock(2, 1, 0.5))
+    assert not np.all(unaligned.reshape(8, 2, 8) == unaligned.reshape(8, 2, 8)[:, :, :1])
+    uneven = np.ones((16, 8), np.uint8)
+    uneven[0] = 0                                     # block 0 keeps 1 of 2, the rest 2
+    cases = [(unaligned, 2, "row-aligned"), (uneven, 2, "non-uniform"),
+             (np.zeros((16, 8), np.uint8), 2, "keeps nothing"), (uneven, 3, "multiple")]
+    for mask, m, msg in cases:
+        with pytest.raises(ValueError):
+            R.ops.compress_intrablock(w, mask, m)
+        with pytest.raises(ValueError, match=msg):
+            ops.compress_intrablock(w, mask, m)
+        with pytest.raises(ValueError, match=msg):
+            ops.compress_intrablock_torch(torch.from_numpy(w), torch.from_numpy(mask), m)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch, errors, counters
 # ---------------------------------------------------------------------------
@@ -155,8 +248,11 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     ops.block_sparse_matmul(x, torch.randn(2, 1, 16, 8), torch.zeros(2, 1, dtype=torch.int32))
     q = torch.randn(1, 128, 2, 64)
     ops.flash_attention(q, q, q)
+    ops.intrablock_gather_matmul(x, torch.randn(32, 8), torch.arange(32, dtype=torch.int32))
+    ops.bitserial_zero_profile(torch.ones(4, 64, dtype=torch.int8), 16)
     assert ops.launch_counts() == {"flash_attention": 0, "block_sparse_matmul": 0,
-                                   "block_importance": 0}
+                                   "block_importance": 0, "intrablock_gather_matmul": 0,
+                                   "bitserial_zero_profile": 0}
 
 
 def test_cuda_impl_refuses_cpu_tensors():
@@ -168,6 +264,11 @@ def test_cuda_impl_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ops.block_sparse_matmul(torch.randn(2, 32), torch.randn(1, 1, 16, 16),
                                 torch.zeros(1, 1, dtype=torch.int32), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.intrablock_gather_matmul(torch.randn(2, 32), torch.randn(16, 8),
+                                     torch.arange(16, dtype=torch.int32), impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.bitserial_zero_profile(torch.ones(2, 32, dtype=torch.int8), 8, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ops.block_importance(torch.randn(32, 32), 16, 16, impl="pallas")
 

@@ -20,7 +20,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core import pruning as TP
 from repro_torch.core.flexblock import FlexBlockSpec, FullBlock, IntraBlock
 from repro_torch.models import transformer as TT
-from repro_torch.models.layers import BlockSparseLinear
+from repro_torch.models.layers import BlockSparseLinear, IntraBlockLinear
 from repro_torch.sparsity import apply as TA
 
 KEYS = ("wq", "wk", "wv", "w_gate", "w_up", "w_down")
@@ -166,9 +166,125 @@ def test_flexblock_spec_copy_matches_reference(R):
     assert FlexBlockSpec().is_dense and spec.full == FullBlock(128, 128, 0.5)
 
 
-def test_intrablock_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        IntraBlock(2, 1, 0.5)
+@pytest.mark.parametrize("args", [(2, 1, 0.5), (4, 1, 0.5), (4, 1, 0.75), (8, 1, 0.6),
+                                  (4, 1, 0.5, ((1, 1, 0, 0), (0, 0, 1, 1), (1, 0, 1, 0)))])
+def test_intrablock_spec_copy_matches_reference(R, args):
+    a, b = IntraBlock(*args), R.flexblock.IntraBlock(*args)
+    assert a.phi == b.phi and a.kind == b.kind == "intra"
+    assert a.patterns() == b.patterns() and a.default_patterns() == b.default_patterns()
+    assert a.bind((64, 64)) is a
+    for full in [FullBlock(8, 16, 0.5), FullBlock(-1, 4, 0.25)]:
+        ours = FlexBlockSpec((a, full))
+        theirs = R.flexblock.FlexBlockSpec((b, R.flexblock.FullBlock(full.m, full.n, full.ratio)))
+        for shape in [(64, 64), (256, 96)]:
+            assert ours.overall_density(shape) == theirs.overall_density(shape)
+        assert ours.describe() == theirs.describe() and ours.intra == a and ours.full == full
+    assert FlexBlockSpec((a,)).describe() == R.flexblock.FlexBlockSpec((b,)).describe()
+
+
+@pytest.mark.parametrize("args", [
+    (2, 2, 0.5),                               # n != 1
+    (4, 1, 0.9),                               # phi = 0
+    (4, 1, 1.0), (1, 1, 0.5),                  # ratio / block size
+    (4, 1, 0.5, ((1, 1, 0),)),                 # pattern of the wrong size
+    (4, 1, 0.5, ((1, 1, 1, 0),)),              # pattern keeping 3, not phi = 2
+])
+def test_intrablock_spec_errors_match_reference(R, args):
+    with pytest.raises(ValueError) as theirs:
+        R.flexblock.IntraBlock(*args)
+    with pytest.raises(ValueError) as ours:
+        IntraBlock(*args)
+    assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("pats", [
+    ("full", "full"), ("full", "intra"), ("intra", "intra"),
+    ("intra4", "full6"), ("intra4", "full8", "full8"),
+])
+def test_spec_composition_checks_match_reference(R, pats):
+    def make(mod, name):
+        return {"full": mod.FullBlock(4, 4, 0.5), "intra": mod.IntraBlock(2, 1, 0.5),
+                "intra4": mod.IntraBlock(4, 1, 0.5), "full6": mod.FullBlock(6, 4, 0.5),
+                "full8": mod.FullBlock(8, 4, 0.5)}[name]
+    import repro_torch.core.flexblock as ours_mod
+    with pytest.raises(ValueError) as theirs:
+        R.flexblock.FlexBlockSpec(tuple(make(R.flexblock, p) for p in pats))
+    with pytest.raises(ValueError) as ours:
+        FlexBlockSpec(tuple(make(ours_mod, p) for p in pats))
+    assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("shape,m,ratio,pattern_set", [
+    ((64, 48), 4, 0.5, None), ((30, 20), 4, 0.5, None), ((64, 16), 8, 0.75, None),
+    ((32, 24), 2, 0.5, None),
+    ((64, 48), 4, 0.5, ((1, 1, 0, 0), (0, 0, 1, 1), (1, 0, 0, 1))),
+    ((40, 12), 4, 0.75, ((1, 0, 0, 0), (0, 0, 0, 1))),
+])
+@pytest.mark.parametrize("align_cols", [False, True])
+@pytest.mark.parametrize("crit", ["l1", "l2"])
+def test_intrablock_mask_matches_reference(R, shape, m, ratio, pattern_set, align_cols, crit):
+    w = np.random.default_rng(2).normal(size=shape).astype(np.float32)
+    want = R.pruning.intrablock_mask(w, R.flexblock.IntraBlock(m, 1, ratio, pattern_set), crit,
+                                     align_cols=align_cols)
+    got = TP.intrablock_mask(torch.from_numpy(w), IntraBlock(m, 1, ratio, pattern_set), crit,
+                             align_cols=align_cols)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want.astype(bool))
+
+
+def test_intrablock_mask_ties_keep_the_first_rows(R):
+    """Equal importances: stable top-φ keeps the lowest rows of each block,
+    and a restricted pattern set takes its first best pattern."""
+    w = np.ones((8, 4), np.float32)
+    for ps in (None, ((0, 1, 1, 0), (1, 1, 0, 0))):
+        want = R.pruning.intrablock_mask(w, R.flexblock.IntraBlock(4, 1, 0.5, ps))
+        got = TP.intrablock_mask(torch.from_numpy(w), IntraBlock(4, 1, 0.5, ps))
+        np.testing.assert_array_equal(got.numpy(), want.astype(bool))
+    assert got[:4, 0].tolist() == [False, True, True, False]
+
+
+@pytest.mark.parametrize("align_cols", [False, True])
+@pytest.mark.parametrize("spec_args", [
+    ((2, 1, 0.5), (4, 16, 0.5)), ((4, 1, 0.5), (8, -1, 0.25)), ((4, 1, 0.5), None),
+])
+def test_composed_flexblock_mask_matches_reference(R, spec_args, align_cols):
+    intra, full = spec_args
+    w = np.random.default_rng(3).normal(size=(64, 48)).astype(np.float32)
+    theirs = (R.flexblock.IntraBlock(*intra),) + (
+        (R.flexblock.FullBlock(*full),) if full else ())
+    ours = (IntraBlock(*intra),) + ((FullBlock(*full),) if full else ())
+    want = R.pruning.flexblock_mask(w, R.flexblock.FlexBlockSpec(theirs), align_cols=align_cols)
+    got = TP.flexblock_mask(torch.from_numpy(w), FlexBlockSpec(ours), align_cols=align_cols)
+    np.testing.assert_array_equal(got.numpy(), want.astype(bool))
+    assert abs(got.float().mean().item() - FlexBlockSpec(ours).overall_density(w.shape)) < 1e-9
+
+
+def test_compress_params_intrablock_layout_and_errors(model):
+    _, cfg, _, pt = model
+    spec = FlexBlockSpec((IntraBlock(4, 1, 0.5),))
+    pp, masks = TA.prune_params(pt, spec, keys=("wq", "w_down"), align_cols=True, device="cpu")
+    cp = TA.compress_params(pp, masks, m=4)
+    wq, wd = cp["layers"]["wq"], cp["layers"]["w_down"]
+    assert isinstance(wq, IntraBlockLinear) and isinstance(wd, IntraBlockLinear)
+    assert tuple(wq.w_comp.shape) == (cfg.n_layers, cfg.d_model // 2, cfg.n_heads * 16)
+    assert tuple(wd.row_idx.shape) == (cfg.n_layers, cfg.d_ff // 2)
+    assert wq.row_idx.dtype == torch.int32 and wq.out_shape == (cfg.n_heads, 16)
+    l1 = wq.layer(1)
+    mat = pp["layers"]["wq"][1].reshape(cfg.d_model, -1)
+    assert torch.equal(l1.w_comp, mat[l1.row_idx.long()])
+    x = torch.randn(3, cfg.d_model)
+    torch.testing.assert_close(l1(x), x @ mat, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="either"):
+        TA.compress_params(pp, masks, 16, 16, m=4)
+    with pytest.raises(ValueError, match="either"):
+        TA.compress_params(pp, masks)
+    unaligned = TA.prune_params(pt, spec, keys=("wq",), device="cpu")[1]["layers"]["wq"]
+    with pytest.raises(ValueError, match="wq: mask is not row-aligned"):
+        TA.compress_params(pp, {"layers": {"wq": unaligned}}, m=4)
+    with pytest.raises(ValueError, match="row_idx"):
+        IntraBlockLinear(wq.w_comp, wq.row_idx + cfg.d_model, cfg.d_model, wq.out_shape)
+    with pytest.raises(ValueError, match="whole"):
+        TA.compress_params(pp, masks, 16, 16)
 
 
 def test_prune_params_without_device_raises_on_cpu_host(monkeypatch, model):
