@@ -10,7 +10,12 @@ Phases, each reported on its own line(s):
 2. kernels  — hold each kernel against its plain PyTorch version at the
    shapes of the main paths, in bf16 and f32 (int8 for the bit-serial
    profile), and time kernel, plain version and the nearest single
-   PyTorch call;
+   PyTorch call.  The block-sparse matmul and gather-matmul rows name the
+   variant that ran and are timed from CUDA graphs (card time alone),
+   with the eager times beside them (what back-to-back calls from Python
+   cost, host included); each row gives ``share_of_bound`` (bound / ms)
+   and ``x_library`` (ms / library ms), and the bf16 rows the card time of
+   the same variant at cluster sizes 1, 2, 4 and 8 beside the plan's;
 3. llama3-8b FullBlock path: init at full width (random bf16 weights
    from a seed), check the kernel's Eq. 1 block losses against the plain
    ones, prune with FullBlock(128, 128, 0.5), compress, serve 8 requests
@@ -34,8 +39,11 @@ Phases, each reported on its own line(s):
 The launch counts are set to 0 just before each path and read just
 after it: the three FullBlock-path kernels from prune to the end of
 llama3-8b serving, ``intrablock_gather_matmul`` from prune to the end of
-qwen3-4b serving, ``bitserial_zero_profile`` over the profile call.  Any
-failed check exits nonzero.  Without a CUDA device, or without the
+qwen3-4b serving, ``bitserial_zero_profile`` over the profile call.
+After each served path its compressed projections must have run only
+through the ``decode`` and ``prefill`` variants, one launch per
+projection, layer and decode step or prompt, none through ``general``.
+Any failed check exits nonzero.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
 from __future__ import annotations
@@ -96,6 +104,35 @@ def cuda_ms(fn, sets, iters: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def graph_ms(fn, sets, iters: int = 20) -> float:
+    """Mean ms of ``fn(*sets[i % len(sets)])`` replayed from a CUDA graph.
+
+    The graph holds ``iters`` calls, so the events time the card alone:
+    none of the host's launch cost (Python wrapper, plan, ctypes call)
+    that a run of eager calls waits on when the card is faster than the
+    host.  Inputs rotate as in :func:`cuda_ms`.
+    """
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(*sets[i % len(sets)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    e1.synchronize()
+    del graph
+    return e0.elapsed_time(e1) / iters
+
+
 def n_copies(nbytes: int) -> int:
     return max(1, min(16, math.ceil(128e6 / max(nbytes, 1))))
 
@@ -115,6 +152,56 @@ def bound(nbytes: int, ops: float, peak: float) -> dict:
     return {"bound_ms": max(t_b, t_f) * 1e3, "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
+def ratios(line: dict) -> dict:
+    """share_of_bound (bound / ms) and x_library (ms / library ms) of a row."""
+    lib = line.get("library_ms")
+    return {"share_of_bound": line["bound_ms"] / line["ms"],
+            "x_library": line["ms"] / lib if lib else None}
+
+
+def moved_variant(op: str, before: dict) -> str:
+    """The one variant of ``op`` whose launch count moved since ``before``."""
+    from repro_torch.kernels import ops
+    after = ops.variant_counts()[op]
+    moved = [v for v in after if after[v] != before[v]]
+    check(len(moved) == 1, f"{op}: variants {moved} moved on one call")
+    return moved[0]
+
+
+def cluster_sweep(op: str, variant: str, sets) -> dict:
+    """Card ms of the ``variant`` of ``op`` at cluster sizes 1, 2, 4 and 8
+    (the plan picks one), calling the C entry point directly."""
+    from repro_torch.kernels import _build
+    lib = _build.load("block_sparse_matmul" if op == "block_sparse_matmul"
+                      else "intrablock_matmul")
+    out = {}
+    for c in (1, 2, 4, 8):
+        def call(a, wc, ix, d, c=c):
+            stream = _build.stream_ptr(a.device)
+            B, K = a.shape
+            if op == "block_sparse_matmul":
+                Gn, L = wc.shape[:2]
+                y = torch.empty(B, Gn * BLOCK, dtype=a.dtype, device=a.device)
+                rc = getattr(lib, f"bsm_bf16_{variant}")(a.data_ptr(), wc.data_ptr(),
+                                                         ix.data_ptr(), y.data_ptr(), B, K, Gn,
+                                                         L, c, stream)
+            else:
+                Kc, N = wc.shape
+                y = torch.empty(B, N, dtype=a.dtype, device=a.device)
+                if variant == "decode":
+                    rc = lib.igm_bf16_decode(a.data_ptr(), wc.data_ptr(), ix.data_ptr(),
+                                             y.data_ptr(), B, K, Kc, N, c, stream)
+                else:
+                    Kp = -(-Kc // 8) * 8
+                    xg = torch.empty(B, Kp, dtype=a.dtype, device=a.device)
+                    rc = lib.igm_bf16_prefill(a.data_ptr(), wc.data_ptr(), ix.data_ptr(),
+                                              xg.data_ptr(), y.data_ptr(), B, K, Kc, Kp, N, c,
+                                              stream)
+            _build.check(rc, f"{op} {variant} cluster {c}")
+        out[c] = graph_ms(call, sets)
+    return out
+
+
 def kernel_phase() -> dict:
     """Hold each kernel to its plain version at main-path shapes and time
     kernel, plain version and library call on every row.  Returns the
@@ -122,7 +209,7 @@ def kernel_phase() -> dict:
     from repro_torch.kernels import block_importance as bi_mod
     from repro_torch.kernels import block_sparse_matmul as bsm_mod
     from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import _build, ops, plans, ref
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = {}
     dtypes = (torch.bfloat16, torch.float32)
@@ -205,22 +292,32 @@ def kernel_phase() -> dict:
                         for _ in range(n_copies(nbytes))]
                 x, w_comp, idx, dense = sets[0]
                 check(int((idx >= 0).sum()) == live, "layout has the wrong live block count")
+                before = ops.variant_counts()["block_sparse_matmul"]
                 out = bsm_mod.block_sparse_matmul_cuda(x, w_comp, idx)
+                variant = moved_variant("block_sparse_matmul", before)
                 plain = ref.block_sparse_matmul_ref(x, w_comp, idx)
                 torch.cuda.synchronize()
                 err = (out.float() - plain.float()).abs().max().item()
                 scale = max(plain.float().abs().max().item(), 1.0)
                 name = f"block_sparse_matmul {key} B={B} K={K} N={N} {str(dt)[6:]}"
                 check(err / scale <= tol[dt], f"{name}: max_abs_err {err} > {tol[dt]}*{scale}")
-                line = {"max_abs_err": err,
+                kern = lambda a, wc, ix, d: bsm_mod.block_sparse_matmul_cuda(a, wc, ix)
+                lib = lambda a, wc, ix, d: torch.matmul(a, d)
+                line = {"variant": variant, "max_abs_err": err,
                         "tol": f"{tol[dt]} x max|plain| = {tol[dt] * scale:.4g}",
-                        "ms": cuda_ms(lambda a, wc, ix, d: bsm_mod.block_sparse_matmul_cuda(
+                        "ms": graph_ms(kern, sets),
+                        "plain_ms": graph_ms(lambda a, wc, ix, d: ref.block_sparse_matmul_ref(
                             a, wc, ix), sets),
-                        "plain_ms": cuda_ms(lambda a, wc, ix, d: ref.block_sparse_matmul_ref(
-                            a, wc, ix), sets),
-                        "library_ms": cuda_ms(lambda a, wc, ix, d: torch.matmul(a, d), sets),
+                        "library_ms": graph_ms(lib, sets),
+                        "eager_ms": cuda_ms(kern, sets), "eager_library_ms": cuda_ms(lib, sets),
                         **bound(nbytes + tensor_bytes(idx), 2 * B * live * BLOCK * BLOCK,
                                 peak[dt])}
+                line.update(ratios(line))
+                if dt == torch.bfloat16:
+                    line["cluster"] = plans.bsm_plan(
+                        B, K, N // BLOCK, w_comp.shape[1], BLOCK, BLOCK, dt,
+                        _build.alignment(x.data_ptr(), w_comp.data_ptr())).cluster
+                    line["ms_by_cluster"] = cluster_sweep("block_sparse_matmul", variant, sets)
                 report(name, line)
                 if key == "w_gate" and B == 4 and dt == torch.bfloat16:
                     rows["block_sparse_matmul"] = dict(
@@ -301,21 +398,32 @@ def kernel_phase() -> dict:
                 sets = [(randn(B, K, dtype=dt),) + intra_layout(K, N, dt)
                         for _ in range(n_copies(nbytes))]
                 x, w_comp, row_idx, dense = sets[0]
+                before = ops.variant_counts()["intrablock_gather_matmul"]
                 out = igm_mod.intrablock_gather_matmul_cuda(x, w_comp, row_idx)
+                variant = moved_variant("intrablock_gather_matmul", before)
                 plain = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
                 torch.cuda.synchronize()
                 err = (out.float() - plain.float()).abs().max().item()
                 scale = plain.float().abs().max().item()
                 name = f"intrablock_gather_matmul {key} B={B} K={K} Kc={Kc} N={N} {str(dt)[6:]}"
                 check(err <= tol[dt] * scale, f"{name}: max_abs_err {err} > {tol[dt]}*{scale}")
-                line = {"max_abs_err": err,
+                kern = lambda a, wc, ix, d: igm_mod.intrablock_gather_matmul_cuda(
+                    a, wc, ix, check_range=False)
+                lib = lambda a, wc, ix, d: torch.matmul(a, d)
+                line = {"variant": variant, "max_abs_err": err,
                         "tol": f"{tol[dt]} x max|plain| = {tol[dt] * scale:.4g}",
-                        "ms": cuda_ms(lambda a, wc, ix, d: igm_mod.intrablock_gather_matmul_cuda(
-                            a, wc, ix, check_range=False), sets),
-                        "plain_ms": cuda_ms(lambda a, wc, ix, d:
-                                            ref.intrablock_gather_matmul_ref(a, wc, ix), sets),
-                        "library_ms": cuda_ms(lambda a, wc, ix, d: torch.matmul(a, d), sets),
+                        "ms": graph_ms(kern, sets),
+                        "plain_ms": graph_ms(lambda a, wc, ix, d:
+                                             ref.intrablock_gather_matmul_ref(a, wc, ix), sets),
+                        "library_ms": graph_ms(lib, sets),
+                        "eager_ms": cuda_ms(kern, sets), "eager_library_ms": cuda_ms(lib, sets),
                         **bound(nbytes, 2 * B * Kc * N, peak[dt])}
+                line.update(ratios(line))
+                if dt == torch.bfloat16:
+                    line["cluster"] = plans.igm_plan(B, Kc, N, dt,
+                                                     _build.alignment(w_comp.data_ptr())).cluster
+                    line["ms_by_cluster"] = cluster_sweep("intrablock_gather_matmul", variant,
+                                                          sets)
                 report(name, line)
                 if key == "w_gate" and B == 4 and dt == torch.bfloat16:
                     rows["intrablock_gather_matmul"] = dict(
@@ -415,9 +523,24 @@ def main_path(cfg, rows: dict) -> None:
     for name in ("flash_attention", "block_sparse_matmul", "block_importance"):
         check(counts[name] > 0, f"{name} was not launched on the llama3-8b path")
         rows[name]["launches"] = counts[name]
+    check_main_variants(cfg, "block_sparse_matmul", counts, len(reqs))
 
     parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15,
                  faults=fullblock_faults(cfg, cparams))
+
+
+def check_main_variants(cfg, op: str, counts: dict, prefills: int) -> None:
+    """The path's compressed projections ran only through the main
+    variants: one decode launch per projection, layer and decode step (4
+    slots), one prefill launch per projection, layer and prompt, and no
+    general or f32 launch."""
+    v = counts["variants"][op]
+    per = len(KEYS) * cfg.n_layers
+    want = {"decode": per * counts["steps"], "prefill": per * prefills, "general": 0, "f32": 0}
+    print(f"[serve] {cfg.name}: {op} launches by variant {json.dumps(v)}; want "
+          f"{json.dumps(want)} ({counts[op]} in all)", flush=True)
+    check(v == want and counts[op] == want["decode"] + want["prefill"],
+          f"{op}: launches by variant {v}, want {want}")
 
 
 def serve_phase(cfg, cparams):
@@ -441,6 +564,7 @@ def serve_phase(cfg, cparams):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    counts["variants"] = ops.variant_counts()
     snap = engine.stats_snapshot()
     for i, r in enumerate(reqs):
         check(r.done and len(r.output) == 32 and r.reject_reason is None,
@@ -452,6 +576,7 @@ def serve_phase(cfg, cparams):
           f"{snap['tokens_per_s']:.1f} tokens/s (engine busy time, prefill included); "
           f"{decode_tokens} decode tokens", flush=True)
     print(f"[serve] {cfg.name}: launches on the path: {json.dumps(counts)}", flush=True)
+    counts["steps"] = snap["steps"]
 
     # Host or device: time the host's issue of one 4-slot decode step (the
     # path has no synchronisation inside decode_step) against the time to
@@ -646,6 +771,7 @@ def intrablock_path(cfg, rows: dict) -> None:
         check(counts[name] > 0, f"{name} was not launched on the {cfg.name} path")
     check(counts["block_sparse_matmul"] == 0, "a FullBlock matmul ran on the IntraBlock path")
     rows["intrablock_gather_matmul"]["launches"] = counts["intrablock_gather_matmul"]
+    check_main_variants(cfg, "intrablock_gather_matmul", counts, len(reqs))
 
     # Logits have std ~1 at this init.  On an H100 the kernel path stays
     # within 0.068 of the plain one (bf16 over 36 layers), while leaving out
@@ -799,7 +925,9 @@ def main() -> int:
                         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": r["shape"], "library": r["library"]})
+                        "shape": r["shape"], "library": r["library"],
+                        **({"variant": r["variant"]} if "variant" in r else {}),
+                        **ratios(r)})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

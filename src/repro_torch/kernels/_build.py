@@ -1,11 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
-use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own
+Each ``csrc/<name>.cu`` named in :data:`SOURCES` has a plain C interface
+(``csrc/sm90_common.cu`` holds Hopper helpers that two of them include,
+and is not built on its own) and is compiled on first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own
 shared library under ``build/repro_torch_kernels/`` at the root of the
 checkout (``REPRO_TORCH_BUILD_DIR`` overrides it), then loaded with
-``ctypes``.  The library name carries a hash of its source, so an edited
-source is rebuilt.  :func:`build` starts one ``nvcc`` per source at once.
+``ctypes``.  The library name carries a hash of its source and of the
+files it includes, so an edited source is rebuilt.  Nothing is linked
+beyond the CUDA runtime: the tensor maps of the TMA loads come
+from libcuda's ``cuTensorMapEncodeTiled``, looked up with ``dlsym``.
+:func:`build` starts one ``nvcc`` per source at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code.  A failed build raises: nothing
@@ -16,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +29,7 @@ from typing import Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["SOURCES", "build", "load", "check", "stream_ptr"]
+__all__ = ["SOURCES", "build", "load", "check", "stream_ptr", "alignment"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -38,8 +44,11 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "fa_fwd_f32": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
     },
     "block_sparse_matmul": {
+        # x, w_comp, idx, y, B, K, Gn, L, cluster, stream
+        "bsm_bf16_decode": [P, P, P, P, I, I, I, I, I, P],
+        "bsm_bf16_prefill": [P, P, P, P, I, I, I, I, I, P],
         # x, w_comp, idx, y, B, K, Gn, L, bm, bn, stream
-        "bsm_bf16": [P, P, P, P, I, I, I, I, I, I, P],
+        "bsm_bf16_general": [P, P, P, P, I, I, I, I, I, I, P],
         "bsm_f32": [P, P, P, P, I, I, I, I, I, I, P],
     },
     "block_importance": {
@@ -48,8 +57,12 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "bi_f32": [P, P, I, I, I, I, I, P],
     },
     "intrablock_matmul": {
+        # x, w_comp, row_idx, y, B, K, Kc, N, cluster, stream
+        "igm_bf16_decode": [P, P, P, P, I, I, I, I, I, P],
+        # x, w_comp, row_idx, x-gather scratch, y, B, K, Kc, Kp, N, cluster, stream
+        "igm_bf16_prefill": [P, P, P, P, P, I, I, I, I, I, I, P],
         # x, w_comp, row_idx, y, B, K, Kc, N, stream
-        "igm_bf16": [P, P, P, P, I, I, I, I, P],
+        "igm_bf16_general": [P, P, P, P, I, I, I, I, P],
         "igm_f32": [P, P, P, P, I, I, I, I, P],
     },
     "bitserial_profile": {
@@ -58,7 +71,7 @@ SOURCES: Dict[str, Dict[str, List]] = {
     },
 }
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.PyDLL] = {}
 
 
 def _build_dir() -> Path:
@@ -76,9 +89,17 @@ def _nvcc() -> str:
                        "repro_torch are compiled on first use")
 
 
+def _source_bytes(path: Path) -> bytes:
+    """A source with the files it includes from ``csrc`` (``#include "..."``)."""
+    src = path.read_bytes()
+    parts = [src]
+    for inc in re.findall(rb'^#include "([^"]+)"', src, flags=re.M):
+        parts.append(_source_bytes(_CSRC / inc.decode()))
+    return b"".join(parts)
+
+
 def _lib_path(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:12]
+    digest = hashlib.sha256(_source_bytes(_CSRC / f"{name}.cu")).hexdigest()[:12]
     return _build_dir() / f"lib{name}-{digest}.so"
 
 
@@ -115,11 +136,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str) -> ctypes.PyDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        # PyDLL keeps the GIL held during a call: a launch is short, and the
+        # tensor-map tables of the libraries rely on one caller at a time
+        lib = ctypes.PyDLL(str(build([name])[name]))
         for fn, argtypes in SOURCES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
@@ -137,3 +160,12 @@ def check(rc: int, what: str) -> None:
 def stream_ptr(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as a pointer-sized int."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def alignment(*ptrs: int) -> int:
+    """The largest power of two (at most 256) that divides every address."""
+    a = 256
+    for p in ptrs:
+        while p % a:
+            a //= 2
+    return a

@@ -2,21 +2,26 @@
 ``csrc/block_sparse_matmul.cu``.
 
 Replaces ``repro/kernels/block_sparse_matmul.py:49``
-(``block_sparse_matmul_pallas``).  The CUDA source says how the kernel
-is laid out and what bounds it.  Rows of ``x`` need no padding: the
-kernel zero-fills the ragged last row tile itself.  The plain version
-is ``ref.block_sparse_matmul_ref``.
+(``block_sparse_matmul_pallas``).  The CUDA source says how each variant
+is laid out and what bounds it; :func:`plans.bsm_plan` picks the variant
+(``decode``, ``prefill``, ``general`` or ``f32``) and the cluster size
+before the launch, from shapes, dtype and alignment.  Rows of ``x`` need
+no padding: every variant zero-fills the ragged last row tile itself.
+The plain version is ``ref.block_sparse_matmul_ref``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .plans import bsm_plan
 
-__all__ = ["block_sparse_matmul_cuda", "launches"]
+__all__ = ["block_sparse_matmul_cuda", "launches", "variant_launches"]
 
-# launches of the CUDA kernel since the last reset (see ops.reset_launch_counts)
+# launches of the CUDA kernel since the last reset (see ops.reset_launch_counts),
+# in all and per variant
 launches = 0
+variant_launches = {"decode": 0, "prefill": 0, "general": 0, "f32": 0}
 
 
 def block_sparse_matmul_cuda(x: torch.Tensor, w_comp: torch.Tensor,
@@ -41,11 +46,16 @@ def block_sparse_matmul_cuda(x: torch.Tensor, w_comp: torch.Tensor,
     y = torch.empty(B, Gn * bn, dtype=x.dtype, device=x.device)
     if B == 0:
         return y
-    fn = "bsm_bf16" if x.dtype == torch.bfloat16 else "bsm_f32"
+    plan = bsm_plan(B, K, Gn, L, bm, bn, x.dtype, _build.alignment(x.data_ptr(),
+                                                                      w_comp.data_ptr()))
     lib = _build.load("block_sparse_matmul")
+    args = (x.data_ptr(), w_comp.data_ptr(), idx.data_ptr(), y.data_ptr(), B, K, Gn, L)
+    fn = {"decode": "bsm_bf16_decode", "prefill": "bsm_bf16_prefill",
+          "general": "bsm_bf16_general", "f32": "bsm_f32"}[plan.variant]
     with torch.cuda.device(x.device):
-        rc = getattr(lib, fn)(x.data_ptr(), w_comp.data_ptr(), idx.data_ptr(), y.data_ptr(),
-                              B, K, Gn, L, bm, bn, _build.stream_ptr(x.device))
+        tail = (plan.cluster,) if plan.variant in ("decode", "prefill") else (bm, bn)
+        rc = getattr(lib, fn)(*args, *tail, _build.stream_ptr(x.device))
     _build.check(rc, fn)
     launches += 1
+    variant_launches[plan.variant] += 1
     return y

@@ -10,32 +10,60 @@
 // Layout: x (B, K), w_comp (Kc, N), row_idx (Kc,) int32 with
 // 0 <= row_idx < K (the wrapper checks), y (B, N), all contiguous.
 //
-// bf16 path: one CTA (4 warps) per (TB-row tile of x, TN = 128-column tile
-// of w_comp).  The CTA walks Kc in chunks of KC = 64 rows: it gathers
-// x[rows, row_idx[k0:k0+KC]] into shared memory, stages the KC x TN weight
-// chunk beside it, and accumulates with WMMA 16x16x16 bf16 tensor-core
-// tiles in f32 registers.  Rows of x past B, columns of w_comp past N and
-// chunk rows past Kc are zero-filled, so the caller pads nothing.  TB is
-// 64 for prefill-sized B and 16 for decode.  Each thread issues all its
-// loads of the next chunk into registers before the current chunk's WMMA
-// work, so the memory latency of one chunk overlaps the compute of the
-// other: a loop that loaded and stored one 16-byte piece at a time waits
-// out the full latency eight times per chunk (about 7 us a chunk on an
-// H100, where the weight bytes of a chunk need well under 1 us).
-// The TPU kernel gathers the whole (TB, K) row tile of x into VMEM once and
-// reuses it across the N tiles of a sequential grid; here CTAs run in
-// parallel and share nothing, and a (64, K) tile does not fit in shared
-// memory for the model's K, so each CTA gathers only the (TB, KC) slices
-// its own chunks need (x is small next to w_comp on every main-path call).
+// The wrapper (intrablock_matmul.py, through plans.igm_plan) picks one
+// variant before the launch, by dtype, B, N and the alignment of w_comp:
 //
-// Bound: at decode (B = 4) the kernel streams w_comp once and does 2*B
-// flops per weight, so device-memory bytes bound it.  Known limits of this
-// first version: with TN = 128, wk/wv of qwen3-4b (N = 1024) give only 8
-// CTAs on 132 SMs and wq (N = 4096) 32; the weight stream is not
-// pipelined beyond the one register stage (no cp.async/TMA, no wgmma).
+// decode (bf16, B <= 16, N % 128 == 0, w_comp 16-byte aligned).
+//   Bound: bytes (2*B flops per weight read).  Design: grid (c, N/128) in
+//   clusters of c CTAs, one cluster per 128-column tile; CTA rank r takes
+//   the 64-row chunks [r*n/c, (r+1)*n/c) of the n = ceil(Kc/64) chunks of
+//   Kc (plans.split_range).  A producer warp fills a 4-stage ring: a
+//   chunk's 64 x 128 weights arrive by two TMA loads of 64 x 64 boxes with
+//   the 128-byte swizzle (rows past Kc arrive as zeros), from a tensor map
+//   encoded once per weight address and then kept (sm90::cached_map): no
+//   host work per decode call, where a qwen3-4b decode step runs this
+//   kernel 216 times and its host already issues 98% of the step.  The
+//   four consumer warps gather each chunk's (16, 64) slice of x together
+//   (rows past B and columns past Kc zero; x is ~20 KB at decode and sits
+//   in L2) into rows padded to 144 bytes, loading chunk s+1's values
+//   while they compute chunk s, then run mma.sync m16n8k16, 32 columns
+//   each.  The gather stays off the producer, whose weight loads run the
+//   whole ring ahead: a producer that also gathered held the ring to one
+//   chunk per L2 round trip.  The cluster sums its f32 partials through
+//   distributed shared memory in rank order (sm90::cluster_reduce_store):
+//   one launch, no atomics, bitwise repeatable.  Not one bulk copy per
+//   256-byte weight row, which would need no tensor map: 64 copies a chunk
+//   ran at 2-16% of the byte bound on an H100.
+//   Sizing: ~25-50 KB must be in flight per SM (3.35 TB/s x 1-2 us over
+//   132 SMs).  A stage holds 16 KB of weights and 2.3 KB of x; 4 stages
+//   make a CTA of 75 KB, so two or three CTAs fit on an SM, up to 12
+//   chunks (192 KB) in flight.  c is the smallest power of two (<= 8) that
+//   brings the grid to 2 x 132 CTAs while each CTA keeps at least one
+//   chunk: qwen3-4b wq 8 (256 CTAs), wk/wv 8 (64), w_gate/w_up 4 (304),
+//   w_down 8 (160).
 //
-// f32 path: plain FMA in f32 (no TF32), one thread per output column and
-// 8 rows of x per CTA.  It is the precision reference on the card.
+// prefill (bf16, B > 16, N % 128 == 0, w_comp aligned).  Two launches: a
+//   gather kernel writes x[:, row_idx] once into a (B, Kp) scratch buffer
+//   (Kp = Kc rounded up to 8, the wrapper allocates it), then
+//   sm90::gemm_prefill<1> multiplies it with the dense (Kc, N) weight: two
+//   wgmma m64n128k16 warpgroups per 128 x 128 tile, a 3-stage ring of TMA
+//   tensor-map loads (128-byte swizzle, B operand MN-major, maps from
+//   sm90::cached_map), split-K over a cluster where the grid is small.
+//   The gather is done once per call rather than in the producer warp
+//   because every 128-column tile and every split of one row tile reads
+//   the same gathered x: at B = 512 the gathered x (up to 5 MB) is read
+//   20-76 times, and a dense TMA box cannot gather.  A second launch at
+//   prefill costs a few microseconds against the 0.02-0.07 ms of the
+//   product.
+//
+// general (bf16, any N, any alignment): one CTA (4 warps) per (TB-row
+//   tile, 128-column tile), Kc walked in 64-row chunks with the next chunk
+//   prefetched into registers, WMMA 16x16x16; ragged N and unaligned
+//   w_comp take scalar weight loads.
+//
+// f32 (igm_f32): plain FMA in f32 (no TF32), one thread per output column
+//   and 8 rows of x per CTA.  It is the precision reference on the card.
+#include "sm90_common.cu"
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -180,8 +208,9 @@ igm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace
 
-extern "C" int igm_bf16(const void* x, const void* w, const void* ridx, void* y, int B, int K,
-                        int Kc, int N, void* stream) {
+// General variant: any N, any alignment of w, any B.
+extern "C" int igm_bf16_general(const void* x, const void* w, const void* ridx, void* y, int B,
+                                int K, int Kc, int N, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || N <= 0) return cudaSuccess;
   const bool wvec = N % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
@@ -209,4 +238,147 @@ extern "C" int igm_f32(const void* x, const void* w, const void* ridx, void* y, 
                                                static_cast<const int*>(ridx),
                                                static_cast<float*>(y), B, K, Kc, N);
   return cudaGetLastError();
+}
+
+namespace {
+
+using sm90::bf16;
+
+constexpr int I_KC = 64;                           // rows of a chunk
+constexpr int I_STAGES = 4;
+constexpr int I_W_BYTES = I_KC * 128 * 2;          // two swizzled 64 x 64 boxes
+constexpr int I_XLD = 72;                          // padded x row, elements (144 B)
+constexpr int I_X_BYTES = 16 * I_XLD * 2;
+constexpr int I_THREADS = 160;                     // warps 0-3 consume, warp 4 produces
+constexpr int I_LDR = 132;
+constexpr size_t I_SMEM =
+    1024 + I_STAGES * (I_W_BYTES + I_X_BYTES) + 2 * I_STAGES * sizeof(uint64_t);
+static_assert(16 * I_LDR * 4 <= I_STAGES * I_X_BYTES, "partial must fit over the x tiles");
+
+__global__ void __launch_bounds__(I_THREADS)
+igm_decode_kernel(const __grid_constant__ CUtensorMap tmW, const bf16* __restrict__ x,
+                  const int* __restrict__ ridx, bf16* __restrict__ y, int B, int K, int Kc,
+                  int N) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* xt = ring + I_STAGES * I_W_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(xt + I_STAGES * I_X_BYTES);
+  uint64_t* empty = full + I_STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c = gridDim.x, rank = blockIdx.x, n0 = blockIdx.y * 128;
+  const int nch = (Kc + I_KC - 1) / I_KC;
+  const int lo = rank * nch / c, hi = (rank + 1) * nch / c;
+
+  if (tid == 0) {
+    for (int s = 0; s < I_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 4);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  const int n = hi - lo;
+
+  if (warp == 4) {
+    // ---- producer warp: the weight ring, running I_STAGES chunks ahead ----
+    for (int s = 0; s < n; ++s) {
+      const int st = s % I_STAGES;
+      if (s >= I_STAGES) sm90::mbar_wait(&empty[st], ((s / I_STAGES) - 1) & 1);
+      if (lane == 0) {   // rows past Kc arrive as zeros (TMA out-of-bounds fill)
+        unsigned char* wd = ring + st * I_W_BYTES;
+        sm90::mbar_arrive_expect_tx(&full[st], I_W_BYTES);
+        sm90::tma_2d(wd, &tmW, n0, (lo + s) * I_KC, &full[st]);
+        sm90::tma_2d(wd + I_W_BYTES / 2, &tmW, n0 + 64, (lo + s) * I_KC, &full[st]);
+      }
+      __syncwarp();
+    }
+  } else {
+    // ---- consumer warps: columns n0 + warp*32 .. +31 ------------------------
+    // The four warps gather each chunk's (16, 64) slice of x together: lane
+    // l of warp w holds column w*16 + l%16, rows l/16 + 2q.  The gather is
+    // software-pipelined: the x values of chunk s+1 and the row_idx entries
+    // of chunk s+2 are in flight while chunk s is computed.
+    const bf16 zero = __float2bfloat16(0.f);
+    const int col = warp * 16 + (lane & 15), r0 = lane >> 4;
+    auto ridx_of = [&](int s) {
+      const int k = (lo + s) * I_KC + col;
+      return s < n && k < Kc ? __ldg(ridx + k) : -1;
+    };
+    auto load_x = [&](int i, bf16 (&v)[8]) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int r = r0 + 2 * q;
+        v[q] = r < B && i >= 0 ? x[static_cast<long>(r) * K + i] : zero;
+      }
+    };
+    bf16 v[8];
+    load_x(ridx_of(0), v);
+    int inext = ridx_of(1);
+    float acc[4][4] = {};
+    for (int s = 0; s < n; ++s) {
+      const int st = s % I_STAGES;
+      bf16* xs = reinterpret_cast<bf16*>(xt + st * I_X_BYTES);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) xs[(r0 + 2 * q) * I_XLD + col] = v[q];
+      asm volatile("bar.sync 2, 128;" ::: "memory");   // chunk s's x tile is whole
+      load_x(inext, v);
+      inext = ridx_of(s + 2);
+      sm90::mbar_wait(&full[st], (s / I_STAGES) & 1);
+      sm90::warp_tile_16x32<I_KC / 16, I_KC>(acc, xs, I_XLD, ring + st * I_W_BYTES, warp * 32);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[st]);
+    }
+    // the partial goes over the x tiles, once every consumer is done
+    asm volatile("bar.sync 1, 128;" ::: "memory");
+    sm90::store_warp_tile_16x32(acc, reinterpret_cast<float*>(xt), I_LDR, warp * 32);
+  }
+  sm90::cluster_reduce_store<I_THREADS>(reinterpret_cast<float*>(xt), I_LDR, B, 128, y + n0, N);
+}
+
+// xg[b, k] = x[b, row_idx[k]] for k < Kc, 0 for Kc <= k < Kp.
+__global__ void gather_cols_kernel(const bf16* __restrict__ x, const int* __restrict__ ridx,
+                                   bf16* __restrict__ xg, int K, int Kc, int Kp) {
+  const int b = blockIdx.y, k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < Kp)
+    xg[static_cast<long>(b) * Kp + k] =
+        k < Kc ? x[static_cast<long>(b) * K + __ldg(ridx + k)] : __float2bfloat16(0.f);
+}
+
+}  // namespace
+
+// Decode variant: B <= 16, N % 128 == 0, w 16-byte aligned (the wrapper
+// checks), 1 <= cluster <= 8.
+extern "C" int igm_bf16_decode(const void* x, const void* w, const void* ridx, void* y, int B,
+                               int K, int Kc, int N, int cluster, void* stream) {
+  if (B < 1 || B > 16 || N % 128 || Kc < 1 || cluster < 1 || cluster > 8)
+    return cudaErrorInvalidValue;
+  CUtensorMap mw;
+  if (!sm90::cached_map(&mw, w, N, Kc, N, I_KC)) return cudaErrorInvalidValue;
+  return sm90::launch_cluster(igm_decode_kernel, dim3(cluster, N / 128), I_THREADS, I_SMEM,
+                              static_cast<cudaStream_t>(stream), mw,
+                              static_cast<const bf16*>(x), static_cast<const int*>(ridx),
+                              static_cast<bf16*>(y), B, K, Kc, N);
+}
+
+// Prefill variant: N % 128 == 0, w 16-byte aligned, xg a (B, Kp) scratch
+// buffer with Kp = Kc rounded up to 8, 1 <= cluster <= 8.
+extern "C" int igm_bf16_prefill(const void* x, const void* w, const void* ridx, void* xg,
+                                void* y, int B, int K, int Kc, int Kp, int N, int cluster,
+                                void* stream) {
+  if (B < 1 || N % 128 || Kc < 1 || Kp < Kc || Kp % 8 || cluster < 1 || cluster > 8)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gather_cols_kernel<<<dim3((Kp + 255) / 256, B), 256, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const int*>(ridx), static_cast<bf16*>(xg), K, Kc,
+      Kp);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap ma, mb;
+  if (!sm90::cached_map(&ma, xg, Kp, B, Kp, sm90::PM) ||
+      !sm90::cached_map(&mb, w, N, Kc, N, sm90::PK))
+    return cudaErrorInvalidValue;
+  return sm90::launch_prefill<1>(ma, mb, nullptr, static_cast<bf16*>(y), B, N,
+                                 (Kc + sm90::PK - 1) / sm90::PK, cluster, N / 128, st);
 }

@@ -2,21 +2,28 @@
 ``csrc/intrablock_matmul.cu``.
 
 Replaces ``repro/kernels/intrablock_matmul.py:41``
-(``intrablock_gather_matmul_pallas``).  The CUDA source says how the
-kernel is laid out and what bounds it.  Neither the rows of ``x`` nor the
-columns of ``w_comp`` need padding: the kernel zero-fills the ragged
-tiles itself.  The plain version is ``ref.intrablock_gather_matmul_ref``.
+(``intrablock_gather_matmul_pallas``).  The CUDA source says how each
+variant is laid out and what bounds it; :func:`plans.igm_plan` picks the
+variant (``decode``, ``prefill``, ``general`` or ``f32``) and the cluster
+size before the launch, from shapes, dtype and alignment.  Neither the
+rows of ``x`` nor the columns of ``w_comp`` need padding: every variant
+zero-fills the ragged tiles itself.  The prefill variant gathers x into a
+scratch buffer that this wrapper allocates, then multiplies (two kernels,
+one call).  The plain version is ``ref.intrablock_gather_matmul_ref``.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
+from .plans import igm_plan
 
-__all__ = ["intrablock_gather_matmul_cuda", "check_row_idx", "launches"]
+__all__ = ["intrablock_gather_matmul_cuda", "check_row_idx", "launches", "variant_launches"]
 
-# launches of the CUDA kernel since the last reset (see ops.reset_launch_counts)
+# calls that launched the CUDA kernel since the last reset (see
+# ops.reset_launch_counts), in all and per variant
 launches = 0
+variant_launches = {"decode": 0, "prefill": 0, "general": 0, "f32": 0}
 
 
 def check_row_idx(row_idx: torch.Tensor, K: int) -> None:
@@ -60,11 +67,24 @@ def intrablock_gather_matmul_cuda(x: torch.Tensor, w_comp: torch.Tensor, row_idx
     y = torch.empty(B, N, dtype=x.dtype, device=x.device)
     if B == 0 or N == 0:
         return y
-    fn = "igm_bf16" if x.dtype == torch.bfloat16 else "igm_f32"
+    plan = igm_plan(B, Kc, N, x.dtype, _build.alignment(w_comp.data_ptr()))
     lib = _build.load("intrablock_matmul")
+    ptrs = (x.data_ptr(), w_comp.data_ptr(), row_idx.data_ptr())
     with torch.cuda.device(x.device):
-        rc = getattr(lib, fn)(x.data_ptr(), w_comp.data_ptr(), row_idx.data_ptr(),
-                              y.data_ptr(), B, K, Kc, N, _build.stream_ptr(x.device))
+        stream = _build.stream_ptr(x.device)
+        if plan.variant == "decode":
+            fn = "igm_bf16_decode"
+            rc = lib.igm_bf16_decode(*ptrs, y.data_ptr(), B, K, Kc, N, plan.cluster, stream)
+        elif plan.variant == "prefill":
+            fn = "igm_bf16_prefill"
+            Kp = -(-Kc // 8) * 8
+            xg = torch.empty(B, Kp, dtype=x.dtype, device=x.device)
+            rc = lib.igm_bf16_prefill(*ptrs, xg.data_ptr(), y.data_ptr(), B, K, Kc, Kp, N,
+                                      plan.cluster, stream)
+        else:
+            fn = "igm_bf16_general" if plan.variant == "general" else "igm_f32"
+            rc = getattr(lib, fn)(*ptrs, y.data_ptr(), B, K, Kc, N, stream)
     _build.check(rc, fn)
     launches += 1
+    variant_launches[plan.variant] += 1
     return y

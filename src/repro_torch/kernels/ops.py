@@ -9,7 +9,9 @@
 
 Shapes, layouts and errors follow ``repro/kernels/ops.py``.  Each CUDA
 wrapper counts its launches in a plain integer; :func:`launch_counts`
-reads them and :func:`reset_launch_counts` sets them to 0.
+reads them, :func:`variant_counts` reads the per-variant counts of the
+block-sparse matmul and the gather-matmul, and :func:`reset_launch_counts`
+sets them all to 0.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ __all__ = ["IMPLS", "compress_fullblock", "compress_fullblock_torch",
            "compress_intrablock", "compress_intrablock_torch", "decompress_intrablock",
            "block_sparse_matmul", "intrablock_gather_matmul", "block_importance",
            "bitserial_zero_profile", "flash_attention",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "variant_counts", "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "ref")
 _KERNELS = {"flash_attention": _fa, "block_sparse_matmul": _bsm,
@@ -50,9 +52,19 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
+def variant_counts() -> Dict[str, Dict[str, int]]:
+    """Launches per variant (see :mod:`~repro_torch.kernels.plans`) of the
+    two kernels that have variants, since the last reset."""
+    return {"block_sparse_matmul": dict(_bsm.variant_launches),
+            "intrablock_gather_matmul": dict(_igm.variant_launches)}
+
+
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    for mod in (_bsm, _igm):
+        for v in mod.variant_launches:
+            mod.variant_launches[v] = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,124 @@
+"""Launch plans of the block-sparse matmul and the IntraBlock gather-matmul.
+
+A plan is decided on the host before the launch, from shapes, dtype and
+pointer alignment alone (it never reads a tensor back from the card):
+
+* the **variant** — ``"decode"`` (bf16, B <= 16: bulk-copy ring +
+  mma.sync + cluster split-K), ``"prefill"`` (bf16, B > 16: TMA ring +
+  wgmma), ``"general"`` (bf16 shapes or alignments the two do not take:
+  the first kernel, kept) or ``"f32"`` (the precision reference);
+* the **cluster** size ``c``: how many CTAs split one output tile's
+  reduction;
+* the **partition** of that reduction over the cluster's ranks: rank r
+  takes units ``split_range(n, c, r)`` of the tile's n units, where a unit
+  is a live slot of the idx row (block-sparse) or a 64-row chunk of Kc
+  (gather-matmul).  The CUDA kernels compute the same ranges in the same
+  way (``csrc/block_sparse_matmul.cu``, ``csrc/intrablock_matmul.cu``) and
+  sum the ranks' f32 partials in rank order.
+
+The two plan functions are memoised: a decode step asks for the same few
+plans on every layer.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import List, Sequence, Tuple
+
+import torch
+
+__all__ = ["Plan", "DECODE_MAX_B", "CHUNK", "TILE_N", "SMS", "BSM_DECODE_CTAS",
+           "IGM_DECODE_CTAS", "PREFILL_CTAS", "split_range", "choose_cluster", "bsm_plan",
+           "igm_plan", "live_partition", "chunk_partition"]
+
+DECODE_MAX_B = 16      # rows of x one mma.sync tile holds
+CHUNK = 64             # Kc rows of one gather-matmul stage
+TILE_N = 128           # output columns of one tile (both kernels' main variants)
+PREFILL_ROWS = 128     # output rows of one prefill tile
+SMS = 132              # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 8        # portable thread-block cluster size
+ALIGN = 16             # bytes: bulk copies and tensor maps need 16-byte aligned rows
+
+
+@dataclass(frozen=True)
+class Plan:
+    variant: str       # "decode" | "prefill" | "general" | "f32"
+    cluster: int       # CTAs that split one output tile's reduction
+
+
+def split_range(n: int, c: int, r: int) -> Tuple[int, int]:
+    """Units [lo, hi) of rank r when n units are split over c ranks."""
+    return r * n // c, (r + 1) * n // c
+
+
+# CTAs a grid should reach before the reduction is split further, per
+# variant; read off a sweep of c = 1, 2, 4, 8 at the main-path shapes on an
+# H100 (chip_smoke.py prints it beside every bf16 kernel row).  The
+# block-sparse decode CTA streams 32 KB blocks and one per SM already
+# keeps enough bytes in flight; the gather-matmul decode CTA streams 16 KB
+# chunks and wants two or three per SM; at prefill each further split
+# costs a 64 KB partial through distributed shared memory, worth it only
+# on small grids.
+BSM_DECODE_CTAS = 128
+IGM_DECODE_CTAS = 2 * SMS
+PREFILL_CTAS = 128
+
+
+def choose_cluster(tiles: int, units: int, target: int, min_units: int = 1) -> int:
+    """The smallest power of two c <= 8 with tiles * c >= target, kept
+    small enough that every rank has at least ``min_units`` units."""
+    c = 1
+    while c < MAX_CLUSTER and tiles * c < target and units >= 2 * c * min_units:
+        c *= 2
+    return c
+
+
+@lru_cache(maxsize=1024)
+def bsm_plan(B: int, K: int, Gn: int, L: int, bm: int, bn: int, dtype: torch.dtype,
+             align: int) -> Plan:
+    """Plan of ``block_sparse_matmul`` for x (B, K), w_comp (Gn, L, bm, bn).
+
+    ``align`` is the largest power of two dividing the addresses of x and
+    w_comp.  The cluster is sized from L, the slot count (the live count
+    of each row is only known on the card; ``compress_fullblock`` makes L
+    the largest live count of the stack).
+    """
+    if dtype == torch.float32:
+        return Plan("f32", 1)
+    if bm != TILE_N or bn != TILE_N or align % ALIGN:
+        return Plan("general", 1)
+    if B <= DECODE_MAX_B:
+        return Plan("decode", choose_cluster(Gn, L, BSM_DECODE_CTAS))
+    tiles = Gn * -(-B // PREFILL_ROWS)
+    return Plan("prefill", choose_cluster(tiles, L, PREFILL_CTAS, min_units=2))
+
+
+@lru_cache(maxsize=1024)
+def igm_plan(B: int, Kc: int, N: int, dtype: torch.dtype, align: int) -> Plan:
+    """Plan of ``intrablock_gather_matmul`` for x (B, K), w_comp (Kc, N).
+
+    ``align`` is the largest power of two dividing the address of w_comp
+    (x is gathered element by element, so its address does not matter).
+    """
+    if dtype == torch.float32:
+        return Plan("f32", 1)
+    if N % TILE_N or align % ALIGN:
+        return Plan("general", 1)
+    chunks = -(-Kc // CHUNK)
+    if B <= DECODE_MAX_B:
+        return Plan("decode", choose_cluster(N // TILE_N, chunks, IGM_DECODE_CTAS))
+    tiles = (N // TILE_N) * -(-B // PREFILL_ROWS)
+    return Plan("prefill", choose_cluster(tiles, chunks, PREFILL_CTAS, min_units=2))
+
+
+def live_partition(idx_row: Sequence[int], c: int) -> List[List[int]]:
+    """The slot positions each of c ranks takes from one idx row: its
+    share of the live slots (entries >= 0), in slot order."""
+    live = [l for l, v in enumerate(idx_row) if int(v) >= 0]
+    return [live[slice(*split_range(len(live), c, r))] for r in range(c)]
+
+
+def chunk_partition(Kc: int, c: int) -> List[List[Tuple[int, int]]]:
+    """The Kc row ranges [k0, k1) each of c ranks takes, one per chunk."""
+    chunks = [(k0, min(k0 + CHUNK, Kc)) for k0 in range(0, Kc, CHUNK)]
+    return [chunks[slice(*split_range(len(chunks), c, r))] for r in range(c)]

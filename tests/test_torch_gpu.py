@@ -64,6 +64,85 @@ def test_block_sparse_matmul_kernel_matches_plain(gen, K, N, bm, bn, B, dtype):
                                atol=1e-2 if dtype == torch.bfloat16 else 1e-5, rtol=0)
 
 
+def _variant_delta(before):
+    after = ops.variant_counts()
+    return {op: {v: after[op][v] - before[op][v] for v in after[op] if after[op][v] != before[op][v]}
+            for op in after}
+
+
+@pytest.mark.parametrize("B", [1, 4, 16, 17, 64, 512])
+@pytest.mark.parametrize("Gn,K", [(8, 1024), (3, 2048), (2, 8192)])
+def test_block_sparse_matmul_main_variants_match_plain(gen, B, Gn, K):
+    """128 x 128 blocks at decode (B <= 16) and prefill sizes, wk-sized
+    Gn = 8, -1 slots in mid-list and a column group that holds only
+    padding (its output must be zero); at K = 8192 each CTA of a cluster
+    walks more slots than its ring has stages.  Two calls are bitwise
+    equal and only the chosen variant's counter moves."""
+    gk = K // 128
+    keep = torch.rand(gk, Gn, generator=gen, device="cuda") < 0.6
+    keep[:, 1] = False                                # column group 1: padding only
+    w_comp, idx = ops.compress_fullblock_torch(_randn(gen, K, Gn * 128, dtype=torch.bfloat16),
+                                               keep, 128, 128, L=gk)
+    for j in range(Gn):                               # move a -1 into mid-list
+        live = int((idx[j] >= 0).sum())
+        if 2 <= live < gk:
+            perm = torch.cat([idx[j, :1], idx[j, live:live + 1], idx[j, 1:live],
+                              idx[j, live + 1:]])
+            wperm = torch.cat([w_comp[j, :1], w_comp[j, live:live + 1], w_comp[j, 1:live],
+                               w_comp[j, live + 1:]])
+            idx[j], w_comp[j] = perm, wperm
+    x = _randn(gen, B, K, dtype=torch.bfloat16)
+    want = ref.block_sparse_matmul_ref(x, w_comp, idx)
+    before = ops.variant_counts()
+    out = ops.block_sparse_matmul(x, w_comp, idx)
+    again = ops.block_sparse_matmul(x, w_comp, idx)
+    variant = "decode" if B <= 16 else "prefill"
+    assert _variant_delta(before) == {"block_sparse_matmul": {variant: 2},
+                                      "intrablock_gather_matmul": {}}
+    assert torch.equal(out, again)
+    assert not out[:, 128:256].any()
+    scale = max(want.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
+
+
+def test_block_sparse_matmul_unaligned_takes_the_general_variant(gen):
+    keep = torch.rand(4, 2, generator=gen, device="cuda") < 0.5
+    w_comp, idx = ops.compress_fullblock_torch(_randn(gen, 512, 256, dtype=torch.bfloat16),
+                                               keep, 128, 128)
+    buf = _randn(gen, 4 * 512 + 1, dtype=torch.bfloat16)
+    x = buf[1:].view(4, 512)
+    before = ops.variant_counts()
+    out = ops.block_sparse_matmul(x, w_comp, idx)
+    assert _variant_delta(before) == {"block_sparse_matmul": {"general": 1},
+                                      "intrablock_gather_matmul": {}}
+    want = ref.block_sparse_matmul_ref(x, w_comp, idx)
+    scale = max(want.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("B", [1, 4, 16, 17, 64, 512])
+@pytest.mark.parametrize("K,N,m", [(1000, 1024, 4), (2560, 256, 2), (8192, 256, 2)])
+def test_intrablock_gather_matmul_main_variants_match_plain(gen, B, K, N, m):
+    """Kc = 500 (not a multiple of the 64-row chunk) at N = 1024 (split-K
+    over 8 CTAs a tile at decode), Kc = 1280 at N = 256, and Kc = 4096,
+    where each CTA walks more chunks than its ring has stages; two calls
+    are bitwise equal and only the chosen variant's counter moves."""
+    w = _randn(gen, K, N, dtype=torch.bfloat16)
+    mask = intrablock_mask(w.float(), IntraBlock(m, 1, 0.5), align_cols=True)
+    w_comp, row_idx = ops.compress_intrablock_torch(w, mask, m)
+    x = _randn(gen, B, K, dtype=torch.bfloat16)
+    want = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
+    before = ops.variant_counts()
+    out = ops.intrablock_gather_matmul(x, w_comp, row_idx)
+    again = ops.intrablock_gather_matmul(x, w_comp, row_idx)
+    variant = "decode" if B <= 16 else "prefill"
+    assert _variant_delta(before) == {"block_sparse_matmul": {},
+                                      "intrablock_gather_matmul": {variant: 2}}
+    assert torch.equal(out, again)
+    scale = max(want.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
+
+
 @pytest.mark.parametrize("M,N,bm,bn", [(64, 64, 8, 8), (128, 256, 32, 16), (256, 384, 128, 128)])
 @pytest.mark.parametrize("crit", ["l1", "l2"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
