@@ -10,12 +10,16 @@ Phases, each reported on its own line(s):
 2. kernels  — hold each kernel against its plain PyTorch version at the
    shapes of the main paths, in bf16 and f32 (int8 for the bit-serial
    profile), and time kernel, plain version and the nearest single
-   PyTorch call.  The block-sparse matmul and gather-matmul rows name the
-   variant that ran and are timed from CUDA graphs (card time alone),
-   with the eager times beside them (what back-to-back calls from Python
-   cost, host included); each row gives ``share_of_bound`` (bound / ms)
-   and ``x_library`` (ms / library ms), and the bf16 rows the card time of
-   the same variant at cluster sizes 1, 2, 4 and 8 beside the plan's;
+   PyTorch call.  The flash-attention, block-sparse matmul, block
+   importance and gather-matmul rows name the variant that ran and are
+   timed from CUDA graphs (card time alone), with the eager times beside
+   them (what back-to-back calls from Python cost, host included); each
+   row gives ``share_of_bound`` (bound / ms) and ``x_library`` (ms /
+   library ms).  The bf16 matmul rows add the card time of the same
+   variant at cluster sizes 1, 2, 4 and 8 beside the plan's, the flash
+   wgmma rows (S = 512 and 2048) the card time at every lever setting
+   (rows per CTA / keys per tile / q heads per CTA), and the
+   block-importance rows the first kernel's card time (``general_ms``);
 3. llama3-8b FullBlock path: init at full width (random bf16 weights
    from a seed), check the kernel's Eq. 1 block losses against the plain
    ones, prune with FullBlock(128, 128, 0.5), compress, serve 8 requests
@@ -42,7 +46,10 @@ llama3-8b serving, ``intrablock_gather_matmul`` from prune to the end of
 qwen3-4b serving, ``bitserial_zero_profile`` over the profile call.
 After each served path its compressed projections must have run only
 through the ``decode`` and ``prefill`` variants, one launch per
-projection, layer and decode step or prompt, none through ``general``.
+projection, layer and decode step or prompt, none through ``general``;
+its prefill attention only through the flash ``wgmma`` variant (one
+launch per layer and prompt), and the llama3-8b prune only through the
+block-importance ``strip`` variant (one launch per projection and layer).
 Any failed check exits nonzero.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -202,6 +209,29 @@ def cluster_sweep(op: str, variant: str, sets) -> dict:
     return out
 
 
+FA_LEVERS = [(rows, keys, pack) for rows in (128, 64) for keys in (128, 64) for pack in (1, 4)]
+
+
+def flash_sweep(sets, window) -> dict:
+    """Card ms of the flash wgmma variant at every lever setting it was
+    built with (rows per CTA / keys per tile / q heads packed per CTA),
+    calling the C entry point directly."""
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention")
+    out = {}
+    for rows, keys, pack in FA_LEVERS:
+        def call(q, k, v, rows=rows, keys=keys, pack=pack):
+            B, S, Hq, hd = q.shape
+            o = torch.empty_like(q)
+            rc = lib.fa_fwd_bf16_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                       B, S, Hq, k.shape[2], hd, int(window or 0),
+                                       1.0 / math.sqrt(hd), rows, keys, pack,
+                                       _build.stream_ptr(q.device))
+            _build.check(rc, f"flash_attention wgmma {rows}/{keys}/{pack}")
+        out[f"{rows}/{keys}/{pack}"] = graph_ms(call, sets)
+    return out
+
+
 def kernel_phase() -> dict:
     """Hold each kernel to its plain version at main-path shapes and time
     kernel, plain version and library call on every row.  Returns the
@@ -223,19 +253,23 @@ def kernel_phase() -> dict:
 
     # -- flash attention: prefill self-attention ------------------------------
     # (B, S, Hq, Hkv, hd, window): llama3-8b prefill of the longest prompt
-    # (512 tokens), plus head dims 64/256 and a window for coverage.
-    fa_cases = [(1, 512, 32, 8, 128, None), (1, 256, 8, 2, 64, 64), (1, 256, 8, 2, 256, None)]
+    # (512 tokens) and the same heads at S = 2048, where the tensor cores
+    # bound it; head dims 64/256 and a window for coverage (general variant).
+    fa_cases = [(1, 512, 32, 8, 128, None), (1, 2048, 32, 8, 128, None),
+                (1, 256, 8, 2, 64, 64), (1, 256, 8, 2, 256, None)]
     tol = {torch.bfloat16: 3e-2, torch.float32: 3e-5}
     for (B, S, Hq, Hkv, hd, window) in fa_cases:
         G = Hq // Hkv
         pairs = B * Hq * sum(min(i + 1, window or S) for i in range(S))   # live (q, k) pairs
-        for dt in dtypes:
+        for dt in dtypes if S <= 512 else (torch.bfloat16,):
             esize = torch.empty((), dtype=dt).element_size()
             nbytes = 2 * B * S * (Hq + Hkv) * hd * esize           # q, k, v read; o written
             sets = [(randn(B, S, Hq, hd, dtype=dt), randn(B, S, Hkv, hd, dtype=dt),
                      randn(B, S, Hkv, hd, dtype=dt)) for _ in range(n_copies(nbytes))]
             q, k, v = sets[0]
+            before = ops.variant_counts()["flash_attention"]
             out = fa_mod.flash_attention_cuda(q, k, v, causal=True, window=window)
+            variant = moved_variant("flash_attention", before)
             plain = ops.flash_attention(q, k, v, causal=True, window=window, impl="ref")
             torch.cuda.synchronize()
             err = (out.float() - plain.float()).abs().max().item()
@@ -250,19 +284,28 @@ def kernel_phase() -> dict:
             if window is not None:
                 i = torch.arange(S, device="cuda")
                 mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-            line = {"max_abs_err": err, "tol": tol[dt],
-                    "ms": cuda_ms(lambda a, b, c: fa_mod.flash_attention_cuda(
-                        a, b, c, causal=True, window=window), sets),
-                    "plain_ms": cuda_ms(lambda a, b, c: ops.flash_attention(
+            kern = lambda a, b, c: fa_mod.flash_attention_cuda(a, b, c, causal=True,
+                                                               window=window)
+            lib = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask,
+                                                                 is_causal=mask is None)
+            line = {"variant": variant, "max_abs_err": err, "tol": tol[dt],
+                    "ms": graph_ms(kern, sets),
+                    "plain_ms": graph_ms(lambda a, b, c: ops.flash_attention(
                         a, b, c, causal=True, window=window, impl="ref"), sets),
-                    "library_ms": cuda_ms(lambda a, b, c: F.scaled_dot_product_attention(
-                        a, b, c, attn_mask=mask, is_causal=mask is None), lib_sets),
+                    "library_ms": graph_ms(lib, lib_sets),
+                    "eager_ms": cuda_ms(kern, sets), "eager_library_ms": cuda_ms(lib, lib_sets),
                     **bound(nbytes, 4 * hd * pairs, peak[dt])}
+            line.update(ratios(line))
+            if variant == "wgmma":
+                p = plans.fa_plan(B, S, S, Hq, Hkv, hd, dt, True, window, 256)
+                line["levers"] = f"{p.rows}/{p.keys}/{p.pack}"
+                line["ms_by_levers"] = flash_sweep(sets, window)
             report(name, line)
             if S == 512 and dt == torch.bfloat16:
                 rows["flash_attention"] = dict(
                     line, shape=f"q ({B},{S},{Hq},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal",
                     library="F.scaled_dot_product_attention (kv heads repeated)")
+            del sets, lib_sets, q, k, v, out, plain
 
     # -- block-sparse matmul: the six pruned projections ---------------------
     # (K, N) of llama3-8b's projections at 50% FullBlock(128,128) density,
@@ -335,6 +378,18 @@ def kernel_phase() -> dict:
         return torch.linalg.vector_norm(a.view(a.shape[0] // bm, bm, a.shape[1] // bn, bn),
                                         ord=1, dim=(1, 3), dtype=torch.float32)
 
+    bi_lib = _build.load("block_importance")
+
+    def bi_general(a, crit):
+        """The first kernel (the general variant) at 128 x 128, for comparison."""
+        o = torch.empty(a.shape[0] // BLOCK, a.shape[1] // BLOCK, dtype=torch.float32,
+                        device=a.device)
+        fn = "bi_bf16" if a.dtype == torch.bfloat16 else "bi_f32"
+        _build.check(getattr(bi_lib, fn)(a.data_ptr(), o.data_ptr(), a.shape[0], a.shape[1],
+                                         BLOCK, BLOCK, bi_mod.CRITERIA[crit],
+                                         _build.stream_ptr(a.device)), fn)
+        return o
+
     bi_shapes = {"wq": (4096, 4096), "wk/wv": (4096, 1024), "w_gate/w_up": (4096, 14336),
                  "w_down": (14336, 4096)}
     for key, (M, N) in bi_shapes.items():
@@ -343,26 +398,33 @@ def kernel_phase() -> dict:
             sets = [(randn(M, N, dtype=dt),) for _ in range(n_copies(M * N * esize))]
             w = sets[0][0]
             for crit in ("l1", "l2"):
+                before = ops.variant_counts()["block_importance"]
                 out = bi_mod.block_importance_cuda(w, BLOCK, BLOCK, crit)
+                variant = moved_variant("block_importance", before)
+                again = bi_mod.block_importance_cuda(w, BLOCK, BLOCK, crit)
                 plain = ref.block_importance_ref(w, BLOCK, BLOCK, crit)
                 torch.cuda.synchronize()
                 rel = ((out - plain).abs() / plain.abs()).max().item()
                 name = f"block_importance {key} ({M},{N}) {str(dt)[6:]} {crit}"
                 check(rel <= 1e-5, f"{name}: max rel err {rel} > 1e-5")
-                lib_ms = None
+                check(torch.equal(out, again), f"{name}: two calls differ")
+                lib_ms = eager_lib = None
                 if crit == "l1":
                     lib = l1_norm(w, BLOCK, BLOCK)
                     lib_rel = ((lib - plain).abs() / plain.abs()).max().item()
                     check(lib_rel <= 1e-5, f"{name}: library call differs by {lib_rel}")
-                    lib_ms = cuda_ms(lambda a: l1_norm(a, BLOCK, BLOCK), sets)
-                line = {"max_abs_err": (out - plain).abs().max().item(), "max_rel_err": rel,
-                        "tol": "rtol 1e-5",
-                        "ms": cuda_ms(lambda a: bi_mod.block_importance_cuda(
+                    lib_ms = graph_ms(lambda a: l1_norm(a, BLOCK, BLOCK), sets)
+                    eager_lib = cuda_ms(lambda a: l1_norm(a, BLOCK, BLOCK), sets)
+                kern = lambda a: bi_mod.block_importance_cuda(a, BLOCK, BLOCK, crit)
+                line = {"variant": variant, "max_abs_err": (out - plain).abs().max().item(),
+                        "max_rel_err": rel, "tol": "rtol 1e-5", "ms": graph_ms(kern, sets),
+                        "plain_ms": graph_ms(lambda a: ref.block_importance_ref(
                             a, BLOCK, BLOCK, crit), sets),
-                        "plain_ms": cuda_ms(lambda a: ref.block_importance_ref(
-                            a, BLOCK, BLOCK, crit), sets),
-                        "library_ms": lib_ms,
+                        "library_ms": lib_ms, "eager_ms": cuda_ms(kern, sets),
+                        "eager_library_ms": eager_lib,
+                        "general_ms": graph_ms(lambda a: bi_general(a, crit), sets),
                         **bound(tensor_bytes(w, out), 2 * M * N, F32_FLOPS)}
+                line.update(ratios(line))
                 report(name, line)
                 if key == "w_gate/w_up" and dt == torch.bfloat16 and crit == "l1":
                     rows["block_importance"] = dict(
@@ -486,7 +548,10 @@ def main_path(cfg, rows: dict) -> None:
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # Kernel losses against plain losses, and the masks each would give.
-    worst, flipped, n_blocks = 0.0, 0, 0
+    # A block whose kept/dropped state differs sits at the keep threshold:
+    # its gap is |plain loss - threshold| / threshold, the threshold being
+    # the n_keep-th largest plain loss of its matrix.
+    worst, flipped, n_blocks, gap = 0.0, 0, 0, 0.0
     for key in KEYS:
         w = params["layers"][key]
         for l in range(cfg.n_layers):
@@ -495,10 +560,16 @@ def main_path(cfg, rows: dict) -> None:
             lp = block_losses(mat, BLOCK, BLOCK, "l1", impl="ref")
             worst = max(worst, ((lk - lp).abs() / lp.abs()).max().item())
             n_keep = FullBlock(BLOCK, BLOCK, 0.5).nonzero_blocks(tuple(mat.shape))
-            flipped += int((keep_from_losses(lk, n_keep) != keep_from_losses(lp, n_keep)).sum())
+            differ = keep_from_losses(lk, n_keep) != keep_from_losses(lp, n_keep)
+            if differ.any():
+                threshold = lp.reshape(-1).topk(n_keep).values[-1]
+                gap = max(gap, ((lp[differ] - threshold).abs() / threshold).max().item())
+            flipped += int(differ.sum())
             n_blocks += lk.numel()
     print(f"[prune] block losses kernel vs plain: max rel err {worst:.3e} (rtol 1e-5); "
-          f"mask blocks that differ: {flipped} of {n_blocks}", flush=True)
+          f"mask blocks that differ: {flipped} of {n_blocks}, each within {gap:.2e} "
+          f"(relative) of its matrix's keep threshold: ties at f32 rounding", flush=True)
+    check(gap <= 2 * worst, f"a mask block differs {gap} from the threshold, beyond rounding")
     check(worst <= 1e-5, f"block losses differ: {worst} > 1e-5")
 
     # ---- the main path: counts from here to the end of serving --------------
@@ -524,6 +595,8 @@ def main_path(cfg, rows: dict) -> None:
         check(counts[name] > 0, f"{name} was not launched on the llama3-8b path")
         rows[name]["launches"] = counts[name]
     check_main_variants(cfg, "block_sparse_matmul", counts, len(reqs))
+    check_single_variant(cfg, "flash_attention", "wgmma", counts, cfg.n_layers * len(reqs))
+    check_single_variant(cfg, "block_importance", "strip", counts, len(KEYS) * cfg.n_layers)
 
     parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15,
                  faults=fullblock_faults(cfg, cparams))
@@ -541,6 +614,16 @@ def check_main_variants(cfg, op: str, counts: dict, prefills: int) -> None:
           f"{json.dumps(want)} ({counts[op]} in all)", flush=True)
     check(v == want and counts[op] == want["decode"] + want["prefill"],
           f"{op}: launches by variant {v}, want {want}")
+
+
+def check_single_variant(cfg, op: str, variant: str, counts: dict, want: int) -> None:
+    """Every launch of ``op`` on the path ran ``variant``: ``want`` of
+    them, none through ``general`` or ``f32``."""
+    v = counts["variants"][op]
+    print(f"[serve] {cfg.name}: {op} launches by variant {json.dumps(v)}; want {want} "
+          f"{variant}", flush=True)
+    check(v[variant] == want == counts[op] and sum(v.values()) == want,
+          f"{op}: launches by variant {v}, want {want} {variant} and no other")
 
 
 def serve_phase(cfg, cparams):
@@ -772,6 +855,7 @@ def intrablock_path(cfg, rows: dict) -> None:
     check(counts["block_sparse_matmul"] == 0, "a FullBlock matmul ran on the IntraBlock path")
     rows["intrablock_gather_matmul"]["launches"] = counts["intrablock_gather_matmul"]
     check_main_variants(cfg, "intrablock_gather_matmul", counts, len(reqs))
+    check_single_variant(cfg, "flash_attention", "wgmma", counts, cfg.n_layers * len(reqs))
 
     # Logits have std ~1 at this init.  On an H100 the kernel path stays
     # within 0.068 of the plain one (bf16 over 36 layers), while leaving out

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` named in :data:`SOURCES` has a plain C interface
-(``csrc/sm90_common.cu`` holds Hopper helpers that two of them include,
+(``csrc/sm90_common.cu`` holds Hopper helpers that three of them include,
 and is not built on its own) and is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own
 shared library under ``build/repro_torch_kernels/`` at the root of the
@@ -42,6 +42,8 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # q, k, v, o, B, Sq, Skv, Hq, Hkv, hd, causal, window, scale, stream
         "fa_fwd_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
         "fa_fwd_f32": [P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+        # q, k, v, o, B, S, Hq, Hkv, hd, window, scale, rows, keys, pack, stream
+        "fa_fwd_bf16_wgmma": [P, P, P, P, I, I, I, I, I, I, F, I, I, I, P],
     },
     "block_sparse_matmul": {
         # x, w_comp, idx, y, B, K, Gn, L, cluster, stream
@@ -55,6 +57,9 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # w, out, M, N, bm, bn, criterion (0 = l1, 1 = l2), stream
         "bi_bf16": [P, P, I, I, I, I, I, P],
         "bi_f32": [P, P, I, I, I, I, I, P],
+        # w, out, M, N, criterion, stream
+        "bi_bf16_strip": [P, P, I, I, I, P],
+        "bi_f32_strip": [P, P, I, I, I, P],
     },
     "intrablock_matmul": {
         # x, w_comp, row_idx, y, B, K, Kc, N, cluster, stream

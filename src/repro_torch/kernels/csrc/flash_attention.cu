@@ -10,23 +10,63 @@
 // Layout: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd), contiguous.  GQA is
 // handled by indexing kv head h / (Hq / Hkv) instead of repeating k/v.
 //
-// bf16 path: one CTA (4 warps) per (b*Hq + h, 64-row query tile).  The
-// Q tile and each 64-key K/V tile are staged in shared memory; S = QK^T
-// and O += PV run on the tensor cores through WMMA 16x16x16 bf16 tiles
-// with f32 accumulation.  S, P and the f32 accumulator O stay in shared
-// memory, so no score ever reaches device memory.  Each warp owns 16
-// query rows for the softmax update and the rescale of O.
-// Bound: at prefill shapes (S = 512, hd = 128) the causal work is about
-// 4*hd*S^2/2 flops per head against (3+1)*S*hd*2 bytes, about 128 flops
-// per byte (about 205 when 4 q heads share a kv head), below the card's
-// ridge (989 TFLOP/s / 3.35 TB/s, about 295), so device-memory bytes
-// bound it.  This first version does not
-// pipeline the K/V loads (no cp.async / TMA, no wgmma).
+// The wrapper (flash_attention.py, through plans.fa_plan) picks one
+// variant before the launch, from dtype, head dim, shape and alignment:
+//
+// wgmma (bf16, hd 128, causal with or without a window, Sq = Skv = S a
+//   multiple of 128, 16-byte aligned).  Bound: at S = 512 the causal work
+//   is about 128 flops per byte (about 205 when 4 q heads share a kv head),
+//   under the card's ridge (989 TFLOP/s / 3.35 TB/s, about 295), so bytes
+//   bound it; at S = 2048 operations do.  Either way the first kernel below
+//   spent its time in shared-memory traffic, which this design removes:
+//   * Loads: one producer warp issues TMA tensor-map loads with the
+//     128-byte swizzle.  Q is viewed as (hd, Hq, B*S) and its tile loaded
+//     once as two 64-column boxes of PACK heads x P positions; K and V as
+//     (Hkv*hd, B*S) in boxes of 64 columns x BK keys at column kv_head*hd,
+//     into a 2-stage ring on mbarriers (sm90::tma_2d/tma_3d; the K/V maps
+//     from sm90::cached_map, copied out of the table, Q's encoded per call).
+//   * S = Q K^T: each consumer warpgroup owns 64 rows and issues wgmma
+//     m64nBKk16 with both operands K-major in shared memory; the f32
+//     scores stay in registers.
+//   * Softmax in registers, in the log2 domain (scores times
+//     log2(e)/sqrt(hd), exp2): the mask (finite -1e30) is applied only on
+//     tiles that hold a masked pair (the diagonal and the window edge); a
+//     row's max comes from shuffles among the 4 threads that hold it; each
+//     thread keeps its share of the row sum l, summed across the 4 at the
+//     end.  No score reaches shared memory.
+//   * O += P V: P is rounded to bf16 in registers and fed to wgmma
+//     m64n128k16 as the A operand from registers; V is the MN-major B
+//     operand (leading offset one 64-column half, stride 1 KB per 8 keys).
+//     O (64 x 128 f32 per warpgroup) stays in registers.  The next tile's
+//     Q K^T group is issued right behind the P V group, so the tensor cores
+//     run both back to back while other warpgroups do their softmax.
+//   * Epilogue: O / max(l, 1e-20) rounded once to bf16, written through the
+//     warpgroup's own Q rows (XOR-swizzled, conflict-free) and stored with
+//     16-byte writes.
+//   * Grid: one CTA per (query tile, batch, head group), query tiles with
+//     the most live kv tiles first, so the last wave is not the longest.
+//   Levers, template parameters chosen by plans.fa_plan from a sweep on
+//   the card (chip_smoke.py prints it): rows per CTA (64 or 128: one or
+//   two consumer warpgroups), keys per tile BK (64 or 128), PACK, the q
+//   heads of one kv head that share a CTA and its K/V ring (1 or 4).  A
+//   warpgroup visits only its own live kv tiles and only releases the
+//   others of its CTA.  Not kept: the next tile's Q K^T in flight during
+//   the softmax (a second set of P registers, O rescaled after P V): it
+//   compiled without spills but ran slower than the order below on an
+//   H100 at S = 512 and 2048.
+//
+// general (bf16, any other shape: hd 64 or 256, non-causal, Sq != Skv,
+//   unaligned): the first kernel.  One CTA (4 warps) per (b*Hq + h, 64-row
+//   query tile); Q and each 64-key K/V tile are staged in shared memory
+//   with plain loads; S = QK^T and O += PV run through WMMA 16x16x16 with
+//   f32 accumulation, S, P and O kept in shared memory; each warp owns 16
+//   query rows for the softmax update.
 //
 // f32 path: no tensor cores (TF32 would drop precision).  One warp per
 // query row; each lane holds hd/32 elements of q and of the accumulator
 // and walks the row's live keys one at a time with an exact online
 // softmax.  It is the precision reference on the card, not a fast path.
+#include "sm90_common.cu"
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -272,6 +312,325 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// wgmma variant (bf16, hd 128, causal, Sq = Skv a multiple of 128)
+// ---------------------------------------------------------------------------
+
+namespace fa3 {
+
+using sm90::bf16;
+using namespace sm90;
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 128] += A[64 x 16] (bf16 pairs in registers) * B[16 x 128] (MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// One CTA: NWG consumer warpgroups of 64 rows each, plus one producer warp.
+// A row is one (query position, q head) pair; PACK q heads of one kv head
+// share the CTA (rows ordered position-major, head-minor), so the CTA
+// covers P = 64 * NWG / PACK positions and loads each K/V tile once for
+// all PACK heads.
+template <int NWG, int BK, int PACK>
+struct Cfg {
+  static constexpr int BQ = 64 * NWG;          // rows per CTA
+  static constexpr int P = BQ / PACK;          // query positions per CTA
+  static constexpr int STAGES = 2;             // K/V ring depth
+  static constexpr int Q_HALF = BQ * 128;      // one 64-column half of the Q tile, bytes
+  static constexpr int KV_HALF = BK * 128;     // one 64-column half of a K or V tile
+  static constexpr int STAGE = 4 * KV_HALF;    // K and V tiles, two halves each
+  static constexpr int THREADS = 128 * NWG + 32;
+  static constexpr size_t SMEM = 1024 + 2 * Q_HALF + STAGES * STAGE + (2 * STAGES + 1) * 8;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_u32(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Live kv tiles [lo, hi] of the query positions [p_lo, p_hi] (causal, an
+// optional window); plans.fa_live_tiles mirrors it.
+__device__ __forceinline__ int live_lo(int p_lo, int window, int BK) {
+  return window > 0 ? max(p_lo - window + 1, 0) / BK : 0;
+}
+
+// Whether tile t holds a masked (position, key) pair for positions
+// [p_lo, p_hi]; plans.fa_tile_needs_mask mirrors it.
+__device__ __forceinline__ bool needs_mask(int t, int p_lo, int p_hi, int window, int BK) {
+  return t * BK + BK - 1 > p_lo || (window > 0 && t * BK <= p_hi - window);
+}
+
+template <int NWG, int BK, int PACK>
+__global__ void __launch_bounds__(Cfg<NWG, BK, PACK>::THREADS, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ, const __grid_constant__ CUtensorMap tmK,
+                const __grid_constant__ CUtensorMap tmV, bf16* __restrict__ o, int B, int S,
+                int Hq, int Hkv, int window, float scale_log2) {
+  using C = Cfg<NWG, BK, PACK>;
+  constexpr int SN = BK / 2;                    // S accumulator floats per thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* ring = qs + 2 * C::Q_HALF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* qbar = empty + C::STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // heavy-first order: the last query tiles (most live kv tiles) first;
+  // plans.fa_tile_order mirrors it
+  const int groups = Hq / PACK, per_qt = B * groups, n_qt = S / C::P;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / per_qt;
+  const int rem = static_cast<int>(blockIdx.x) % per_qt;
+  const int b = rem / groups, hq0 = (rem % groups) * PACK, hk = hq0 / (Hq / Hkv);
+  const int q_lo = qt * C::P;
+  const int lo = live_lo(q_lo, window, BK), hi = (q_lo + C::P - 1) / BK;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * NWG);
+    }
+    mbar_init(qbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {
+    // ---- producer: one lane issues every TMA load -------------------------
+    if (lane == 0) {
+      const int qrow = b * S + q_lo;
+      mbar_arrive_expect_tx(qbar, 2 * C::Q_HALF);
+      tma_3d(qs, &tmQ, 0, hq0, qrow, qbar);
+      tma_3d(qs + C::Q_HALF, &tmQ, 64, hq0, qrow, qbar);
+      for (int s = 0; s <= hi - lo; ++s) {
+        const int st = s % C::STAGES;
+        if (s >= C::STAGES) mbar_wait(&empty[st], ((s / C::STAGES) - 1) & 1);
+        unsigned char* base = ring + st * C::STAGE;
+        const int row = b * S + (lo + s) * BK, col = hk * 128;
+        mbar_arrive_expect_tx(&full[st], C::STAGE);
+        tma_2d(base, &tmK, col, row, &full[st]);
+        tma_2d(base + C::KV_HALF, &tmK, col + 64, row, &full[st]);
+        tma_2d(base + 2 * C::KV_HALF, &tmV, col, row, &full[st]);
+        tma_2d(base + 3 * C::KV_HALF, &tmV, col + 64, row, &full[st]);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns CTA rows wg*64 .. wg*64+63 -----------
+    const int wg = warp >> 2, g = lane >> 2, tq = lane & 3;
+    const int r0 = (warp & 3) * 16 + g;                 // WG row of s/o[4i], [4i+1]
+    const int pos0 = q_lo + (wg * 64 + r0) / PACK, pos1 = q_lo + (wg * 64 + r0 + 8) / PACK;
+    const int wp_lo = q_lo + (wg * 64) / PACK, wp_hi = q_lo + (wg * 64 + 63) / PACK;
+    const int wlo = live_lo(wp_lo, window, BK), whi = wp_hi / BK;
+    const unsigned char* qa = qs + wg * 64 * 128;
+
+    float acc[64], sa[SN];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < SN; ++i) sa[i] = 0.f;
+    float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;       // l: this thread's share
+
+    auto stage_of = [&](int t) { return (t - lo) % C::STAGES; };
+    auto parity_of = [&](int t) { return static_cast<uint32_t>(((t - lo) / C::STAGES) & 1); };
+    auto issue_qk = [&](int t, float (&s)[SN]) {         // S = Q K_t^T, one group
+      mbar_wait(&full[stage_of(t)], parity_of(t));
+      const unsigned char* kt = ring + stage_of(t) * C::STAGE;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t da = desc_sw128(qa + (kk >> 2) * C::Q_HALF + (kk & 3) * 32, 16, 1024);
+        const uint64_t db = desc_sw128(kt + (kk >> 2) * C::KV_HALF + (kk & 3) * 32, 16, 1024);
+        if constexpr (BK == 128) wgmma_ss_n128(s, da, db, kk > 0);
+        else wgmma_ss_n64(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    // Softmax of tile t's scores in registers (log2 domain), in place: m
+    // and this thread's share of l updated, P packed as the A operand of
+    // P.V (keys 16kk..+7 from i = 2kk, +8..+15 from i = 2kk + 1) and the
+    // factors that rescale O returned.
+    auto softmax = [&](float (&sc)[SN], int t, uint32_t (&pa)[BK / 16][4], float& c0,
+                       float& c1) {
+      const bool masked = needs_mask(t, wp_lo, wp_hi, window, BK);
+      float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+      for (int i = 0; i < SN / 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v = sc[4 * i + j] * scale_log2;
+          if (masked) {
+            const int key = t * BK + 8 * i + 2 * tq + (j & 1);
+            const int pos = j < 2 ? pos0 : pos1;
+            v = key <= pos && (window <= 0 || key > pos - window) ? v : NEG;
+          }
+          sc[4 * i + j] = v;
+          if (j < 2) mx0 = fmaxf(mx0, v);
+          else mx1 = fmaxf(mx1, v);
+        }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+      c0 = exp2f(m0 - n0);
+      c1 = exp2f(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < SN / 4; ++i) {
+        const float p0 = exp2f(sc[4 * i] - n0), p1 = exp2f(sc[4 * i + 1] - n0);
+        const float p2 = exp2f(sc[4 * i + 2] - n1), p3 = exp2f(sc[4 * i + 3] - n1);
+        ps0 += p0 + p1;
+        ps1 += p2 + p3;
+        pa[i >> 1][(i & 1) * 2] = pack_bf16(p0, p1);
+        pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+    };
+    auto rescale = [&](float c0, float c1) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        acc[4 * i] *= c0;
+        acc[4 * i + 1] *= c0;
+        acc[4 * i + 2] *= c1;
+        acc[4 * i + 3] *= c1;
+      }
+    };
+    auto issue_pv = [&](int t, uint32_t (&pa)[BK / 16][4]) {     // O += P V_t, one group
+      const unsigned char* vt = ring + stage_of(t) * C::STAGE + 2 * C::KV_HALF;
+      fence_regs(acc);
+      fence_u32(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs_n128(acc, pa[kk], desc_sw128(vt + kk * 16 * 128, C::KV_HALF, 1024));
+      wgmma_commit();
+    };
+
+    // tiles of the CTA before this warpgroup's range: release only
+    for (int t = lo; t < wlo; ++t) {
+      mbar_wait(&full[stage_of(t)], parity_of(t));
+      mbar_arrive(&empty[stage_of(t)]);
+    }
+    mbar_wait(qbar, 0);
+    issue_qk(wlo, sa);
+    wgmma_wait<0>();
+    fence_regs(sa);
+    // softmax, then P V and the next tile's Q K^T back to back: the
+    // tensor cores run both while other warpgroups do their softmax
+    for (int t = wlo; t <= whi; ++t) {
+      uint32_t pa[BK / 16][4];
+      float c0, c1;
+      softmax(sa, t, pa, c0, c1);
+      rescale(c0, c1);
+      issue_pv(t, pa);
+      if (t < whi) issue_qk(t + 1, sa);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(sa);
+      fence_u32(pa);
+      mbar_arrive(&empty[stage_of(t)]);
+    }
+    // tiles of the CTA after this warpgroup's range: release only
+    for (int t = whi + 1; t <= hi; ++t) {
+      mbar_wait(&full[stage_of(t)], parity_of(t));
+      mbar_arrive(&empty[stage_of(t)]);
+    }
+
+    // -- epilogue: O / l as bf16 through this warpgroup's Q rows ------------
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
+    unsigned char* os = qs + wg * 64 * 128;             // rows r of both halves
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int half = i >> 3, ch = i & 7;
+      unsigned char* p = os + half * C::Q_HALF + tq * 4;
+      *reinterpret_cast<uint32_t*>(p + r0 * 128 + ((ch ^ (r0 & 7)) << 4)) =
+          pack_bf16(acc[4 * i] / d0, acc[4 * i + 1] / d0);
+      *reinterpret_cast<uint32_t*>(p + (r0 + 8) * 128 + ((ch ^ ((r0 + 8) & 7)) << 4)) =
+          pack_bf16(acc[4 * i + 2] / d1, acc[4 * i + 3] / d1);
+    }
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    const int wt = tid & 127;
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int e = it * 128 + wt, r = e >> 4, c = e & 15;
+      const uint4 val = *reinterpret_cast<const uint4*>(
+          os + (c >> 3) * C::Q_HALF + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+      const int R = wg * 64 + r;
+      const size_t row = (static_cast<size_t>(b) * S + q_lo + R / PACK) * Hq + hq0 + R % PACK;
+      *reinterpret_cast<uint4*>(o + row * 128 + c * 8) = val;
+    }
+  }
+}
+
+template <int NWG, int BK, int PACK>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
+                   int Hkv, int window, float scale, cudaStream_t st) {
+  using C = Cfg<NWG, BK, PACK>;
+  CUtensorMap mq, mk, mv;
+  const uint64_t rows = static_cast<uint64_t>(B) * S;
+  // K and V maps come from the table; Q's is encoded anew (once per call)
+  if (!encode_bf16_3d(&mq, q, 128, Hq, rows, 128, static_cast<uint64_t>(Hq) * 128, PACK, C::P) ||
+      !cached_map(&mk, k, static_cast<uint64_t>(Hkv) * 128, rows,
+                  static_cast<uint64_t>(Hkv) * 128, BK) ||
+      !cached_map(&mv, v, static_cast<uint64_t>(Hkv) * 128, rows,
+                  static_cast<uint64_t>(Hkv) * 128, BK))
+    return cudaErrorInvalidValue;
+  auto kernel = fa_wgmma_kernel<NWG, BK, PACK>;
+  cudaError_t e = set_smem_once(reinterpret_cast<const void*>(kernel), C::SMEM);
+  if (e != cudaSuccess) return e;
+  const int grid = (S / C::P) * B * (Hq / PACK);
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(mq, mk, mv, static_cast<bf16*>(o), B, S, Hq, Hkv,
+                                            window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace fa3
+
 // window <= 0 means no window.  Returns cudaErrorInvalidValue for a head
 // dim other than 64, 128 or 256 (the wrapper checks first).
 extern "C" int fa_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
@@ -296,4 +655,29 @@ extern "C" int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, 
     case 256: return launch_f32<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The wgmma variant: bf16, hd 128, causal, Sq = Skv = S a multiple of 128;
+// rows (query rows per CTA) 64 or 128, keys (per kv tile) 64 or 128, pack
+// (q heads per CTA) 1 or 4 with (Hq / Hkv) % pack == 0; q, k, v and o
+// 16-byte aligned.  window <= 0 means no window.
+extern "C" int fa_fwd_bf16_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                                 int S, int Hq, int Hkv, int hd, int window, float scale,
+                                 int rows, int keys, int pack, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd != 128 || S <= 0 || S % 128 || Hkv <= 0 || Hq % Hkv || pack <= 0 || (Hq / Hkv) % pack)
+    return cudaErrorInvalidValue;
+#define FA_CASE(R, K, P)                                                                  \
+  if (rows == R && keys == K && pack == P)                                                \
+    return fa3::launch<R / 64, K, P>(q, k, v, o, B, S, Hq, Hkv, window, scale, st);
+  FA_CASE(128, 128, 1)
+  FA_CASE(128, 128, 4)
+  FA_CASE(128, 64, 1)
+  FA_CASE(128, 64, 4)
+  FA_CASE(64, 128, 1)
+  FA_CASE(64, 128, 4)
+  FA_CASE(64, 64, 1)
+  FA_CASE(64, 64, 4)
+#undef FA_CASE
+  return cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by block_sparse_matmul.cu and
-// intrablock_matmul.cu, which include this file; it is not built on its
-// own.  Inline PTX only (no CuTe), so each source builds in seconds.
+// Hopper (sm_90a) building blocks shared by block_sparse_matmul.cu,
+// intrablock_matmul.cu and flash_attention.cu, which include this file;
+// it is not built on its own.  Inline PTX only (no CuTe), so each source builds in seconds.
 //
-// * mbarrier, bulk-copy and TMA helpers for rings of shared-memory stages;
+// * mbarrier, bulk-copy and TMA (2D and 3D) helpers for rings of
+//   shared-memory stages;
 // * ldmatrix + mma.sync m16n8k16 helpers for the decode variants, on x
 //   tiles with padded rows and weight tiles in TMA's 128-byte swizzle;
 // * cluster_reduce_store: the split-K sum of f32 partials through
@@ -93,6 +94,16 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 3D TMA load of the box at (c0 = inner, c1, c2 = outer) coordinates.
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -417,6 +428,23 @@ inline bool encode_bf16_2d(CUtensorMap* map, const void* ptr, uint64_t inner, ui
   const cuuint32_t box[2] = {64, box_outer};
   const cuuint32_t estr[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Tensor map of a bf16 array (d0 inner, d1, d2 outer; strides s1, s2 in
+// elements) read in boxes of 64 x b1 x b2 with the 128-byte swizzle: the
+// box lands in shared memory as b1 * b2 rows of 128 bytes, d1 fastest.
+inline bool encode_bf16_3d(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1,
+                           uint64_t d2, uint64_t s1, uint64_t s2, uint32_t b1, uint32_t b2) {
+  EncodeTiledFn fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1 * 2, s2 * 2};
+  const cuuint32_t box[3] = {64, b1, b2};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;

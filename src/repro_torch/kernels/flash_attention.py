@@ -1,10 +1,12 @@
 """Flash attention on Hopper: wrapper of ``csrc/flash_attention.cu``.
 
 Replaces ``repro/kernels/flash_attention.py:94`` (``flash_attention_pallas``).
-The CUDA source says how the kernel is laid out and what bounds it.
-This wrapper checks its inputs, allocates the output and launches on
-PyTorch's current stream; it never falls back to the plain version
-(``ref.flash_attention_ref``).
+The CUDA source says how each variant is laid out and what bounds it;
+:func:`plans.fa_plan` picks the variant (``wgmma``, ``general`` or
+``f32``) and its tile sizes before the launch, from dtype, head dim,
+shape and alignment.  This wrapper checks its inputs, allocates the output
+and launches on PyTorch's current stream; it never falls back to another
+variant or to the plain version (``ref.flash_attention_ref``).
 """
 from __future__ import annotations
 
@@ -14,13 +16,16 @@ from typing import Optional
 import torch
 
 from . import _build
+from .plans import fa_plan
 
-__all__ = ["flash_attention_cuda", "launches"]
+__all__ = ["flash_attention_cuda", "launches", "variant_launches"]
 
 HEAD_DIMS = (64, 128, 256)
 
-# launches of the CUDA kernel since the last reset (see ops.reset_launch_counts)
+# launches of the CUDA kernel since the last reset (see ops.reset_launch_counts),
+# in all and per variant
 launches = 0
+variant_launches = {"wgmma": 0, "general": 0, "f32": 0}
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,12 +49,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention_cuda takes CUDA tensors")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    fn = "fa_fwd_bf16" if q.dtype == torch.bfloat16 else "fa_fwd_f32"
+    plan = fa_plan(B, Sq, Skv, Hq, Hkv, hd, q.dtype, bool(causal), window,
+                   _build.alignment(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()))
     lib = _build.load("flash_attention")
+    scale = 1.0 / math.sqrt(hd)
+    stream = _build.stream_ptr(q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
-        rc = getattr(lib, fn)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                              B, Sq, Skv, Hq, Hkv, hd, int(causal), int(window or 0),
-                              1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        if plan.variant == "wgmma":
+            fn = "fa_fwd_bf16_wgmma"
+            rc = lib.fa_fwd_bf16_wgmma(*ptrs, B, Sq, Hq, Hkv, hd, int(window or 0), scale,
+                                       plan.rows, plan.keys, plan.pack, stream)
+        else:
+            fn = "fa_fwd_bf16" if plan.variant == "general" else "fa_fwd_f32"
+            rc = getattr(lib, fn)(*ptrs, B, Sq, Skv, Hq, Hkv, hd, int(causal), int(window or 0),
+                                  scale, stream)
     _build.check(rc, fn)
     launches += 1
+    variant_launches[plan.variant] += 1
     return out

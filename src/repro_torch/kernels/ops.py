@@ -10,7 +10,7 @@
 Shapes, layouts and errors follow ``repro/kernels/ops.py``.  Each CUDA
 wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them, :func:`variant_counts` reads the per-variant counts of the
-block-sparse matmul and the gather-matmul, and :func:`reset_launch_counts`
+four kernels that have variants, and :func:`reset_launch_counts`
 sets them all to 0.
 """
 from __future__ import annotations
@@ -52,17 +52,20 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
+_VARIANTS = {"flash_attention": _fa, "block_sparse_matmul": _bsm,
+             "block_importance": _bi, "intrablock_gather_matmul": _igm}
+
+
 def variant_counts() -> Dict[str, Dict[str, int]]:
     """Launches per variant (see :mod:`~repro_torch.kernels.plans`) of the
-    two kernels that have variants, since the last reset."""
-    return {"block_sparse_matmul": dict(_bsm.variant_launches),
-            "intrablock_gather_matmul": dict(_igm.variant_launches)}
+    four kernels that have variants, since the last reset."""
+    return {name: dict(mod.variant_launches) for name, mod in _VARIANTS.items()}
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
-    for mod in (_bsm, _igm):
+    for mod in _VARIANTS.values():
         for v in mod.variant_launches:
             mod.variant_launches[v] = 0
 

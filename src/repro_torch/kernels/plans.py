@@ -1,7 +1,10 @@
-"""Launch plans of the block-sparse matmul and the IntraBlock gather-matmul.
+"""Launch plans of the port's kernels that have variants.
 
 A plan is decided on the host before the launch, from shapes, dtype and
-pointer alignment alone (it never reads a tensor back from the card):
+pointer alignment alone (it never reads a tensor back from the card).
+
+Block-sparse matmul and IntraBlock gather-matmul (``bsm_plan``,
+``igm_plan``):
 
 * the **variant** — ``"decode"`` (bf16, B <= 16: bulk-copy ring +
   mma.sync + cluster split-K), ``"prefill"`` (bf16, B > 16: TMA ring +
@@ -16,20 +19,32 @@ pointer alignment alone (it never reads a tensor back from the card):
   way (``csrc/block_sparse_matmul.cu``, ``csrc/intrablock_matmul.cu``) and
   sum the ranks' f32 partials in rank order.
 
-The two plan functions are memoised: a decode step asks for the same few
+Flash attention (``fa_plan``): ``"wgmma"`` (bf16, hd 128, causal, Sq =
+Skv a multiple of 128, aligned: TMA ring + wgmma, softmax in registers)
+with its rows per CTA, keys per kv tile and q heads packed per CTA;
+``"general"`` (the first kernel) or ``"f32"``.  ``fa_live_tiles``,
+``fa_tile_needs_mask`` and ``fa_tile_order`` mirror the kernel's live kv
+range, its masked tiles and its launch order.
+
+Block importance (``bi_plan``): ``"strip"`` (128 x 128 blocks, aligned)
+or ``"general"``.
+
+The plan functions are memoised: a decode step asks for the same few
 plans on every layer.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["Plan", "DECODE_MAX_B", "CHUNK", "TILE_N", "SMS", "BSM_DECODE_CTAS",
            "IGM_DECODE_CTAS", "PREFILL_CTAS", "split_range", "choose_cluster", "bsm_plan",
-           "igm_plan", "live_partition", "chunk_partition"]
+           "igm_plan", "live_partition", "chunk_partition", "FaPlan", "FA_ROWS", "FA_KEYS",
+           "FA_PACK", "fa_plan", "fa_live_tiles", "fa_tile_needs_mask", "fa_tile_order",
+           "bi_plan"]
 
 DECODE_MAX_B = 16      # rows of x one mma.sync tile holds
 CHUNK = 64             # Kc rows of one gather-matmul stage
@@ -122,3 +137,87 @@ def chunk_partition(Kc: int, c: int) -> List[List[Tuple[int, int]]]:
     """The Kc row ranges [k0, k1) each of c ranks takes, one per chunk."""
     chunks = [(k0, min(k0 + CHUNK, Kc)) for k0 in range(0, Kc, CHUNK)]
     return [chunks[slice(*split_range(len(chunks), c, r))] for r in range(c)]
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FaPlan:
+    variant: str       # "wgmma" | "general" | "f32"
+    rows: int = 0      # (query position, q head) rows per CTA: 64 or 128
+    keys: int = 0      # keys per kv tile: 64 or 128
+    pack: int = 1      # q heads of one kv head that share a CTA: 1 or 4
+
+
+# wgmma levers, read off the sweep of rows x keys x pack that chip_smoke.py
+# prints beside the flash-attention rows (q (1, S, 32, 128), k/v (1, S, 8,
+# 128), S = 512 and 2048, on an H100): two warpgroups of 64 rows per CTA
+# and tiles of 64 keys were the fastest setting, or within 2% of it, in
+# every sweep (one warpgroup per CTA varied by 1.4x between builds);
+# packing the 4 q heads of a kv head into one CTA saved nothing (the K/V
+# tiles come from L2 either way).
+FA_ROWS = 128
+FA_KEYS = 64
+FA_PACK = 1
+FA_HEAD_DIM = 128      # the head dim the wgmma variant takes (64 and 256: general)
+
+
+@lru_cache(maxsize=1024)
+def fa_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int, dtype: torch.dtype,
+            causal: bool, window: Optional[int], align: int) -> FaPlan:
+    """Plan of ``flash_attention`` for q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd).
+
+    ``align`` is the largest power of two dividing the addresses of q, k,
+    v and the output.  The wgmma variant takes bf16, hd 128, causal
+    attention with or without a window, Sq = Skv a multiple of 128 and
+    16-byte aligned tensors; every other shape runs the first kernel.
+    """
+    if dtype == torch.float32:
+        return FaPlan("f32")
+    if (hd != FA_HEAD_DIM or not causal or Sq != Skv or Sq % 128 or Hq % Hkv
+            or align % ALIGN):
+        return FaPlan("general")
+    pack = FA_PACK if (Hq // Hkv) % FA_PACK == 0 else 1
+    return FaPlan("wgmma", FA_ROWS, FA_KEYS, pack)
+
+
+def fa_live_tiles(p_lo: int, p_hi: int, keys: int, window: Optional[int]) -> Tuple[int, int]:
+    """kv tiles [lo, hi] (inclusive) that query positions [p_lo, p_hi] see
+    under the causal mask and an optional window."""
+    lo = max(p_lo - window + 1, 0) // keys if window else 0
+    return lo, p_hi // keys
+
+
+def fa_tile_needs_mask(t: int, p_lo: int, p_hi: int, keys: int,
+                       window: Optional[int]) -> bool:
+    """Whether kv tile t holds a (position, key) pair the mask removes,
+    for positions [p_lo, p_hi]: the diagonal and the window's edge."""
+    return t * keys + keys - 1 > p_lo or bool(window) and t * keys <= p_hi - window
+
+
+def fa_tile_order(S: int, B: int, Hq: int, rows: int, pack: int) -> List[Tuple[int, int, int]]:
+    """(query tile, batch, first q head) of each CTA in launch order: the
+    last query tiles, which see the most kv tiles, first."""
+    P, groups = rows // pack, Hq // pack
+    n_qt, per_qt = S // P, B * groups
+    order = []
+    for cta in range(n_qt * per_qt):
+        rem = cta % per_qt
+        order.append((n_qt - 1 - cta // per_qt, rem // groups, (rem % groups) * pack))
+    return order
+
+
+# ---------------------------------------------------------------------------
+# Block importance
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=256)
+def bi_plan(M: int, N: int, bm: int, bn: int, dtype: torch.dtype, align: int) -> str:
+    """Variant of ``block_importance`` for w (M, N) in bm x bn blocks:
+    ``"strip"`` for 128 x 128 blocks of a 16-byte aligned bf16 or f32
+    weight, else ``"general"``."""
+    if bm == TILE_N and bn == TILE_N and align % ALIGN == 0 and M % bm == 0 and N % bn == 0:
+        return "strip"
+    return "general"

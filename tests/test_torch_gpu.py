@@ -48,6 +48,61 @@ def test_flash_attention_kernel_matches_plain(gen, S, hd, window, Hq, Hkv, dtype
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=0)
 
 
+@pytest.mark.parametrize("S", [128, 256, 384, 512, 2048])
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 2), (32, 32)])
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_wgmma_variant_matches_plain(gen, S, Hq, Hkv, window):
+    """The wgmma variant (bf16, hd 128, causal) at the plan's levers: within
+    3e-2 of plain, two calls bitwise equal, only its counter moving."""
+    q = _randn(gen, 1, S, Hq, 128, dtype=torch.bfloat16)
+    k = _randn(gen, 1, S, Hkv, 128, dtype=torch.bfloat16)
+    v = _randn(gen, 1, S, Hkv, 128, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    out = ops.flash_attention(q, k, v, window=window)
+    again = ops.flash_attention(q, k, v, window=window)
+    assert _variant_delta(before) == {"flash_attention": {"wgmma": 2}}
+    assert torch.equal(out, again)
+    want = ops.flash_attention(q, k, v, window=window, impl="ref")
+    torch.testing.assert_close(out.float(), want.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_attention_other_head_dims_take_the_general_variant(gen, hd):
+    q = _randn(gen, 1, 256, 8, hd, dtype=torch.bfloat16)
+    k, v = (_randn(gen, 1, 256, 2, hd, dtype=torch.bfloat16) for _ in range(2))
+    before = ops.variant_counts()
+    out = ops.flash_attention(q, k, v)
+    assert _variant_delta(before) == {"flash_attention": {"general": 1}}
+    torch.testing.assert_close(out.float(), ops.flash_attention(q, k, v, impl="ref").float(),
+                               atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("M,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)])
+@pytest.mark.parametrize("crit", ["l1", "l2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_block_importance_strip_variant_matches_plain(gen, M, N, crit, dtype):
+    """The llama3-8b projection shapes in 128 x 128 blocks: the strip
+    variant within rtol 1e-5 of plain, two calls bitwise equal, only its
+    counter moving."""
+    w = _randn(gen, M, N, dtype=dtype)
+    before = ops.variant_counts()
+    out = ops.block_importance(w, 128, 128, crit)
+    again = ops.block_importance(w, 128, 128, crit)
+    assert _variant_delta(before) == {"block_importance": {"strip": 2}}
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref.block_importance_ref(w, 128, 128, crit),
+                               rtol=1e-5, atol=0)
+
+
+def test_block_importance_other_blocks_take_the_general_variant(gen):
+    w = _randn(gen, 256, 384, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    out = ops.block_importance(w, 64, 128, "l1")
+    assert _variant_delta(before) == {"block_importance": {"general": 1}}
+    torch.testing.assert_close(out, ref.block_importance_ref(w, 64, 128, "l1"),
+                               rtol=1e-5, atol=0)
+
+
 @pytest.mark.parametrize("K,N,bm,bn,B", [(512, 256, 128, 128, 4), (384, 128, 128, 64, 5),
                                          (256, 256, 64, 64, 70), (128, 64, 32, 32, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -65,9 +120,11 @@ def test_block_sparse_matmul_kernel_matches_plain(gen, K, N, bm, bn, B, dtype):
 
 
 def _variant_delta(before):
+    """Launches per variant since ``before``, for the ops that launched."""
     after = ops.variant_counts()
-    return {op: {v: after[op][v] - before[op][v] for v in after[op] if after[op][v] != before[op][v]}
-            for op in after}
+    delta = {op: {v: after[op][v] - before[op][v] for v in after[op]
+                  if after[op][v] != before[op][v]} for op in after}
+    return {op: d for op, d in delta.items() if d}
 
 
 @pytest.mark.parametrize("B", [1, 4, 16, 17, 64, 512])
@@ -97,8 +154,7 @@ def test_block_sparse_matmul_main_variants_match_plain(gen, B, Gn, K):
     out = ops.block_sparse_matmul(x, w_comp, idx)
     again = ops.block_sparse_matmul(x, w_comp, idx)
     variant = "decode" if B <= 16 else "prefill"
-    assert _variant_delta(before) == {"block_sparse_matmul": {variant: 2},
-                                      "intrablock_gather_matmul": {}}
+    assert _variant_delta(before) == {"block_sparse_matmul": {variant: 2}}
     assert torch.equal(out, again)
     assert not out[:, 128:256].any()
     scale = max(want.float().abs().max().item(), 1.0)
@@ -113,8 +169,7 @@ def test_block_sparse_matmul_unaligned_takes_the_general_variant(gen):
     x = buf[1:].view(4, 512)
     before = ops.variant_counts()
     out = ops.block_sparse_matmul(x, w_comp, idx)
-    assert _variant_delta(before) == {"block_sparse_matmul": {"general": 1},
-                                      "intrablock_gather_matmul": {}}
+    assert _variant_delta(before) == {"block_sparse_matmul": {"general": 1}}
     want = ref.block_sparse_matmul_ref(x, w_comp, idx)
     scale = max(want.float().abs().max().item(), 1.0)
     torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
@@ -136,8 +191,7 @@ def test_intrablock_gather_matmul_main_variants_match_plain(gen, B, K, N, m):
     out = ops.intrablock_gather_matmul(x, w_comp, row_idx)
     again = ops.intrablock_gather_matmul(x, w_comp, row_idx)
     variant = "decode" if B <= 16 else "prefill"
-    assert _variant_delta(before) == {"block_sparse_matmul": {},
-                                      "intrablock_gather_matmul": {variant: 2}}
+    assert _variant_delta(before) == {"intrablock_gather_matmul": {variant: 2}}
     assert torch.equal(out, again)
     scale = max(want.float().abs().max().item(), 1.0)
     torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)

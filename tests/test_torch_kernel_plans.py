@@ -1,14 +1,22 @@
-"""Launch plans of the port's block-sparse matmul and IntraBlock
-gather-matmul (``repro_torch.kernels.plans``), on the CPU.
+"""Launch plans of the port's kernels that have variants
+(``repro_torch.kernels.plans``), on the CPU.
 
-The CUDA variants split each output tile's reduction over a cluster of
-CTAs by the plan's partition and sum the ranks' f32 partials in rank
-order.  These tests hold the partition (every live slot or Kc chunk once,
-no -1 slot, wherever it sits), the choice of variant and cluster at the
-main-path shapes, and a plain emulation of the split sum (the kernels'
-arithmetic: each rank's f32 partial over its share, summed in rank order)
-against the plain versions in ``ref.py``.
+Block-sparse matmul and IntraBlock gather-matmul: the CUDA variants split
+each output tile's reduction over a cluster of CTAs by the plan's
+partition and sum the ranks' f32 partials in rank order.  These tests
+hold the partition (every live slot or Kc chunk once, no -1 slot,
+wherever it sits), the choice of variant and cluster at the main-path
+shapes, and a plain emulation of the split sum (the kernels' arithmetic:
+each rank's f32 partial over its share, summed in rank order) against the
+plain versions in ``ref.py``.
+
+Flash attention and block importance: the variant per dtype, head dim,
+window, shape, alignment and block size; the Python mirrors of the flash
+kernel's live kv-tile range, its masked tiles and its heavy-first launch
+order against brute force; and an emulation of the wgmma variant's
+tiling and masking against the plain version.
 """
+import math
 from typing import List
 
 import numpy as np
@@ -208,3 +216,154 @@ def test_alignment_reads_the_largest_power_of_two():
     assert _build.alignment(4096) == 256
     assert _build.alignment(4096, 4096 + 48) == 16
     assert _build.alignment(4096 + 2) == 2
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and block importance
+# ---------------------------------------------------------------------------
+
+def _fa(S=512, Hq=32, Hkv=8, hd=128, dtype=BF16, causal=True, window=None, align=256, Skv=None):
+    return plans.fa_plan(1, S, S if Skv is None else Skv, Hq, Hkv, hd, dtype, causal, window,
+                         align)
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(32, 8), (8, 2), (32, 32), (12, 4)])
+@pytest.mark.parametrize("window", [None, 64, 1000])
+@pytest.mark.parametrize("S", [128, 512, 2048])
+def test_fa_plan_takes_wgmma_for_bf16_hd128_causal(Hq, Hkv, window, S):
+    plan = _fa(S, Hq, Hkv, window=window)
+    assert plan.variant == "wgmma"
+    assert plan.rows in (64, 128) and plan.keys in (64, 128)
+    assert (Hq // Hkv) % plan.pack == 0 and plan.pack in (1, 4)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(hd=64), "general"), (dict(hd=256), "general"),          # head dims off the variant
+    (dict(causal=False), "general"), (dict(Skv=1024), "general"),
+    (dict(S=200), "general"), (dict(align=8), "general"), (dict(align=2), "general"),
+    (dict(dtype=F32), "f32"), (dict(dtype=F32, hd=64), "f32"),
+    (dict(align=16), "wgmma"),
+])
+def test_fa_plan_variant_by_dtype_head_dim_shape_and_alignment(kw, want):
+    assert _fa(**kw).variant == want
+
+
+def test_fa_plan_packs_only_whole_groups():
+    """A packed CTA holds `pack` q heads of one kv head, so pack must
+    divide the group size; otherwise the plan packs one head."""
+    assert _fa(Hq=32, Hkv=32).pack == 1
+    assert _fa(Hq=6, Hkv=3).pack == 1
+
+
+@pytest.mark.parametrize("M,N,bm,bn,align,dtype,want", [
+    (4096, 14336, 128, 128, 256, BF16, "strip"), (14336, 4096, 128, 128, 256, F32, "strip"),
+    (4096, 1024, 128, 128, 16, BF16, "strip"), (256, 384, 128, 128, 8, BF16, "general"),
+    (256, 384, 64, 128, 256, BF16, "general"), (256, 384, 128, 64, 256, BF16, "general"),
+    (128, 256, 32, 16, 256, F32, "general")])
+def test_bi_plan_variant(M, N, bm, bn, align, dtype, want):
+    assert plans.bi_plan(M, N, bm, bn, dtype, align) == want
+
+
+def _live_pairs(p_lo, p_hi, k0, k1, window):
+    """(position, key) pairs of positions [p_lo, p_hi] and keys [k0, k1]
+    that the causal (and window) mask keeps, and the number removed."""
+    kept = removed = 0
+    for p in range(p_lo, p_hi + 1):
+        for k in range(k0, k1 + 1):
+            ok = k <= p and (window is None or k > p - window)
+            kept += ok
+            removed += not ok
+    return kept, removed
+
+
+@pytest.mark.parametrize("S", [128, 256, 384])
+@pytest.mark.parametrize("rows,pack", [(128, 1), (64, 1), (128, 4), (64, 4)])
+@pytest.mark.parametrize("keys", [64, 128])
+@pytest.mark.parametrize("window", [None, 1, 17, 64, 100, 128, 300])
+def test_fa_live_tiles_and_masks_match_brute_force(S, rows, pack, keys, window):
+    """For every CTA and each of its warpgroups (64 rows each): the kernel's
+    live kv range holds every tile with a kept pair and no other, and the
+    tiles it masks are exactly those that hold a removed pair."""
+    P = rows // pack
+    for q_lo in range(0, S, P):
+        spans = [(q_lo, q_lo + P - 1)] + [
+            (q_lo + w * 64 // pack, q_lo + (w * 64 + 63) // pack) for w in range(rows // 64)]
+        for p_lo, p_hi in spans:
+            lo, hi = plans.fa_live_tiles(p_lo, p_hi, keys, window)
+            for t in range(S // keys):
+                kept, removed = _live_pairs(p_lo, p_hi, t * keys, t * keys + keys - 1, window)
+                assert (lo <= t <= hi) == (kept > 0), (p_lo, p_hi, t)
+                if lo <= t <= hi:
+                    assert plans.fa_tile_needs_mask(t, p_lo, p_hi, keys, window) == (removed > 0)
+
+
+@pytest.mark.parametrize("S,B,Hq,rows,pack", [(512, 1, 32, 128, 1), (512, 1, 32, 128, 4),
+                                               (2048, 2, 8, 64, 4), (384, 3, 4, 64, 1)])
+def test_fa_tile_order_is_a_heavy_first_permutation(S, B, Hq, rows, pack):
+    order = plans.fa_tile_order(S, B, Hq, rows, pack)
+    P = rows // pack
+    everything = {(qt, b, h) for qt in range(S // P) for b in range(B)
+                  for h in range(0, Hq, pack)}
+    assert len(order) == len(everything) and set(order) == everything
+    for keys in (64, 128):
+        live = [plans.fa_live_tiles(qt * P, qt * P + P - 1, keys, None) for qt, _, _ in order]
+        counts = [hi - lo + 1 for lo, hi in live]
+        assert counts == sorted(counts, reverse=True)
+        assert counts[0] == S // keys
+
+
+def emulate_flash_wgmma(q, k, v, window, rows, keys, pack):
+    """The wgmma variant's arithmetic in f32 on the CPU: CTAs of `rows`
+    (position, head) rows, each 64-row warpgroup walking its own live kv
+    tiles, the mask applied only on the tiles fa_tile_needs_mask names,
+    the online softmax in the log2 domain and P rounded to bf16 before
+    P.V, as the kernel does."""
+    B, S, Hq, hd = q.shape
+    G = Hq // k.shape[2]
+    c = math.log2(math.e) / math.sqrt(hd)
+    out = torch.empty(B, S, Hq, hd)
+    P = rows // pack
+    for qt, b, h0 in plans.fa_tile_order(S, B, Hq, rows, pack):
+        q_lo = qt * P
+        for w in range(rows // 64):
+            R = torch.arange(w * 64, w * 64 + 64)
+            pos, head = q_lo + R // pack, h0 + R % pack
+            qr = q[b, pos, head].float()                                   # (64, hd)
+            p_lo, p_hi = int(pos[0]), int(pos[-1])
+            lo, hi = plans.fa_live_tiles(p_lo, p_hi, keys, window)
+            m = torch.full((64,), -1e30)
+            l = torch.zeros(64)
+            acc = torch.zeros(64, hd)
+            for t in range(lo, hi + 1):
+                kt = k[b, t * keys:(t + 1) * keys, h0 // G].float()
+                vt = v[b, t * keys:(t + 1) * keys, h0 // G]
+                s = (qr @ kt.T) * c
+                if plans.fa_tile_needs_mask(t, p_lo, p_hi, keys, window):
+                    key = torch.arange(t * keys, (t + 1) * keys)[None, :]
+                    ok = key <= pos[:, None]
+                    if window:
+                        ok &= key > pos[:, None] - window
+                    s = torch.where(ok, s, torch.tensor(-1e30))
+                n = torch.maximum(m, s.max(dim=1).values)
+                corr = torch.exp2(m - n)
+                p = torch.exp2(s - n[:, None])
+                l = l * corr + p.sum(dim=1)
+                acc = acc * corr[:, None] + p.to(vt.dtype).float() @ vt.float()
+                m = n
+            out[b, pos, head] = acc / torch.clamp(l, min=1e-20)[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("rows,keys,pack", [(128, 128, 1), (128, 64, 4), (64, 64, 1),
+                                            (64, 128, 4)])
+@pytest.mark.parametrize("window", [None, 50])
+def test_flash_wgmma_emulation_equals_plain(rows, keys, pack, window):
+    """Skipping the mask on the tiles the kernel skips it on, and each
+    warpgroup's own tile range, change nothing against the plain version."""
+    g = torch.Generator().manual_seed(rows + keys + pack)
+    q = torch.randn(2, 256, 8, 128, generator=g).to(BF16)
+    k = torch.randn(2, 256, 2, 128, generator=g).to(BF16)
+    v = torch.randn(2, 256, 2, 128, generator=g).to(BF16)
+    got = emulate_flash_wgmma(q, k, v, window, rows, keys, pack)
+    want = ops.flash_attention(q, k, v, window=window, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)

@@ -291,3 +291,32 @@ def test_prune_params_without_device_raises_on_cpu_host(monkeypatch, model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TA.prune_params(model[3], FlexBlockSpec((FullBlock(16, 16, 0.5),)), keys=("wq",))
+
+
+def test_bf16_block_losses_sum_in_f32_as_the_oracle_does(R):
+    """A stated difference from the JAX package's own pruning path.
+
+    On a seeded bf16 matrix the port's Eq. 1 losses equal the JAX oracle
+    ``block_importance_ref`` (rho in bf16, sums in f32), as the Pallas
+    kernel sums too.  The JAX numpy ``core.pruning.block_losses``, which
+    the JAX ``prune_params`` calls, sums in the array's dtype: in bf16 each
+    128 x 128 block's sum stalls near 1024, far below the f32 sum (about
+    13000), so its bf16 masks rest on saturated, nearly tied sums.  The
+    port does not copy that; at f32 the two packages' masks agree.
+    """
+    rng = np.random.default_rng(7)
+    w32 = rng.standard_normal((256, 384)).astype(np.float32)
+    wb = np.asarray(jnp.asarray(w32, dtype=jnp.bfloat16))
+    port = TP.block_losses(torch.from_numpy(w32).to(torch.bfloat16), 128, 128, "l1",
+                           impl="ref")
+    oracle = np.asarray(R.kref.block_importance_ref(jnp.asarray(wb), 128, 128, "l1"))
+    assert port.dtype == torch.float32
+    np.testing.assert_allclose(port.numpy(), oracle, rtol=1e-6)
+    numpy_sums = R.pruning.block_losses(wb, 128, 128, "l1")
+    assert numpy_sums.dtype == wb.dtype                      # summed in bf16
+    assert np.all(numpy_sums.astype(np.float32) < 0.1 * oracle)
+    assert np.all(oracle > 12000)
+    spec_t, spec_j = FullBlock(128, 128, 0.5), R.flexblock.FullBlock(128, 128, 0.5)
+    np.testing.assert_array_equal(
+        TP.fullblock_mask(torch.from_numpy(w32), spec_t, "l1", impl="ref").numpy(),
+        R.pruning.fullblock_mask(w32, spec_j, "l1").astype(bool))
