@@ -10,16 +10,18 @@ Phases, each reported on its own line(s):
 2. kernels  — hold each kernel against its plain PyTorch version at the
    shapes of the main paths, in bf16 and f32 (int8 for the bit-serial
    profile), and time kernel, plain version and the nearest single
-   PyTorch call.  The flash-attention, block-sparse matmul, block
-   importance and gather-matmul rows name the variant that ran and are
-   timed from CUDA graphs (card time alone), with the eager times beside
-   them (what back-to-back calls from Python cost, host included); each
+   PyTorch call.  Every row names the variant that ran and is timed from
+   CUDA graphs (card time alone), with the eager times beside them (what
+   back-to-back calls from Python cost, host included); each
    row gives ``share_of_bound`` (bound / ms) and ``x_library`` (ms /
    library ms).  The bf16 matmul rows add the card time of the same
    variant at cluster sizes 1, 2, 4 and 8 beside the plan's, the flash
    wgmma rows (S = 512 and 2048) the card time at every lever setting
    (rows per CTA / keys per tile / q heads per CTA), and the
-   block-importance rows the first kernel's card time (``general_ms``);
+   block-importance and int8 bit-serial rows the first kernel's card time
+   (``general_ms``); the fused quantise-and-count rows (bf16 and f32 at the
+   profile's shapes) add the whole op, its min/max pass and the unfused
+   quantize_int8 + count;
 3. llama3-8b FullBlock path: init at full width (random bf16 weights
    from a seed), check the kernel's Eq. 1 block losses against the plain
    ones, prune with FullBlock(128, 128, 0.5), compress, serve 8 requests
@@ -34,8 +36,11 @@ Phases, each reported on its own line(s):
    IntraBlock(4, 1, 0.5), compress to the gather layout, serve the same
    8 requests, and run the same parity phase;
 5. profile  — §IV-B bit-serial profile of every pruned projection's
-   input (36 layers x 3 kinds, the 8 prompts' prefill), kernel against
-   plain version in every (layer, kind);
+   input (36 layers x 3 kinds, the 8 prompts' prefill) through the fused
+   quantise-and-count, one launch per activation, all ``fused``, and one
+   host sync for the whole profile; the fused kernel against
+   quantize_int8 + the plain count, and the int8 kernel against the plain
+   count, in every (layer, kind);
 6. microbench — ``microbench_kernels`` on the card, its samples written
    as JSONL under ``build/`` and read back;
 7. the ``{"kernels": [...]}`` line; 8. the card's name and power limit.
@@ -49,7 +54,8 @@ through the ``decode`` and ``prefill`` variants, one launch per
 projection, layer and decode step or prompt, none through ``general``;
 its prefill attention only through the flash ``wgmma`` variant (one
 launch per layer and prompt), and the llama3-8b prune only through the
-block-importance ``strip`` variant (one launch per projection and layer).
+block-importance ``strip`` variant (one launch per projection and layer),
+and the profile only through the bit-serial ``fused`` variant.
 Any failed check exits nonzero.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -61,6 +67,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -494,37 +501,118 @@ def kernel_phase() -> dict:
                         library="torch.matmul on the decompressed masked-dense weight")
                 del sets, x, w_comp, row_idx, dense
 
-    # -- bit-serial zero profile: int8 activations of the §IV-B profile -------
-    # (V, K): 2048 tokens of the d_model and d_ff inputs, a ragged case and
-    # n_bits < 8; exact equality.  No single PyTorch call computes the
-    # count, so these rows have no library time.
-    from repro_torch.core.input_sparsity import quantize_int8
+    # -- bit-serial zero profile: int8 count, and the fused quantise-and-count --
+    # int8 (V, K): the profile's shapes (1916 prefill tokens of the d_model
+    # and d_ff inputs), 2048 tokens of the same, a ragged case and
+    # n_bits < 8; the plan's variant (strip, or general for ragged K) is
+    # timed from CUDA graphs beside the first kernel (general_ms).  Then the
+    # fused variant on bf16 and f32 activations of the profile's shapes:
+    # the kernel alone (ms, given the tensor's min and max), the whole op
+    # with its torch.aminmax pass (op_ms, eager_ms), the min/max pass alone
+    # (amax_ms) and quantize_int8 followed by the int8 count (unfused_ms).
+    # Exact equality everywhere.  No single PyTorch call computes the
+    # count, so these rows have no library time; the plain versions are
+    # timed eagerly (they copy the slot total to the card).
     from repro_torch.kernels import bitserial_profile as bsp_mod
-    for (V, K, n_bits) in [(2048, 2560, 8), (2048, 9728, 8), (100, 100, 8), (100, 100, 5)]:
+    bsp_lib = _build.load("bitserial_profile")
+
+    def bsp_general(a, n_bits):
+        """The first kernel (the general variant), for comparison."""
+        o = torch.empty(2, dtype=torch.int32, device=a.device)
+        counter = torch.empty(1, dtype=torch.int64, device=a.device)
+        _build.check(bsp_lib.bsp_count(a.data_ptr(), counter.data_ptr(), o.data_ptr(),
+                                       a.shape[0], a.shape[1], GROUP_ROWS, n_bits,
+                                       _build.stream_ptr(a.device)), "bsp_count")
+        return o
+
+    bsp_variants = {}
+    for (V, K, n_bits) in [(1916, 2560, 8), (1916, 9728, 8), (2048, 2560, 8), (2048, 9728, 8),
+                           (100, 100, 8), (100, 100, 5)]:
         sets = []
         for _ in range(n_copies(V * K)):
-            q = quantize_int8(torch.randn(V, K, generator=g, device="cuda"))
+            q = ref.quantize_int8(torch.randn(V, K, generator=g, device="cuda"))
             q[0, :4] = -128
             sets.append((q,))
         q = sets[0][0]
+        before = ops.variant_counts()["bitserial_zero_profile"]
         out = bsp_mod.bitserial_zero_profile_cuda(q, GROUP_ROWS, n_bits)
+        variant = moved_variant("bitserial_zero_profile", before)
         plain = ref.bitserial_zero_profile_ref(q, GROUP_ROWS, n_bits)
+        first = bsp_general(q, n_bits)
         name = f"bitserial_zero_profile V={V} K={K} g={GROUP_ROWS} n_bits={n_bits} int8"
-        check(out.tolist() == plain.tolist(), f"{name}: kernel {out.tolist()} != plain "
-                                              f"{plain.tolist()}")
-        line = {"max_abs_err": 0.0, "tol": "exact", "counts": out.tolist(),
-                "ms": cuda_ms(lambda a: bsp_mod.bitserial_zero_profile_cuda(
-                    a, GROUP_ROWS, n_bits), sets),
+        check(out.tolist() == plain.tolist() == first.tolist(),
+              f"{name}: kernel {out.tolist()}, first kernel {first.tolist()} != plain "
+              f"{plain.tolist()}")
+        kern = lambda a: bsp_mod.bitserial_zero_profile_cuda(a, GROUP_ROWS, n_bits)
+        line = {"variant": variant, "max_abs_err": 0.0, "tol": "exact", "counts": out.tolist(),
+                "ms": graph_ms(kern, sets), "eager_ms": cuda_ms(kern, sets),
+                "general_ms": graph_ms(lambda a: bsp_general(a, n_bits), sets),
                 "plain_ms": cuda_ms(lambda a: ref.bitserial_zero_profile_ref(
                     a, GROUP_ROWS, n_bits), sets),
                 "library_ms": None,
                 **bound(V * K + 8, 2 * V * K, F32_FLOPS)}
+        line.update(ratios(line))
         report(name, line)
         if (V, K) == (2048, 9728):
-            rows["bitserial_zero_profile"] = dict(
-                line, shape=f"q ({V},{K}) int8, groups of {GROUP_ROWS}, 8 bits",
-                library="none: no single PyTorch call computes the zero-plane count")
+            bsp_variants["strip"] = dict(line, shape=f"q ({V},{K}) int8, groups of "
+                                                     f"{GROUP_ROWS}, 8 bits")
+        if (V, K, n_bits) == (100, 100, 8):
+            bsp_variants["general"] = dict(line, shape=f"q ({V},{K}) int8 (ragged K), groups "
+                                                       f"of {GROUP_ROWS}, 8 bits")
         del sets, q
+
+    for (V, K) in [(1916, 2560), (1916, 9728)]:
+        for dt in dtypes:
+            esize = torch.empty((), dtype=dt).element_size()
+            sets = [(randn(V, K, dtype=dt),) for _ in range(n_copies(V * K * esize))]
+            x = sets[0][0]
+            before = ops.variant_counts()["bitserial_zero_profile"]
+            out = bsp_mod.quantized_zero_profile_cuda(x, GROUP_ROWS)
+            variant = moved_variant("bitserial_zero_profile", before)
+            plain = ref.quantized_zero_profile_ref(x, GROUP_ROWS)
+            host = ref.quantized_zero_profile_ref(x.cpu(), GROUP_ROWS)
+            name = f"quantized_zero_profile V={V} K={K} g={GROUP_ROWS} {str(dt)[6:]}"
+            check(variant == "fused", f"{name}: ran the {variant} variant")
+            check(out.tolist() == plain.tolist() == host.tolist(),
+                  f"{name}: kernel {out.tolist()} != plain {plain.tolist()} (CPU "
+                  f"{host.tolist()})")
+            plan = plans.bsp_plan(V, K, GROUP_ROWS, dt, 256)
+            fn = "bsp_fused_bf16" if dt == torch.bfloat16 else "bsp_fused_f32"
+            acc = bsp_mod._accumulator(x.device)
+
+            def fused_kernel(a, mn, mx, fn=fn, plan=plan, acc=acc):
+                o = torch.empty(2, dtype=torch.int32, device=a.device)
+                _build.check(getattr(bsp_lib, fn)(
+                    a.data_ptr(), mn.data_ptr(), mx.data_ptr(), 0.0, acc.data_ptr(),
+                    o.data_ptr(), a.shape[0], a.shape[1], GROUP_ROWS, 8, plan.grid,
+                    _build.stream_ptr(a.device)), fn)
+                return o
+
+            ksets = [(a,) + tuple(torch.aminmax(a)) for (a,) in sets]
+            check(fused_kernel(*ksets[0]).tolist() == plain.tolist(),
+                  f"{name}: kernel alone differs")
+            op = lambda a: bsp_mod.quantized_zero_profile_cuda(a, GROUP_ROWS)
+            line = {"variant": variant, "max_abs_err": 0.0, "tol": "exact",
+                    "counts": out.tolist(), "ms": graph_ms(fused_kernel, ksets),
+                    "op_ms": graph_ms(op, sets), "eager_ms": cuda_ms(op, sets),
+                    "amax_ms": graph_ms(lambda a: torch.aminmax(a), sets),
+                    "unfused_ms": graph_ms(lambda a: bsp_mod.bitserial_zero_profile_cuda(
+                        ref.quantize_int8(a), GROUP_ROWS), sets),
+                    "plain_ms": cuda_ms(lambda a: ref.quantized_zero_profile_ref(
+                        a, GROUP_ROWS), sets),
+                    "library_ms": None,
+                    # per element: divide, clamp, round (one add), OR
+                    **bound(V * K * esize + 8, 4 * V * K, F32_FLOPS),
+                    "amax_bound_ms": V * K * esize / HBM_BYTES_PER_S * 1e3}
+            line.update(ratios(line))
+            report(name, line)
+            if (K, dt) == (9728, torch.bfloat16):
+                rows["bitserial_zero_profile"] = dict(
+                    line, shape=f"x ({V},{K}) bf16 quantised to int8 in registers and "
+                                f"counted, groups of {GROUP_ROWS}, 8 bits (given its min/max)",
+                    library="none: no single PyTorch call computes the zero-plane count",
+                    variants=bsp_variants)
+            del sets, ksets, x
     return rows
 
 
@@ -870,8 +958,9 @@ def profile_phase(cfg, cparams, prompts, rows: dict) -> None:
     input, from the 8 prompts' prefill concatenated over tokens, int8, in
     groups of GROUP_ROWS; each (layer, kind) held to the plain count."""
     from repro_torch.core.input_sparsity import (capture_mlp_activations,
-                                                 profile_activations, quantize_int8)
-    from repro_torch.kernels import ops
+                                                 profile_activations, quantize_int8,
+                                                 skippable_bit_ratio)
+    from repro_torch.kernels import ops, ref
     from repro_torch.models.transformer import _run
 
     kinds = ("attn_in", "mlp_in", "down_in")
@@ -898,19 +987,54 @@ def profile_phase(cfg, cparams, prompts, rows: dict) -> None:
     ratios = profile_activations(acts, GROUP_ROWS)
     t_prof = time.perf_counter() - t0
     counts = ops.launch_counts()
+    variants = ops.variant_counts()["bitserial_zero_profile"]
     # ---- end of the profile ------------------------------------------------------
     check(counts["bitserial_zero_profile"] == len(names),
           f"bitserial_zero_profile launched {counts['bitserial_zero_profile']} times, "
           f"want {len(names)}")
+    check(variants == {"strip": 0, "fused": len(names), "general": 0},
+          f"the profile's variants {variants}, want {len(names)} fused")
     rows["bitserial_zero_profile"]["launches"] = counts["bitserial_zero_profile"]
 
-    differ = []
+    # host syncs of one more profile call, against those of one host copy:
+    # torch's sync debug mode warns on each synchronising call
+    def sync_warnings(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                result = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return result, sum("synchroniz" in str(w.message) for w in caught)
+
+    sync_warnings(lambda: torch.zeros(2, device="cuda").tolist())   # the mode's first use
+    _, one_copy = sync_warnings(lambda: torch.zeros(2, device="cuda").tolist())
+    again, syncs = sync_warnings(lambda: profile_activations(acts, GROUP_ROWS))
+    check(again == ratios, "a second profile call gave other ratios")
+    check(one_copy >= 1 and syncs == one_copy,
+          f"the profile raised {syncs} sync warnings, one host copy {one_copy}")
+
+    # the profile as it ran before the fused kernel: quantize_int8, then the
+    # int8 count and a host copy, per activation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unfused = {name: skippable_bit_ratio(quantize_int8(a.reshape(-1, a.shape[-1])), GROUP_ROWS)
+               for name, a in acts.items()}
+    t_unfused = time.perf_counter() - t0
+    check(unfused == ratios, "quantize_int8 + the int8 count gave other ratios")
+
+    differ, differ_int8 = [], []
     for name, a in acts.items():
-        q = quantize_int8(a.reshape(-1, a.shape[-1]))
+        x = a.reshape(-1, a.shape[-1])
+        k = ops.quantized_zero_profile(x, GROUP_ROWS, impl="cuda").tolist()
+        p = ref.quantized_zero_profile_ref(x, GROUP_ROWS).tolist()
+        if k != p or ratios[name] != p[0] / max(p[1], 1):
+            differ.append((name, k, p, ratios[name]))
+        q = quantize_int8(x)
         k = ops.bitserial_zero_profile(q, GROUP_ROWS, impl="cuda").tolist()
-        p = ops.bitserial_zero_profile(q, GROUP_ROWS, impl="ref").tolist()
         if k != p:
-            differ.append((name, k, p))
+            differ_int8.append((name, k, p))
     summary = {}
     for kind in kinds:
         vals = [ratios[f"l{l:02d}/{kind}"] for l in range(cfg.n_layers)]
@@ -918,12 +1042,18 @@ def profile_phase(cfg, cparams, prompts, rows: dict) -> None:
                          "features": acts[f"l00/{kind}"].shape[-1]}
     print(f"[profile] {cfg.name}: {n_tok} prefill tokens of 8 prompts, {len(names)} "
           f"(layer, kind) activations ({held / 2**30:.2f} GiB bf16 held) captured in "
-          f"{t_cap:.2f}s, profiled in {t_prof:.2f}s; int8, groups of {GROUP_ROWS} rows, 8 bits; "
+          f"{t_cap:.2f}s, profiled in {t_prof:.4f}s with one host copy ({syncs} sync warnings, "
+          f"as one copy alone; quantize_int8 + the int8 count per activation: "
+          f"{t_unfused:.4f}s); "
+          f"int8, groups of {GROUP_ROWS} rows, 8 bits; "
           f"skippable ratio per kind over {cfg.n_layers} layers: {json.dumps(summary)}",
           flush=True)
-    print(f"[profile] kernel vs plain [skippable, total]: {len(names) - len(differ)} of "
-          f"{len(names)} (layer, kind) pairs equal; launches {json.dumps(counts)}", flush=True)
-    check(not differ, f"bit-serial counts differ kernel vs plain: {differ[:4]}")
+    print(f"[profile] fused kernel vs quantize_int8 + plain count [skippable, total]: "
+          f"{len(names) - len(differ)} of {len(names)} (layer, kind) pairs equal; int8 kernel "
+          f"vs plain on quantize_int8's output: {len(names) - len(differ_int8)} equal; "
+          f"launches {json.dumps(counts)}, variants {json.dumps(variants)}", flush=True)
+    check(not differ, f"fused bit-serial counts differ from plain: {differ[:4]}")
+    check(not differ_int8, f"bit-serial counts differ kernel vs plain: {differ_int8[:4]}")
     check(all(0.0 <= r <= 1.0 for r in ratios.values()), "a skippable ratio outside [0, 1]")
 
 
@@ -946,6 +1076,11 @@ def microbench_phase() -> None:
     check(back == rep.samples, "microbench samples do not read back unchanged")
     print(f"[microbench] {len(back)} samples written to {path.relative_to(HERE)} and read back "
           f"unchanged", flush=True)
+
+
+# what the kernels line gives of each further variant of a kernel
+VARIANT_KEYS = ("shape", "ms", "eager_ms", "general_ms", "plain_ms", "bound_ms", "bound_by",
+                "share_of_bound")
 
 
 def main() -> int:
@@ -1011,6 +1146,11 @@ def main() -> int:
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "shape": r["shape"], "library": r["library"],
                         **({"variant": r["variant"]} if "variant" in r else {}),
+                        **{k: r[k] for k in ("op_ms", "eager_ms", "amax_ms", "amax_bound_ms",
+                                             "unfused_ms") if k in r},
+                        **({"variants": {v: {k: l[k] for k in VARIANT_KEYS}
+                                         for v, l in r["variants"].items()}}
+                           if "variants" in r else {}),
                         **ratios(r)})
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -12,38 +12,23 @@ of an array (§III-B).  The profile:
 3. the skippable ratio feeds the cost model's effective bit-serial
    length.
 
-Step 2 is the ``bitserial_zero_profile`` op, so on a CUDA tensor it runs
-in the Hopper kernel.  Tensors stay on their device; only the two counts
-of each profile come back to the host.
+Steps 1 and 2 are the ``quantized_zero_profile`` op: on a CUDA tensor
+one kernel reads the activation once, quantises it in registers and
+counts, after a min/max pass for the scale; the counts stay on the card
+until one host copy returns every profile's.  ``skippable_bit_ratio``
+counts an int8 tensor with the ``bitserial_zero_profile`` op.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List
 
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import quantize_int8
 
 __all__ = ["quantize_int8", "skippable_bit_ratio", "profile_activations",
            "analytic_skip_ratio", "capture_mlp_activations"]
-
-
-def quantize_int8(x: torch.Tensor, *, per_tensor_scale: Optional[float] = None) -> torch.Tensor:
-    """Symmetric int8 quantisation (round half to even, saturating).
-
-    Matches the reference bit for bit in f32 and in bf16: numpy promotes
-    a bf16 array divided by a Python float to f32, so the reference
-    divides ``f32(x)`` by ``f32(scale)``; so does this.  The divisor is
-    an expanded tensor, not a scalar, so that no backend turns the
-    division into a multiply by the reciprocal.
-    """
-    xf = x.float()
-    scale = per_tensor_scale
-    if scale is None:
-        amax = float(xf.abs().max()) if xf.numel() else 0.0
-        scale = max(amax, 1e-8) / 127.0
-    s = torch.tensor(scale, dtype=torch.float32, device=x.device).expand_as(xf)
-    return torch.round(xf / s).clamp_(-128, 127).to(torch.int8)
 
 
 def skippable_bit_ratio(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
@@ -62,10 +47,18 @@ def skippable_bit_ratio(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
 
 def profile_activations(acts: Dict[str, torch.Tensor], group_rows: int, n_bits: int = 8, *,
                         impl: str = "auto") -> Dict[str, float]:
-    """Per-layer skippable-bit ratios from captured activation samples."""
-    return {name: skippable_bit_ratio(quantize_int8(a.reshape(-1, a.shape[-1])),
-                                      group_rows, n_bits, impl=impl)
-            for name, a in acts.items()}
+    """Per-layer skippable-bit ratios from captured activation samples.
+
+    Each activation is quantised to int8 and counted by
+    ``ops.quantized_zero_profile``; the counts come back to the host in
+    one copy for the whole dict.
+    """
+    if not acts:
+        return {}
+    counts = [ops.quantized_zero_profile(a.reshape(-1, a.shape[-1]), group_rows, n_bits,
+                                         impl=impl) for a in acts.values()]
+    pairs = torch.stack(counts).tolist()
+    return {name: float(s) / max(t, 1) for name, (s, t) in zip(acts, pairs)}
 
 
 def analytic_skip_ratio(zero_rate: float, group_rows: int, n_bits: int = 8,

@@ -73,6 +73,13 @@ SOURCES: Dict[str, Dict[str, List]] = {
     "bitserial_profile": {
         # q, counter (8 bytes scratch), out (int32[2]), V, K, group_rows, n_bits, stream
         "bsp_count": [P, P, P, I, I, I, I, P],
+        # q, accumulator (8 bytes, zero between calls), out, V, K, group_rows, n_bits, grid,
+        # stream
+        "bsp_count_strip": [P, P, P, I, I, I, I, I, P],
+        # x, amin, amax (or null, null), scale, accumulator, out, V, K, group_rows, n_bits,
+        # grid, stream
+        "bsp_fused_bf16": [P, P, P, F, P, P, I, I, I, I, I, P],
+        "bsp_fused_f32": [P, P, P, F, P, P, I, I, I, I, I, P],
     },
 }
 

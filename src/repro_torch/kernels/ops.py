@@ -10,8 +10,7 @@
 Shapes, layouts and errors follow ``repro/kernels/ops.py``.  Each CUDA
 wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them, :func:`variant_counts` reads the per-variant counts of the
-four kernels that have variants, and :func:`reset_launch_counts`
-sets them all to 0.
+five kernels, and :func:`reset_launch_counts` sets them all to 0.
 """
 from __future__ import annotations
 
@@ -30,7 +29,7 @@ from . import ref as _ref
 __all__ = ["IMPLS", "compress_fullblock", "compress_fullblock_torch",
            "compress_intrablock", "compress_intrablock_torch", "decompress_intrablock",
            "block_sparse_matmul", "intrablock_gather_matmul", "block_importance",
-           "bitserial_zero_profile", "flash_attention",
+           "bitserial_zero_profile", "quantized_zero_profile", "flash_attention",
            "launch_counts", "variant_counts", "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "ref")
@@ -52,20 +51,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
-_VARIANTS = {"flash_attention": _fa, "block_sparse_matmul": _bsm,
-             "block_importance": _bi, "intrablock_gather_matmul": _igm}
-
-
 def variant_counts() -> Dict[str, Dict[str, int]]:
     """Launches per variant (see :mod:`~repro_torch.kernels.plans`) of the
-    four kernels that have variants, since the last reset."""
-    return {name: dict(mod.variant_launches) for name, mod in _VARIANTS.items()}
+    five kernels, since the last reset."""
+    return {name: dict(mod.variant_launches) for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
-    for mod in _VARIANTS.values():
         for v in mod.variant_launches:
             mod.variant_launches[v] = 0
 
@@ -218,6 +212,19 @@ def bitserial_zero_profile(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
     if _resolve(impl, q) == "ref":
         return _ref.bitserial_zero_profile_ref(q, group_rows, n_bits)
     return _bsp.bitserial_zero_profile_cuda(q, group_rows, n_bits)
+
+
+def quantized_zero_profile(x: torch.Tensor, group_rows: int, n_bits: int = 8, *,
+                           per_tensor_scale: Optional[float] = None,
+                           impl: str = "auto") -> torch.Tensor:
+    """int32 ``[skippable, total]`` of ``quantize_int8(x)`` for a float x
+    (V, K): the §IV-B profile of one activation.  On the card the
+    quantisation is fused into the count's read of x."""
+    if _resolve(impl, x) == "ref":
+        return _ref.quantized_zero_profile_ref(x, group_rows, n_bits,
+                                               per_tensor_scale=per_tensor_scale)
+    return _bsp.quantized_zero_profile_cuda(x, group_rows, n_bits,
+                                            per_tensor_scale=per_tensor_scale)
 
 
 def block_importance(w: torch.Tensor, bm: int, bn: int, criterion: str = "l1", *,

@@ -29,6 +29,13 @@ range, its masked tiles and its launch order.
 Block importance (``bi_plan``): ``"strip"`` (128 x 128 blocks, aligned)
 or ``"general"``.
 
+Bit-serial zero profile (``bsp_plan``): ``"strip"`` (int8 in 16-byte
+chunks, a group's chunks on neighbouring lanes), ``"fused"`` (bf16 or
+f32 quantised in registers and counted, the same layout) or
+``"general"`` (the first int8 kernel; for a float input, quantisation by
+plain tensor ops on the card, then the int8 count), with the grid of the
+two one-launch variants.
+
 The plan functions are memoised: a decode step asks for the same few
 plans on every layer.
 """
@@ -44,7 +51,7 @@ __all__ = ["Plan", "DECODE_MAX_B", "CHUNK", "TILE_N", "SMS", "BSM_DECODE_CTAS",
            "IGM_DECODE_CTAS", "PREFILL_CTAS", "split_range", "choose_cluster", "bsm_plan",
            "igm_plan", "live_partition", "chunk_partition", "FaPlan", "FA_ROWS", "FA_KEYS",
            "FA_PACK", "fa_plan", "fa_live_tiles", "fa_tile_needs_mask", "fa_tile_order",
-           "bi_plan"]
+           "bi_plan", "BspPlan", "BSP_THREADS", "BSP_UNROLL", "BSP_CTAS_PER_SM", "bsp_plan"]
 
 DECODE_MAX_B = 16      # rows of x one mma.sync tile holds
 CHUNK = 64             # Kc rows of one gather-matmul stage
@@ -221,3 +228,44 @@ def bi_plan(M: int, N: int, bm: int, bn: int, dtype: torch.dtype, align: int) ->
     if bm == TILE_N and bn == TILE_N and align % ALIGN == 0 and M % bm == 0 and N % bn == 0:
         return "strip"
     return "general"
+
+
+# ---------------------------------------------------------------------------
+# Bit-serial zero profile
+# ---------------------------------------------------------------------------
+
+BSP_THREADS = 256      # threads of one CTA
+BSP_UNROLL = 4         # 16-byte chunk loads in flight per lane
+BSP_CTAS_PER_SM = 4    # resident CTAs an SM is given: the grid is at most one wave
+_BSP_ESIZE = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
+
+
+@dataclass(frozen=True)
+class BspPlan:
+    variant: str       # "strip" | "fused" | "general"
+    lanes: int = 0     # 16-byte chunks (lanes) of one group
+    grid: int = 0      # CTAs of the one-launch variants
+
+
+@lru_cache(maxsize=256)
+def bsp_plan(V: int, K: int, g: int, dtype: torch.dtype, align: int) -> BspPlan:
+    """Variant of the bit-serial count of (V, K) in groups of g rows.
+
+    int8 takes ``"strip"``, bf16 and f32 take ``"fused"``, where K and g
+    are multiples of a 16-byte chunk's elements, a group is a power of two
+    of at most 32 chunks and the input is 16-byte aligned; everything else
+    takes ``"general"``.  The grid covers the V * ceil(K/g) * lanes chunk
+    slots with BSP_UNROLL per thread, at most one wave of
+    BSP_CTAS_PER_SM CTAs on each of the SMS SMs.
+    """
+    esize = _BSP_ESIZE.get(dtype)
+    if esize is None:
+        return BspPlan("general")
+    per_chunk = ALIGN // esize
+    lanes = g // per_chunk
+    if (K % per_chunk or g % per_chunk or not 1 <= lanes <= 32 or lanes & (lanes - 1)
+            or align % ALIGN):
+        return BspPlan("general")
+    slots = V * -(-K // g) * lanes
+    grid = max(1, min(-(-slots // (BSP_THREADS * BSP_UNROLL)), SMS * BSP_CTAS_PER_SM))
+    return BspPlan("strip" if dtype == torch.int8 else "fused", lanes, grid)

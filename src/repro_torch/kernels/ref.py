@@ -3,7 +3,9 @@
 Each function computes what the matching oracle in
 ``repro/kernels/ref.py`` computes, on the same layouts.  They are the
 CPU path of :mod:`repro_torch.kernels.ops` and the yardstick the CUDA
-kernels are held to on the card.
+kernels are held to on the card.  ``quantize_int8`` is the port of
+``repro/core/input_sparsity.py``'s, here because the fused quantise-and-
+count op (``quantized_zero_profile_ref``) is defined by it.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 
 __all__ = ["flash_attention_ref", "block_sparse_matmul_ref",
            "intrablock_gather_matmul_ref", "block_importance_ref",
-           "bitserial_zero_profile_ref", "check_slot_count"]
+           "bitserial_zero_profile_ref", "check_slot_count", "quantize_scale",
+           "quantize_int8", "quantized_zero_profile_ref"]
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -107,3 +110,44 @@ def bitserial_zero_profile_ref(q: torch.Tensor, group_rows: int,
         group_or = ((grouped >> b) & 1).amax(dim=-1)
         skippable += (group_or == 0).sum()
     return torch.stack([skippable, skippable.new_tensor(total)]).to(torch.int32)
+
+
+def quantize_scale(x: torch.Tensor, per_tensor_scale: Optional[float] = None) -> torch.Tensor:
+    """The f32 scale of :func:`quantize_int8` as a 0-d tensor on x's device.
+
+    ``max(amax, 1e-8) / 127.0`` in f64 rounded to f32, as the reference
+    computes it on the host (a Python float that numpy rounds to f32 when
+    it divides an f32 array); a given scale is rounded to f32 the same
+    way.  Computed on the device with no host copy, so a CUDA tensor costs
+    no host sync; the divisor is a tensor, so that no backend divides by
+    multiplying with the reciprocal.
+    """
+    if per_tensor_scale is not None:
+        return torch.full((), per_tensor_scale, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        amax = torch.zeros((), dtype=torch.float64, device=x.device)
+    else:
+        amax = x.abs().amax().double()
+    return (amax.clamp(min=1e-8) / torch.full_like(amax, 127.0)).float()
+
+
+def quantize_int8(x: torch.Tensor, *, per_tensor_scale: Optional[float] = None) -> torch.Tensor:
+    """Symmetric int8 quantisation (round half to even, saturating).
+
+    Matches the reference bit for bit in f32 and in bf16: numpy promotes
+    a bf16 array divided by a Python float to f32, so the reference
+    divides ``f32(x)`` by ``f32(scale)``; so does this.  The divisor is
+    an expanded tensor, not a scalar, so that no backend turns the
+    division into a multiply by the reciprocal.
+    """
+    xf = x.float()
+    s = quantize_scale(x, per_tensor_scale).expand_as(xf)
+    return torch.round(xf / s).clamp_(-128, 127).to(torch.int8)
+
+
+def quantized_zero_profile_ref(x: torch.Tensor, group_rows: int, n_bits: int = 8, *,
+                               per_tensor_scale: Optional[float] = None) -> torch.Tensor:
+    """int32 ``[skippable, total]`` of ``quantize_int8(x)`` (V, K): what the
+    reference's profile counts for one activation."""
+    return bitserial_zero_profile_ref(quantize_int8(x, per_tensor_scale=per_tensor_scale),
+                                      group_rows, n_bits)

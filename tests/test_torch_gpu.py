@@ -4,8 +4,12 @@ device every test skips.  Run on a GPU host with
 ``python -m pytest -m gpu tests/test_torch_gpu.py`` (this file does not
 import jax, so it runs where only PyTorch is installed).
 """
+import ctypes
 import dataclasses
+import subprocess
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -13,7 +17,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.flexblock import FlexBlockSpec, FullBlock, IntraBlock
 from repro_torch.core.input_sparsity import profile_activations
 from repro_torch.core.pruning import intrablock_mask
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, plans, ref
 from repro_torch.models import transformer as TT
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.sparsity.apply import compress_params, prune_params
@@ -283,22 +287,136 @@ def test_intrablock_gather_matmul_rejects_bad_indices(gen):
     (16, 64, 16, 8, 40), (100, 96, 32, 8, 40), (128, 256, 64, 8, 40),   # tests/test_kernels.py
     (100, 100, 32, 8, 128), (100, 100, 32, 8, 6), (7, 45, 4, 5, 128), (3, 33, 32, 3, 9),
     (2048, 2560, 32, 8, 128), (2048, 9728, 32, 8, 12), (5, 64, 16, 32, 128),
+    (100, 96, 64, 8, 128), (4, 1024, 512, 8, 128), (1916, 9728, 32, 8, 128),
 ])
 def test_bitserial_zero_profile_kernel_equals_plain(gen, V, K, g, n_bits, lim):
     """Exact equality, over ragged K (zero-padded, skippable), −128, small
-    magnitudes (many zero planes) and n_bits below and above 8."""
+    magnitudes (many zero planes) and n_bits below and above 8, in the
+    variant the plan names (strip where K and g are whole 16-byte chunks)."""
     q = torch.randint(-lim, lim, (V, K), generator=gen, device="cuda").to(torch.int8)
     q[0, : min(K, 3)] = -128
-    before = ops.launch_counts()["bitserial_zero_profile"]
+    variant = plans.bsp_plan(V, K, g, torch.int8, 256).variant
+    before, vbefore = ops.launch_counts()["bitserial_zero_profile"], ops.variant_counts()
     out = ops.bitserial_zero_profile(q, g, n_bits)
     assert ops.launch_counts()["bitserial_zero_profile"] == before + 1
+    assert _variant_delta(vbefore) == {"bitserial_zero_profile": {variant: 1}}
     want = ref.bitserial_zero_profile_ref(q, g, n_bits)
     assert out.dtype == torch.int32 and out.tolist() == want.tolist()
-    # a misaligned start takes the byte-by-byte loads
+    # a misaligned start takes the first kernel's byte-by-byte loads
     buf = torch.empty(V * K + 1, dtype=torch.int8, device="cuda")
     qm = buf[1:].view(V, K)
     qm.copy_(q)
+    vbefore = ops.variant_counts()
     assert ops.bitserial_zero_profile(qm, g, n_bits).tolist() == want.tolist()
+    assert _variant_delta(vbefore) == {"bitserial_zero_profile": {"general": 1}}
+
+
+def _tie_input(gen, V, K, dtype):
+    """Every element on a half-integer multiple of 0.25 and the largest
+    |x| = 127 * 0.25, so that quantize_int8's scale is 0.25 and every
+    other element is a rounding tie."""
+    k = torch.randint(-127, 127, (V, K), generator=gen, device="cuda")
+    x = ((k.float() + 0.5) * 0.25).to(dtype)
+    x[0, 0] = 127 * 0.25
+    return x
+
+
+@pytest.mark.parametrize("V,K,g,n_bits", [(1916, 2560, 32, 8), (1916, 9728, 32, 8),
+                                          (37, 96, 16, 5), (7, 40, 16, 8), (64, 512, 128, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["normal", "ties", "ties_given", "clamp"])
+def test_quantized_zero_profile_fused_equals_plain(gen, V, K, g, n_bits, dtype, case):
+    """The fused variant counts exactly what quantize_int8 + the plain
+    count give, on the card and on the CPU: ties (round half to even), a
+    given scale, and a scale so small that both int8 bounds are hit."""
+    scale = {"ties_given": 0.25, "clamp": 0.01}.get(case)
+    if case.startswith("ties"):
+        x = _tie_input(gen, V, K, dtype)
+    else:
+        x = _randn(gen, V, K, dtype=dtype) * (2.0 if case == "clamp" else 1.0)
+        x[:, ::7] = 0
+    assert plans.bsp_plan(V, K, g, dtype, 256).variant == "fused"
+    vbefore = ops.variant_counts()
+    out = ops.quantized_zero_profile(x, g, n_bits, per_tensor_scale=scale)
+    assert _variant_delta(vbefore) == {"bitserial_zero_profile": {"fused": 1}}
+    want = ref.quantized_zero_profile_ref(x, g, n_bits, per_tensor_scale=scale)
+    assert out.dtype == torch.int32 and out.tolist() == want.tolist()
+    assert want.tolist() == ref.quantized_zero_profile_ref(
+        x.cpu(), g, n_bits, per_tensor_scale=scale).tolist()
+    if case == "clamp":
+        q = ref.quantize_int8(x, per_tensor_scale=scale)
+        assert q.min().item() == -128 and q.max().item() == 127
+
+
+def test_quantized_zero_profile_other_inputs_quantise_then_count(gen):
+    """A float input the fused variant does not take (f16, ragged K, a
+    misaligned start) is quantised on the card and counted as int8."""
+    x = _randn(gen, 33, 100, dtype=torch.bfloat16)
+    buf = torch.empty(64 * 96 + 1, dtype=torch.float32, device="cuda")
+    xm = buf[1:].view(64, 96)
+    xm.copy_(_randn(gen, 64, 96))
+    for a, variant in ((x, "general"), (xm.half(), "strip"), (xm, "strip")):
+        vbefore = ops.variant_counts()
+        out = ops.quantized_zero_profile(a, 32)
+        assert _variant_delta(vbefore) == {"bitserial_zero_profile": {variant: 1}}
+        assert out.tolist() == ref.quantized_zero_profile_ref(a, 32).tolist()
+
+
+def test_fused_division_equals_ieee_division(gen, tmp_path):
+    """The fused variant's division with the reciprocal taken once per
+    thread (the scale from the tensor's own max) against __fdiv_rn, by
+    tests/csrc/bsp_division_check.cu built against the kernel's source:
+    every finite bf16 x, random f32 x and every tie, for amax from 2^-40
+    to the f32 maximum.  |q| never differs, and the quotient itself only
+    below 2^-24 (tiny x whose remainder leaves the normal range), where it
+    rounds to 0 either way."""
+    from repro_torch.kernels import _build
+    so = tmp_path / "bsp_division_check.so"
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(_build._CSRC), "-o",
+                    str(so), str(Path(__file__).parent / "csrc" / "bsp_division_check.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.bsp_division_check.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    rng = np.random.default_rng(0)
+    amax = np.concatenate([
+        2.0 ** np.arange(-40, 128), [0.0, 5e-9, 1e-8, 1.0 - 2**-24, 2.0 - 2**-23,
+                                     float(np.finfo(np.float32).max)],
+        np.exp(rng.uniform(np.log(1e-12), np.log(3e38), 3000)),
+        np.abs(rng.normal(size=2000) * 8)]).astype(np.float32)
+    amax = torch.from_numpy(amax[np.isfinite(amax)])
+    amax = torch.cat([amax, amax[-2000:].bfloat16().float()]).cuda()   # bf16 activations' too
+    counts = torch.zeros(4, dtype=torch.int64, device="cuda")
+    assert lib.bsp_division_check(amax.data_ptr(), amax.numel(), counts.data_ptr()) == 0
+    tested, differ, differ_large, mag_differ = counts.tolist()
+    assert tested > 5e8 and differ_large == 0 and mag_differ == 0, (tested, differ)
+
+
+@pytest.mark.parametrize("op", ["strip", "fused"])
+def test_one_launch_variants_replay_from_a_cuda_graph(gen, op):
+    """One launch that leaves its ticket at 0: captured in a CUDA graph
+    and replayed 3 times, it gives the plain count every time, also after
+    the input changes under the graph."""
+    if op == "strip":
+        x = torch.randint(-128, 128, (1916, 2560), generator=gen, device="cuda").to(torch.int8)
+        fn, plain = (lambda: ops.bitserial_zero_profile(x, 32)), ref.bitserial_zero_profile_ref
+    else:
+        x = _randn(gen, 1916, 2560, dtype=torch.bfloat16)
+        fn, plain = (lambda: ops.quantized_zero_profile(x, 32)), ref.quantized_zero_profile_ref
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for i in range(3):
+        if i == 2:
+            x.copy_(torch.div(x, 3, rounding_mode="floor") if op == "strip" else x * 0.01)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert out.tolist() == plain(x, 32).tolist(), i
 
 
 def test_bitserial_zero_profile_guards(gen):
@@ -335,4 +453,9 @@ def test_intrablock_model_kernel_path_matches_plain_path(gen):
     TT._run(cp, toks, cfg, "auto", False,
             tap=lambda l, kind, a: acts.__setitem__(f"{l}/{kind}", a))
     assert len(acts) == 3 * cfg.n_layers
+    ops.reset_launch_counts()
     assert profile_activations(acts, 32) == profile_activations(acts, 32, impl="ref")
+    # one launch per activation, all through the fused quantise-and-count
+    assert ops.launch_counts()["bitserial_zero_profile"] == len(acts)
+    assert ops.variant_counts()["bitserial_zero_profile"] == {"strip": 0, "fused": len(acts),
+                                                              "general": 0}

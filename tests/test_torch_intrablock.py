@@ -24,6 +24,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core import input_sparsity as TI
 from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+from repro_torch.kernels import ref as TK
 from repro_torch.models import transformer as TT
 from repro_torch.models.layers import IntraBlockLinear
 from repro_torch.serve.engine import Request, ServeEngine
@@ -167,6 +168,65 @@ def test_profile_activations_equal_reference(R, dtype, group_rows, n_bits):
         q_got = TI.quantize_int8(port[k])
         assert q_got.dtype == torch.int8
         np.testing.assert_array_equal(q_got.numpy(), q_want)
+
+
+def emulate_fused(x: np.ndarray, scale: np.float32, g: int, n_bits: int):
+    """The fused kernel's arithmetic in numpy f32: the IEEE quotient x / s
+    clamped to [-128, 127], |c| + 1.5 * 2^23 (the add rounds half to even
+    into the low mantissa bits), the raw bits ORed over each group of g
+    (zero padding past K), masked to 8 bits, then n_bits minus the set
+    bits under the mask."""
+    V, K = x.shape
+    G = -(-K // g)
+    c = np.clip(x.astype(np.float32) / np.float32(scale), np.float32(-128), np.float32(127))
+    bits = (np.abs(c) + np.float32(12582912.0)).view(np.uint32)
+    padded = np.full((V, G * g), np.float32(12582912.0)).view(np.uint32)
+    padded[:, :K] = bits
+    group_or = np.bitwise_or.reduce(padded.reshape(V, G, g), axis=-1) & np.uint32(0xFF)
+    mask = np.uint32((1 << n_bits) - 1 if n_bits < 32 else 0xFFFFFFFF)
+    pop = sum(((group_or & mask) >> np.uint32(b)) & np.uint32(1) for b in range(8))
+    return [int((n_bits - pop.astype(np.int64)).sum()), V * G * n_bits]
+
+
+def _fused_input(case: str):
+    """(37, 96) samples and the scale to give (None: from amax).  ``ties``
+    puts every element on a half-integer multiple of s = 0.25 (amax =
+    127 * 0.25, so the computed scale is 0.25 too); ``clamp`` gives a scale
+    so small that both int8 bounds are hit."""
+    if case == "ties":
+        x = (RNG.integers(-127, 127, size=(37, 96)) + 0.5) * 0.25
+        x[0, 0] = 127 * 0.25
+        return x, None
+    if case == "ties_given":
+        return (RNG.integers(-127, 127, size=(37, 96)) + 0.5) * 0.25, 0.25
+    x = RNG.normal(size=(37, 96))
+    x[:, ::7] = 0.0
+    return (x, None) if case == "normal" else (x * 2.0, 0.01)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("case", ["normal", "ties", "ties_given", "clamp"])
+@pytest.mark.parametrize("g,n_bits", [(32, 8), (16, 5)])
+def test_quantized_zero_profile_plain_equals_reference(R, dtype, case, g, n_bits):
+    """The fused op's plain version, and an emulation of the fused kernel's
+    arithmetic, count exactly what the reference's quantize_int8 and
+    bit-serial count give, ties and saturation included."""
+    x, scale = _fused_input(case)
+    x_ref = np.asarray(jnp.asarray(x, dtype))
+    x_port = torch.from_numpy(np.array(jnp.asarray(x, dtype).astype(jnp.float32))).to(
+        torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
+    q_ref = R.input_sparsity.quantize_int8(x_ref, per_tensor_scale=scale)
+    want = np.asarray(R.kref.bitserial_zero_profile_ref(jnp.asarray(q_ref), g, n_bits)).tolist()
+    got = TI.ops.quantized_zero_profile(x_port, g, n_bits, per_tensor_scale=scale)
+    assert got.dtype == torch.int32 and got.tolist() == want
+    assert want[0] / want[1] == R.input_sparsity.skippable_bit_ratio(q_ref, g, n_bits)
+    s = TK.quantize_scale(x_port, scale).item()
+    assert emulate_fused(x_port.float().numpy(), s, g, n_bits) == want
+    if case.startswith("ties"):
+        frac = np.abs(x_port.float().numpy() / s) % 1     # all ties but the amax element
+        assert s == 0.25 and (frac == 0.5).sum() == frac.size - (case == "ties")
+    if case == "clamp":
+        assert q_ref.min() == -128 and q_ref.max() == 127
 
 
 def test_quantize_and_ratio_helpers_match_reference(R):

@@ -10,6 +10,10 @@ shapes, and a plain emulation of the split sum (the kernels' arithmetic:
 each rank's f32 partial over its share, summed in rank order) against the
 plain versions in ``ref.py``.
 
+Bit-serial zero profile: the variant (``strip``, ``fused``, ``general``)
+per dtype, K, group size and alignment, and the grid of the one-launch
+variants.
+
 Flash attention and block importance: the variant per dtype, head dim,
 window, shape, alignment and block size; the Python mirrors of the flash
 kernel's live kv-tile range, its masked tiles and its heavy-first launch
@@ -25,7 +29,7 @@ import torch
 
 from repro_torch.kernels import ops, plans, ref
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 
 
 def _rank_sum(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -367,3 +371,47 @@ def test_flash_wgmma_emulation_equals_plain(rows, keys, pack, window):
     got = emulate_flash_wgmma(q, k, v, window, rows, keys, pack)
     want = ops.flash_attention(q, k, v, window=window, impl="ref")
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Bit-serial zero profile
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("V,K,g,dtype,align,want,lanes", [
+    # the qwen3-4b profile: activations of d_model and d_ff features, groups of 32
+    (1916, 2560, 32, I8, 256, "strip", 2), (1916, 9728, 32, I8, 256, "strip", 2),
+    (1916, 2560, 32, BF16, 256, "fused", 4), (1916, 9728, 32, BF16, 256, "fused", 4),
+    (1916, 2560, 32, F32, 256, "fused", 8),
+    # K a multiple of 16 but not of g: the last group of a row is short
+    (100, 96, 64, I8, 16, "strip", 4), (7, 40, 16, BF16, 16, "fused", 2),
+    # a group of one chunk and of 32 chunks
+    (16, 64, 16, I8, 16, "strip", 1), (4, 1024, 512, I8, 16, "strip", 32),
+    (4, 64, 4, F32, 16, "fused", 1), (4, 512, 256, BF16, 16, "fused", 32),
+    # ragged K, small or odd groups, wide groups, misaligned, other dtypes
+    (100, 100, 32, I8, 256, "general", 0), (16, 64, 8, I8, 256, "general", 0),
+    (16, 96, 48, I8, 256, "general", 0), (4, 2048, 1024, I8, 256, "general", 0),
+    (16, 64, 16, I8, 8, "general", 0), (16, 100, 32, BF16, 256, "general", 0),
+    (16, 64, 4, BF16, 256, "general", 0), (16, 64, 32, BF16, 2, "general", 0),
+    (16, 64, 32, torch.float16, 256, "general", 0), (16, 64, 2, F32, 256, "general", 0)])
+def test_bsp_plan_variant(V, K, g, dtype, align, want, lanes):
+    plan = plans.bsp_plan(V, K, g, dtype, align)
+    assert (plan.variant, plan.lanes) == (want, lanes)
+    if want != "general":
+        assert plan.lanes * (16 // torch.empty((), dtype=dtype).element_size()) == g
+
+
+@pytest.mark.parametrize("V,K,g,dtype", [(1916, 2560, 32, I8), (2048, 9728, 32, I8),
+                                         (1916, 9728, 32, BF16), (100, 96, 64, I8),
+                                         (1, 16, 16, I8), (0, 64, 16, I8), (5, 0, 16, BF16)])
+def test_bsp_plan_grid_is_at_most_one_wave_and_covers_the_slots(V, K, g, dtype):
+    """At most BSP_CTAS_PER_SM CTAs on each SM (the kernel's ticket counts
+    to 65535), at least one CTA, and no more CTAs than the slots need."""
+    plan = plans.bsp_plan(V, K, g, dtype, 256)
+    slots = V * -(-K // g) * plan.lanes
+    per_cta = plans.BSP_THREADS * plans.BSP_UNROLL
+    wave = plans.SMS * plans.BSP_CTAS_PER_SM
+    assert 1 <= plan.grid <= wave < 2**16
+    assert plan.grid == wave or plan.grid * per_cta >= slots
+    assert plan.grid == 1 or (plan.grid - 1) * per_cta < slots
+    if (V, K) == (2048, 9728):
+        assert plan.grid == wave

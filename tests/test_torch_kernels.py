@@ -17,7 +17,7 @@ import torch
 import jax.numpy as jnp
 
 import _jax_reference
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, plans
 
 ROOT = Path(__file__).resolve().parents[1]
 RNG = np.random.default_rng(11)
@@ -151,6 +151,55 @@ def test_bitserial_zero_profile_plain_equals_pallas(R, V, K, g, n_bits, lim):
         assert got[0] == got[1]
 
 
+def _vabs4(w: np.ndarray) -> np.ndarray:
+    """Per-byte two's-complement |b| of uint32 words, modulo 256 (0x80
+    stays 0x80, so |-128| = 128 keeps bit 7), as CUDA's ``__vabs4``."""
+    out = np.zeros_like(w)
+    for k in range(4):
+        b = (w >> np.uint32(8 * k)) & np.uint32(0xFF)
+        a = np.where(b & np.uint32(0x80), (np.uint32(0x100) - b) & np.uint32(0xFF), b)
+        out |= a << np.uint32(8 * k)
+    return out
+
+
+def emulate_strip(q: np.ndarray, g: int, n_bits: int):
+    """The strip kernel's word-wise count: each lane's 16-byte chunk as 4
+    little-endian uint32 words, per-byte |q| of each word, the words ORed,
+    the group's g/16 lanes ORed, the 4 bytes folded, then n_bits minus the
+    set bits under the mask.  Chunks past K read as zero."""
+    V, K = q.shape
+    G, lanes = -(-K // g), g // 16
+    padded = np.zeros((V, G * g), np.int8)
+    padded[:, :K] = q
+    words = padded.view(np.uint32).reshape(V, G, lanes, 4)
+    lane_or = np.bitwise_or.reduce(_vabs4(words), axis=-1)
+    group_or = np.bitwise_or.reduce(lane_or, axis=-1)
+    folded = group_or | (group_or >> np.uint32(16))
+    folded = (folded | (folded >> np.uint32(8))) & np.uint32(0xFF)
+    mask = np.uint32((1 << n_bits) - 1 if n_bits < 32 else 0xFFFFFFFF)
+    pop = sum(((folded & mask) >> np.uint32(b)) & np.uint32(1) for b in range(8))
+    return [int((n_bits - pop.astype(np.int64)).sum()), V * G * n_bits]
+
+
+@pytest.mark.parametrize("V,K,g,n_bits,lim", [
+    (16, 64, 16, 8, 40), (100, 96, 32, 8, 40), (128, 256, 64, 8, 40),   # tests/test_kernels.py
+    (100, 96, 64, 8, 129), (37, 80, 32, 5, 129), (20, 64, 16, 3, 9), (8, 32, 16, 8, 1),
+    (5, 64, 16, 32, 129), (4, 1024, 512, 8, 129), (9, 48, 32, 8, 3),
+])
+def test_strip_emulation_equals_plain_and_reference(R, V, K, g, n_bits, lim):
+    """Exact, over the sweep with an all-(-128) row and an all-zero row:
+    the word-wise algorithm of the strip variant counts what both plain
+    versions count."""
+    assert plans.bsp_plan(V, K, g, torch.int8, 256).variant == "strip"
+    qn = RNG.integers(-lim + 1, lim, size=(V, K)).clip(-128, 127).astype(np.int8)
+    qn[0] = -128
+    qn[-1] = 0
+    got = emulate_strip(qn, g, n_bits)
+    assert got == ops.bitserial_zero_profile(torch.from_numpy(qn), g, n_bits).tolist()
+    assert got == np.asarray(R.kref.bitserial_zero_profile_ref(jnp.asarray(qn), g,
+                                                               n_bits)).tolist()
+
+
 def test_bitserial_zero_profile_refuses_an_int32_overflow():
     """2**16 x 2**13 int8 in groups of 1 has 2**32 slots: the int32 result
     would wrap, so both paths raise before counting (an expanded view, so
@@ -250,9 +299,13 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     ops.flash_attention(q, q, q)
     ops.intrablock_gather_matmul(x, torch.randn(32, 8), torch.arange(32, dtype=torch.int32))
     ops.bitserial_zero_profile(torch.ones(4, 64, dtype=torch.int8), 16)
+    ops.quantized_zero_profile(torch.randn(4, 64), 16)
     assert ops.launch_counts() == {"flash_attention": 0, "block_sparse_matmul": 0,
                                    "block_importance": 0, "intrablock_gather_matmul": 0,
                                    "bitserial_zero_profile": 0}
+    variants = ops.variant_counts()
+    assert variants["bitserial_zero_profile"] == {"strip": 0, "fused": 0, "general": 0}
+    assert all(n == 0 for v in variants.values() for n in v.values())
 
 
 def test_cuda_impl_refuses_cpu_tensors():
@@ -269,6 +322,8 @@ def test_cuda_impl_refuses_cpu_tensors():
                                      torch.arange(16, dtype=torch.int32), impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         ops.bitserial_zero_profile(torch.ones(2, 32, dtype=torch.int8), 8, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.quantized_zero_profile(torch.randn(2, 32), 8, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ops.block_importance(torch.randn(32, 32), 16, 16, impl="pallas")
 
