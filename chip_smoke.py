@@ -43,7 +43,19 @@ Phases, each reported on its own line(s):
    count, in every (layer, kind);
 6. microbench — ``microbench_kernels`` on the card, its samples written
    as JSONL under ``build/`` and read back;
-7. the ``{"kernels": [...]}`` line; 8. the card's name and power limit.
+7. cost     — on the host, from what the card produced in this run: a
+   calibration profile fitted to the microbench samples (saved under
+   ``build/profiles/``), the profile's 108 skippable-bit ratios mapped
+   onto ``lm_workload``'s op names, and CIMinus cost reports of the two
+   served models with the FlexBlock specs they were pruned with, on
+   ``usecase_arch(4, input_sparsity=True)`` at 512 tokens: qwen3-4b (a)
+   without input sparsity, (b) with the measured ratios, (c) with the
+   ratios and the fitted profile; llama3-8b (a) and (c).  Each report must
+   be finite and round-trip through JSON, (b) may not be slower than (a),
+   a profile with unit efficiencies must give (b) bit for bit, (c) must be
+   (b) with each op's latency divided by its class's efficiency, and the
+   density of every mask the card produced must be the spec's;
+8. the ``{"kernels": [...]}`` line; 9. the card's name and power limit.
 
 The launch counts are set to 0 just before each path and read just
 after it: the three FullBlock-path kernels from prune to the end of
@@ -61,6 +73,7 @@ repository beside it, the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -620,7 +633,15 @@ def kernel_phase() -> dict:
 # Phases 3-5: the main path at full width
 # ---------------------------------------------------------------------------
 
-def main_path(cfg, rows: dict) -> None:
+def matrix_shapes(params) -> dict:
+    """Each pruned key's per-layer matrix (K, N), as ``prune_params`` masks it."""
+    return {k: (params["layers"][k].shape[1], math.prod(params["layers"][k].shape[2:]))
+            for k in KEYS}
+
+
+def main_path(cfg, rows: dict) -> dict:
+    """Prune, compress, serve and check llama3-8b; returns what the cost
+    phase needs of it (config, spec, the masks' densities, matrix shapes)."""
     from repro_torch.core.flexblock import FlexBlockSpec, FullBlock
     from repro_torch.core.pruning import block_losses, keep_from_losses
     from repro_torch.kernels import ops
@@ -631,6 +652,7 @@ def main_path(cfg, rows: dict) -> None:
     t0 = time.perf_counter()
     params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
+    shapes = matrix_shapes(params)
     print(f"[prune] init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{sum(t.numel() for t in params['layers'].values()) / 1e9:.3f} G layer params "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -688,6 +710,7 @@ def main_path(cfg, rows: dict) -> None:
 
     parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15,
                  faults=fullblock_faults(cfg, cparams))
+    return {"cfg": cfg, "spec": spec, "density": rep, "shapes": shapes}
 
 
 def check_main_variants(cfg, op: str, counts: dict, prefills: int) -> None:
@@ -893,7 +916,9 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
 # Phases 4-5: the qwen3-4b IntraBlock path and its §IV-B profile
 # ---------------------------------------------------------------------------
 
-def intrablock_path(cfg, rows: dict) -> None:
+def intrablock_path(cfg, rows: dict) -> dict:
+    """Prune, compress, serve, check and profile qwen3-4b; returns what the
+    cost phase needs of it, the profile's ratios included."""
     from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params
@@ -903,6 +928,7 @@ def intrablock_path(cfg, rows: dict) -> None:
     t0 = time.perf_counter()
     params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
+    shapes = matrix_shapes(params)
     n_all = sum(t.numel() for t in params["layers"].values()) + params["embed"].numel()
     print(f"[prune] init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_all / 1e9:.3f} G params (tied embedding included) in "
@@ -950,13 +976,15 @@ def intrablock_path(cfg, rows: dict) -> None:
     # layer 18's w_down moves them by 0.40: 0.15 sits between the two.
     parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15,
                  faults=intrablock_faults(cfg, cparams))
-    profile_phase(cfg, cparams, prompts, rows)
+    ratios = profile_phase(cfg, cparams, prompts, rows)
+    return {"cfg": cfg, "spec": spec, "density": rep, "shapes": shapes, "ratios": ratios}
 
 
-def profile_phase(cfg, cparams, prompts, rows: dict) -> None:
+def profile_phase(cfg, cparams, prompts, rows: dict) -> dict:
     """§IV-B: the skippable bit-serial ratio of every pruned projection's
     input, from the 8 prompts' prefill concatenated over tokens, int8, in
-    groups of GROUP_ROWS; each (layer, kind) held to the plain count."""
+    groups of GROUP_ROWS; each (layer, kind) held to the plain count.
+    Returns the ratios by ``l{LL}/{kind}``."""
     from repro_torch.core.input_sparsity import (capture_mlp_activations,
                                                  profile_activations, quantize_int8,
                                                  skippable_bit_ratio)
@@ -1055,11 +1083,12 @@ def profile_phase(cfg, cparams, prompts, rows: dict) -> None:
     check(not differ, f"fused bit-serial counts differ from plain: {differ[:4]}")
     check(not differ_int8, f"bit-serial counts differ kernel vs plain: {differ_int8[:4]}")
     check(all(0.0 <= r <= 1.0 for r in ratios.values()), "a skippable ratio outside [0, 1]")
+    return ratios
 
 
-def microbench_phase() -> None:
+def microbench_phase() -> list:
     """``microbench_kernels`` on the card; its samples go to JSONL under
-    build/ and must read back unchanged."""
+    build/ and must read back unchanged.  Returns the samples."""
     from repro_torch.calibrate.harvest import microbench_kernels, read_samples, write_samples
 
     rep = microbench_kernels(sizes=(256, 512), repeats=3)
@@ -1076,6 +1105,137 @@ def microbench_phase() -> None:
     check(back == rep.samples, "microbench samples do not read back unchanged")
     print(f"[microbench] {len(back)} samples written to {path.relative_to(HERE)} and read back "
           f"unchanged", flush=True)
+    return back
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the CIMinus cost model, fed by this run's measurements
+# ---------------------------------------------------------------------------
+
+# the profile's three input kinds → the ops of lm_workload that read them
+RATIO_OPS = {"attn_in": ("attn_q", "attn_k", "attn_v"), "mlp_in": ("mlp_up",),
+             "down_in": ("mlp_down",)}
+COST_SEQ = 512
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def measured_sparsity(cfg, ratios: dict) -> dict:
+    """Each lm_workload op that reads a profiled input → the mean of its
+    kind's ratio over the layers."""
+    out = {}
+    for kind, names in RATIO_OPS.items():
+        vals = [ratios[f"l{l:02d}/{kind}"] for l in range(cfg.n_layers)]
+        out.update(dict.fromkeys(names, sum(vals) / len(vals)))
+    return out
+
+
+def report_line(label: str, rep, cmp: dict, card: str) -> None:
+    print(f"[cost] {label}: latency {rep.latency_cycles!r} cycles ({rep.latency_ms!r} ms at the "
+          f"arch's clock), energy {rep.total_energy_uj!r} uJ, speedup {cmp['speedup']!r}, energy "
+          f"saving {cmp['energy_saving']!r}, utilization {cmp['utilization']!r}; energy by "
+          f"component (pJ) {json.dumps(rep.energy_pj)} [{card}]", flush=True)
+
+
+def check_report(label: str, rep) -> None:
+    """Finite, positive latency, and a JSON round trip."""
+    from repro_torch.core.report import CostReport
+    nums = [rep.latency_cycles, rep.latency_ms, rep.total_energy_uj, rep.utilization,
+            *rep.energy_pj.values(), *(o.latency_cycles for o in rep.op_costs)]
+    check(all(math.isfinite(x) for x in nums), f"{label}: a non-finite number")
+    check(rep.latency_cycles > 0, f"{label}: latency {rep.latency_cycles}")
+    back = CostReport.from_dict(json.loads(rep.to_json()))
+    check(back.to_dict() == rep.to_dict(), f"{label}: does not round-trip through to_json")
+
+
+def check_scaled(label: str, scaled, base, wl, prof) -> None:
+    """Each op of ``scaled`` is ``base``'s divided by the profile's
+    efficiency for its op class, to 1e-12 relative."""
+    from repro_torch.core.costmodel import op_class
+    check([o.name for o in scaled.op_costs] == [o.name for o in base.op_costs],
+          f"{label}: other ops")
+    for a, b in zip(scaled.op_costs, base.op_costs):
+        want = b.latency_cycles / prof.efficiency_for(op_class(wl.nodes[a.name]))
+        check(abs(a.latency_cycles - want) <= 1e-12 * abs(want),
+              f"{label}: {a.name} latency {a.latency_cycles} != {want}")
+
+
+def cost_phase(samples: list, served: list) -> None:
+    """Fit the card's profile, then cost each served model (see the
+    module docstring, phase 7).  Runs on the host."""
+    from repro_torch.calibrate.fit import fit_profile
+    from repro_torch.core.costmodel import compare, dense_baseline, simulate
+    from repro_torch.core.mapping import default_mapping
+    from repro_torch.core.presets import usecase_arch
+    from repro_torch.core.workload import lm_workload
+    from repro_torch.sparsity.apply import cim_cost_of_model
+
+    t0 = time.perf_counter()
+    card = card_line()
+    name = "".join(c if c.isalnum() else "-" for c in torch.cuda.get_device_name(0).lower())
+    prof = fit_profile(samples, name=f"{name}-microbench",
+                       provenance={"source": "chip_smoke.py microbench_kernels", "card": card})
+    path = prof.save_addressed(HERE / "build" / "profiles")
+    res = prof.residuals
+    check("ici_bw" not in prof.provenance["identified"], "ici_bw identified from one card")
+    print(f"[cost] profile fitted from {int(res['n_samples'])} microbench samples "
+          f"({prof.provenance['solver']} solver), saved as {path.relative_to(HERE)}: "
+          f"peak_flops {prof.peak_flops!r} FLOP/s, hbm_bw {prof.hbm_bw!r} B/s, efficiency "
+          f"{json.dumps(prof.efficiency)}, rel_rmse {res['rel_rmse']!r}, rel_max_abs "
+          f"{res['rel_max_abs']!r} [{card}]", flush=True)
+    print(f"[cost] profile: ici_bw not identified (prior kept); the samples are the f32, hd-64 "
+          f"variants microbench_kernels draws, not the bf16 variants the served paths run; "
+          f"op classes the cost model prices: matmul and attention (intrablock has no op of "
+          f"its own there, post_proc rides at 1.0)", flush=True)
+
+    arch = usecase_arch(4, input_sparsity=True)
+    check(arch.macro.sub_rows == GROUP_ROWS,
+          f"the arch broadcasts to {arch.macro.sub_rows} rows, the profile grouped {GROUP_ROWS}")
+    mapping = default_mapping(arch, "duplicate")
+    for model in served:
+        cfg, spec = model["cfg"], model["spec"]
+        for key in KEYS:
+            got, want = model["density"][f"layers/{key}"], spec.overall_density(model["shapes"][key])
+            check(math.isclose(got, want, rel_tol=1e-12, abs_tol=0.0),
+                  f"{cfg.name} {key}: mask density {got}, spec {want}")
+        print(f"[cost] {cfg.name}: the card's mask density of each pruned key equals "
+              f"{spec.describe()}'s overall_density of its per-layer matrix: "
+              + json.dumps({k: [model["density"][f"layers/{k}"], list(model["shapes"][k])]
+                            for k in KEYS}), flush=True)
+        wl = lm_workload(cfg, seq_len=COST_SEQ, batch=1).set_sparsity(spec)
+        label = f"{cfg.name} {spec.describe()} on {arch.name}, seq_len {COST_SEQ}"
+        rep_a, cmp_a = cim_cost_of_model(cfg, arch, spec, seq_len=COST_SEQ)
+        check_report(f"{label} (a)", rep_a)
+        report_line(f"{label} (a) no input sparsity", rep_a, cmp_a, card)
+        base, ratios = rep_a, None
+        if "ratios" in model:
+            ratios = measured_sparsity(cfg, model["ratios"])
+            print(f"[cost] {cfg.name}: measured skippable-bit ratios by op (mean over "
+                  f"{cfg.n_layers} layers): {json.dumps(ratios)}; no measured ratio: "
+                  f"{[n for n in wl.nodes if n not in ratios]}", flush=True)
+            rep_b, cmp_b = cim_cost_of_model(cfg, arch, spec, seq_len=COST_SEQ,
+                                             input_sparsity=ratios)
+            check_report(f"{label} (b)", rep_b)
+            report_line(f"{label} (b) measured ratios", rep_b, cmp_b, card)
+            check(rep_b.latency_cycles <= rep_a.latency_cycles,
+                  f"{label}: measured skips added cycles")
+            unit = dataclasses.replace(prof, efficiency=dict.fromkeys(prof.efficiency, 1.0))
+            check(simulate(arch, wl, mapping, input_sparsity=ratios, profile=unit).to_dict()
+                  == rep_b.to_dict(), f"{label}: a unit-efficiency profile changed (b)")
+            base = rep_b
+        rep_c = simulate(arch, wl, mapping, input_sparsity=ratios, profile=prof)
+        dense_c = dense_baseline(arch, wl, mapping, profile=prof)
+        check_report(f"{label} (c)", rep_c)
+        check_report(f"{label} (c) dense baseline", dense_c)
+        check_scaled(f"{label} (c)", rep_c, base, wl, prof)
+        report_line(f"{label} (c) {'measured ratios + ' if ratios else ''}fitted profile",
+                    rep_c, compare(rep_c, dense_c), card)
+    print(f"[time] cost phase {time.perf_counter() - t0:.2f}s", flush=True)
 
 
 # what the kernels line gives of each further variant of a kernel
@@ -1122,17 +1282,18 @@ def main() -> int:
         rows = kernel_phase()
         print(f"[time] kernels phase {time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
-        main_path(get_config("llama3-8b"), rows)
+        llama = main_path(get_config("llama3-8b"), rows)
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[time] llama3-8b path {time.perf_counter() - t0:.1f}s; device memory after "
               f"freeing it {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
         t0 = time.perf_counter()
-        intrablock_path(get_config("qwen3-4b"), rows)
+        qwen = intrablock_path(get_config("qwen3-4b"), rows)
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[time] qwen3-4b path {time.perf_counter() - t0:.1f}s", flush=True)
-        microbench_phase()
+        samples = microbench_phase()
+        cost_phase(samples, [qwen, llama])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1153,9 +1314,7 @@ def main() -> int:
                            if "variants" in r else {}),
                         **ratios(r)})
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
-"""FlexBlock sparsity specs (copy of the spec classes of
-``repro.core.flexblock``, paper §III).
+"""FlexBlock sparsity abstraction (copy of ``repro.core.flexblock``,
+paper §III): the specs that pruning and the cost model both take.
 
 * :class:`FullBlock` — entire ``m×n`` blocks are zeroed (Def. III.2).
 * :class:`IntraBlock` — within each ``m×1`` block, ``phi`` elements
@@ -15,7 +15,21 @@ import itertools
 import math
 from typing import Optional, Tuple
 
-__all__ = ["FullBlock", "IntraBlock", "FlexBlockSpec"]
+import numpy as np
+
+__all__ = [
+    "FullBlock",
+    "IntraBlock",
+    "FlexBlockSpec",
+    "dense_spec",
+    "row_wise",
+    "row_block",
+    "column_wise",
+    "channel_wise",
+    "column_block",
+    "hybrid",
+    "TABLE_II_PATTERNS",
+]
 
 
 def _check_block_dims(m: int, n: int) -> None:
@@ -123,6 +137,11 @@ class IntraBlock:
     def patterns(self) -> Tuple[Tuple[int, ...], ...]:
         return self.pattern_set if self.pattern_set is not None else self.default_patterns()
 
+    def patterns_array(self) -> np.ndarray:
+        """Pattern set as a dense (P, m, n) uint8 array."""
+        pats = self.patterns()
+        return np.asarray(pats, dtype=np.uint8).reshape(len(pats), self.m, self.n)
+
 
 @dataclasses.dataclass(frozen=True)
 class FlexBlockSpec:
@@ -201,3 +220,139 @@ class FlexBlockSpec:
             tag = "Intra" if p.kind == "intra" else "Full"
             parts.append(f"{tag}({p.m},{p.n})@{p.ratio:g}")
         return " + ".join(parts)
+
+    # -- index storage overhead (Eq. 8) -------------------------------------
+    def index_storage_bits(
+        self, shape: Tuple[int, int], *, block_index_bits: Optional[int] = None,
+        elem_index_bits: Optional[int] = None,
+    ) -> int:
+        """S_idx = N_nz_blocks × S_block + Σ_i N_nz(B_i) × S_elem  (Eq. 8).
+
+        Block indices are stored in the finest-grained pattern; element
+        indices only for IntraBlock blocks.
+        """
+        M, N = shape
+        full, intra = self.full, self.intra
+        if self.is_dense:
+            return 0
+        if full is not None:
+            f = full.bind(shape)
+            gm, gn = f.grid(shape)
+            n_blocks_total = gm * gn
+            n_nz_blocks = f.nonzero_blocks(shape)
+            per_block_elems = f.m * f.n
+        else:
+            # IntraBlock only: every block is "non-zero" at the block level.
+            gm, gn = math.ceil(M / intra.m), math.ceil(N / intra.n)
+            n_blocks_total = gm * gn
+            n_nz_blocks = n_blocks_total
+            per_block_elems = intra.m * intra.n
+        s_block = (
+            block_index_bits
+            if block_index_bits is not None
+            else max(1, math.ceil(math.log2(max(2, n_blocks_total))))
+        )
+        bits = n_nz_blocks * s_block
+        if intra is not None:
+            # element index addresses a position inside the intra block
+            s_elem = (
+                elem_index_bits
+                if elem_index_bits is not None
+                else max(1, math.ceil(math.log2(max(2, intra.m * intra.n))))
+            )
+            if full is not None:
+                n_intra_blocks = n_nz_blocks * (per_block_elems // (intra.m * intra.n))
+            else:
+                n_intra_blocks = n_nz_blocks
+            bits += n_intra_blocks * intra.phi * s_elem
+        return int(bits)
+
+
+# ---------------------------------------------------------------------------
+# Named constructors for the paper's Table II patterns.
+# ---------------------------------------------------------------------------
+
+def dense_spec() -> FlexBlockSpec:
+    return FlexBlockSpec((), name="dense")
+
+
+def row_wise(ratio: float) -> FlexBlockSpec:
+    """Row-wise: FullBlock(1, N)."""
+    return FlexBlockSpec((FullBlock(1, -1, ratio),), name="row-wise")
+
+
+def row_block(ratio: float, width: int = 16) -> FlexBlockSpec:
+    """Row-block: FullBlock(1, width) (Table II uses width=16)."""
+    return FlexBlockSpec((FullBlock(1, width, ratio),), name=f"row-block{width}")
+
+
+def column_wise(ratio: float) -> FlexBlockSpec:
+    """Column (filter)-wise: FullBlock(M, 1)."""
+    return FlexBlockSpec((FullBlock(-1, 1, ratio),), name="column-wise")
+
+
+def channel_wise(ratio: float, c_in: int) -> FlexBlockSpec:
+    """Channel-wise: FullBlock(C_in, 1) on a channel-innermost flattening."""
+    return FlexBlockSpec((FullBlock(c_in, 1, ratio),), name="channel-wise")
+
+
+def column_block(ratio: float, height: int = 16) -> FlexBlockSpec:
+    """Column-block: FullBlock(height, 1) (Table II uses height=16)."""
+    return FlexBlockSpec((FullBlock(height, 1, ratio),), name=f"column-block{height}")
+
+
+def hybrid(
+    intra_m: int,
+    full_n: int,
+    overall_ratio: float,
+    *,
+    full_m: Optional[int] = None,
+) -> FlexBlockSpec:
+    """Hybrid N:M + FullBlock pattern, e.g. ``1:2 + row-block`` =
+    IntraBlock(2,1)@0.5 + FullBlock(2,16)@r_fb.
+
+    The IntraBlock ratio is fixed so exactly one element per column block
+    survives (φ=1, §VII-A); the FullBlock ratio is derived to hit
+    ``overall_ratio``:  (1-r_overall) = (1/m)·(1-r_fb).
+    """
+    intra_ratio = (intra_m - 1) / intra_m  # keep exactly one of m
+    intra_density = 1.0 / intra_m
+    target_density = 1.0 - overall_ratio
+    fb_density = target_density / intra_density
+    if not (0.0 < fb_density < 1.0):
+        raise ValueError(
+            f"overall ratio {overall_ratio} unreachable with 1:{intra_m} intra "
+            f"(intra alone gives density {intra_density})"
+        )
+    fb_ratio = 1.0 - fb_density
+    fm = intra_m if full_m is None else full_m
+    name = f"1:{intra_m}+" + ("row-wise" if full_n == -1 else f"row-block{full_n}")
+    return FlexBlockSpec(
+        (IntraBlock(intra_m, 1, intra_ratio), FullBlock(fm, full_n, fb_ratio)),
+        name=name,
+    )
+
+
+def TABLE_II_PATTERNS(ratio: float, *, M: int = 0, N: int = 0, c_in: int = 16):
+    """The eight patterns of Table II at a given overall sparsity ratio."""
+    pats = {
+        "row-wise": row_wise(ratio),
+        "row-block": row_block(ratio, 16),
+        "column-wise": column_wise(ratio),
+        "channel-wise": channel_wise(ratio, c_in),
+        "column-block": column_block(ratio, 16),
+    }
+    # Hybrids only exist where overall ratio exceeds the intra-only ratio.
+    try:
+        pats["1:2+row-block"] = hybrid(2, 16, ratio)
+    except ValueError:
+        pass
+    try:
+        pats["1:2+row-wise"] = hybrid(2, -1, ratio)
+    except ValueError:
+        pass
+    try:
+        pats["1:4+row-block"] = hybrid(4, 16, ratio)
+    except ValueError:
+        pass
+    return pats

@@ -188,27 +188,43 @@ def compress_intrablock_torch(w: torch.Tensor, mask: torch.Tensor,
 # Dispatch wrappers
 # ---------------------------------------------------------------------------
 
+def _check_tiles(**tiles: int) -> None:
+    """The reference's tile arguments only pad B, N or V, so the result
+    does not depend on them; here they are checked and otherwise unused
+    (:mod:`.plans` picks the launch)."""
+    for name, v in tiles.items():
+        if not isinstance(v, int) or isinstance(v, bool) or v <= 0:
+            raise ValueError(f"{name} must be a positive int, got {v!r}")
+
+
 def block_sparse_matmul(x: torch.Tensor, w_comp: torch.Tensor, idx: torch.Tensor, *,
-                        impl: str = "auto") -> torch.Tensor:
-    """(B, K) @ FullBlock-compressed weight (Gn, L, bm, bn) → (B, Gn*bn)."""
+                        impl: str = "auto", tile_b: int = 128) -> torch.Tensor:
+    """(B, K) @ FullBlock-compressed weight (Gn, L, bm, bn) → (B, Gn*bn).
+    ``tile_b`` is the reference's; see :func:`_check_tiles`."""
+    _check_tiles(tile_b=tile_b)
     if _resolve(impl, x) == "ref":
         return _ref.block_sparse_matmul_ref(x, w_comp, idx)
     return _bsm.block_sparse_matmul_cuda(x, w_comp, idx)
 
 
 def intrablock_gather_matmul(x: torch.Tensor, w_comp: torch.Tensor, row_idx: torch.Tensor, *,
-                             impl: str = "auto", check_range: bool = True) -> torch.Tensor:
+                             impl: str = "auto", tile_b: int = 128, tile_n: int = 128,
+                             check_range: bool = True) -> torch.Tensor:
     """``x[:, row_idx] @ w_comp``: x (B, K), w_comp (Kc, N), row_idx (Kc,)
     int32 → (B, N).  ``check_range`` as in
-    :func:`~repro_torch.kernels.intrablock_matmul.intrablock_gather_matmul_cuda`."""
+    :func:`~repro_torch.kernels.intrablock_matmul.intrablock_gather_matmul_cuda`;
+    ``tile_b`` / ``tile_n`` are the reference's (see :func:`_check_tiles`)."""
+    _check_tiles(tile_b=tile_b, tile_n=tile_n)
     if _resolve(impl, x) == "ref":
         return _ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
     return _igm.intrablock_gather_matmul_cuda(x, w_comp, row_idx, check_range=check_range)
 
 
 def bitserial_zero_profile(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
-                           impl: str = "auto") -> torch.Tensor:
-    """int32 ``[skippable, total]`` zero-plane slots of int8 q (V, K)."""
+                           impl: str = "auto", tile_v: int = 128) -> torch.Tensor:
+    """int32 ``[skippable, total]`` zero-plane slots of int8 q (V, K).
+    ``tile_v`` is the reference's; see :func:`_check_tiles`."""
+    _check_tiles(tile_v=tile_v)
     if _resolve(impl, q) == "ref":
         return _ref.bitserial_zero_profile_ref(q, group_rows, n_bits)
     return _bsp.bitserial_zero_profile_cuda(q, group_rows, n_bits)

@@ -12,6 +12,11 @@
   for row-aligned IntraBlock masks, an
   :class:`~repro_torch.models.layers.IntraBlockLinear` in the
   ``compress_intrablock`` layout (``intrablock_gather_matmul`` op).
+  A masked weight that is no input-major projection (``wo``, which the
+  reference prunes as (Hq, hd·d)) stays the masked dense weight.
+* ``cim_cost_of_model`` — lower the arch to a CIMinus workload and cost
+  it on a CIM architecture (the reference's modeling-plane round trip,
+  host-side numpy).
 """
 from __future__ import annotations
 
@@ -20,12 +25,17 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from .. import resolve_device
+from ..configs.base import ArchConfig
+from ..core.costmodel import compare, dense_baseline, simulate
 from ..core.flexblock import FlexBlockSpec
+from ..core.mapping import default_mapping
 from ..core.pruning import flexblock_mask
+from ..core.workload import lm_workload
 from ..kernels.ops import compress_fullblock_torch, compress_intrablock_torch
 from ..models.layers import BlockSparseLinear, IntraBlockLinear
 
-__all__ = ["PRUNABLE_KEYS", "prune_params", "sparsity_report", "compress_params"]
+__all__ = ["PRUNABLE_KEYS", "prune_params", "sparsity_report", "compress_params",
+           "cim_cost_of_model"]
 
 PRUNABLE_KEYS = ("w_gate", "w_up", "w_down", "w_in", "w_out",
                  "wq", "wk", "wv", "wo")
@@ -102,6 +112,10 @@ def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: Optional[
     * IntraBlock: each layer's mask must be row-aligned with the same
       survivor count in every m-row block, as ``compress_intrablock``
       requires; the layers of one key must keep the same row count Kc.
+    * ``wo``, and any other masked weight that is no (L, K, ...)
+      input-major projection, has no compressed layout: it stays the
+      masked dense weight ``prune_params`` stored, which is what the
+      reference runs.
 
     The returned dict holds no reference to the dense projections it
     replaced, so once the caller drops the input params those weights are
@@ -115,7 +129,7 @@ def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: Optional[
             continue
         w = params["layers"][name]
         if name == "wo" or w.dim() not in (3, 4):
-            raise ValueError(f"{name}: only (L, K, ...) input-major projections compress")
+            continue
         L, K = w.shape[0], w.shape[1]
         mats = w.reshape(L, K, -1)
         masks_l = mask.reshape(L, K, -1)
@@ -153,3 +167,22 @@ def _compress_intra(name, mats, mask, m, out_shape) -> IntraBlockLinear:
         raise ValueError(f"{name}: layers keep different row counts "
                          f"{sorted({c.shape[0] for c in comps})}")
     return IntraBlockLinear(torch.stack(comps), torch.stack(idxs), K, out_shape)
+
+
+def cim_cost_of_model(
+    cfg: ArchConfig,
+    cim_arch,
+    spec: FlexBlockSpec,
+    *,
+    seq_len: int = 128,
+    batch: int = 1,
+    mapping_strategy: str = "duplicate",
+    input_sparsity: Optional[Dict[str, float]] = None,
+):
+    """Modeling-plane round trip: arch → MVM DAG → CIMinus cost report
+    (sparse vs dense baseline)."""
+    wl = lm_workload(cfg, seq_len=seq_len, batch=batch).set_sparsity(spec)
+    mapping = default_mapping(cim_arch, mapping_strategy)
+    rep = simulate(cim_arch, wl, mapping, input_sparsity=input_sparsity)
+    dense = dense_baseline(cim_arch, wl, mapping)
+    return rep, compare(rep, dense)

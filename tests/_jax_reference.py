@@ -35,6 +35,13 @@ MODULES = {
     "input_sparsity": "repro.core.input_sparsity",
     "harvest": "repro.calibrate.harvest",
     "fit": "repro.calibrate.fit",
+    "costmodel": "repro.core.costmodel",
+    "workload": "repro.core.workload",
+    "mapping": "repro.core.mapping",
+    "presets": "repro.core.presets",
+    "hardware": "repro.core.hardware",
+    "profile": "repro.calibrate.profile",
+    "core": "repro.core",
 }
 
 

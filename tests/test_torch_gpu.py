@@ -19,6 +19,7 @@ from repro_torch.core.input_sparsity import profile_activations
 from repro_torch.core.pruning import intrablock_mask
 from repro_torch.kernels import ops, plans, ref
 from repro_torch.models import transformer as TT
+from repro_torch.models.layers import BlockSparseLinear, IntraBlockLinear
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.sparsity.apply import compress_params, prune_params
 
@@ -459,3 +460,36 @@ def test_intrablock_model_kernel_path_matches_plain_path(gen):
     assert ops.launch_counts()["bitserial_zero_profile"] == len(acts)
     assert ops.variant_counts()["bitserial_zero_profile"] == {"strip": 0, "fused": len(acts),
                                                               "general": 0}
+
+
+@pytest.mark.parametrize("kind", ["IntraBlock", "FullBlock"])
+def test_default_key_prune_runs_wo_masked_dense_and_the_six_through_kernels(gen, kind):
+    """Every prunable key, wo included, on the card: compress_params keeps
+    wo the masked dense weight and runs the six input-major projections
+    through their kernel, one launch per projection and layer of a
+    prefill; the logits stay within 0.1 of the masked-dense plain path."""
+    arch = "qwen3-4b" if kind == "IntraBlock" else "llama3-8b"
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_model=256, head_dim=64,
+                              n_heads=16, n_kv_heads=4, d_ff=512)
+    params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    if kind == "IntraBlock":
+        spec, op, lin = FlexBlockSpec((IntraBlock(4, 1, 0.5),)), "intrablock_gather_matmul", \
+            IntraBlockLinear
+        pp, masks = prune_params(params, spec, align_cols=True)
+        cp = compress_params(pp, masks, m=4)
+    else:
+        # wo collapses to (Hq, hd * d) = (16, 16384): the block is at most Hq rows
+        spec, op, lin = FlexBlockSpec((FullBlock(16, 64, 0.5),)), "block_sparse_matmul", \
+            BlockSparseLinear
+        pp, masks = prune_params(params, spec)
+        cp = compress_params(pp, masks, 16, 64)
+    six = ("wq", "wk", "wv", "w_gate", "w_up", "w_down")
+    assert masks["layers"]["wo"] is not None and not bool(masks["layers"]["wo"].all())
+    assert cp["layers"]["wo"] is pp["layers"]["wo"] and cp["layers"]["wo"].is_cuda
+    assert all(isinstance(cp["layers"][k], lin) for k in six)
+    toks = torch.randint(0, cfg.vocab_size, (1, 40), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    la = TT.forward(cp, toks, cfg)
+    assert ops.launch_counts()[op] == len(six) * cfg.n_layers
+    lr = TT.forward(pp, toks, cfg, impl="ref")
+    assert (la.float() - lr.float()).abs().max().item() < 0.1

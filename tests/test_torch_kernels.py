@@ -346,6 +346,48 @@ def test_kernel_path_keeps_reference_errors():
         ops.block_importance(torch.randn(32, 32), 16, 16, "l3")
 
 
+def _tile_case(R, op):
+    """(positional args for the port, for the reference, tile keywords to
+    try) of one wrapper whose reference takes tile arguments."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(7, 64)).astype(np.float32)
+    if op == "bitserial_zero_profile":
+        q = rng.integers(-40, 40, size=(37, 70)).astype(np.int8)
+        return ((torch.from_numpy(q), 32), (jnp.asarray(q), 32),
+                [{"tile_v": v} for v in (1, 5, 128, 1000)])
+    w = rng.normal(size=(64, 48)).astype(np.float32)
+    if op == "block_sparse_matmul":
+        keep = rng.random((4, 3)) < 0.5
+        keep[0] = True
+        wc, idx = R.ops.compress_fullblock(w, keep, 16, 16)
+        return ((torch.from_numpy(x), torch.from_numpy(wc), torch.from_numpy(idx)),
+                (jnp.asarray(x), jnp.asarray(wc), jnp.asarray(idx)),
+                [{"tile_b": v} for v in (1, 3, 128, 1000)])
+    mask = R.pruning.intrablock_mask(w, R.flexblock.IntraBlock(4, 1, 0.5), align_cols=True)
+    wc, ridx = R.ops.compress_intrablock(w, mask, 4)
+    return ((torch.from_numpy(x), torch.from_numpy(wc), torch.from_numpy(ridx)),
+            (jnp.asarray(x), jnp.asarray(wc), jnp.asarray(ridx)),
+            [{"tile_b": b, "tile_n": n} for b, n in ((1, 1), (3, 5), (128, 128), (1000, 7))])
+
+
+@pytest.mark.parametrize("op", ["block_sparse_matmul", "intrablock_gather_matmul",
+                                "bitserial_zero_profile"])
+def test_wrappers_take_the_reference_tile_keywords(R, op):
+    """A call written for ``repro.kernels.ops`` runs in the port; the tile
+    arguments only pad in the reference, so no result depends on them."""
+    ours_args, theirs_args, tiles = _tile_case(R, op)
+    want = np.asarray(getattr(R.ops, op)(*theirs_args, impl="ref"))
+    first = getattr(ops, op)(*ours_args, impl="auto", **tiles[0])
+    for kw in tiles:
+        got = getattr(ops, op)(*ours_args, impl="auto", **kw)
+        assert torch.equal(got, first), kw
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    for bad in (0, -128, 2.0, True):
+        for name in tiles[0]:
+            with pytest.raises(ValueError, match="positive int"):
+                getattr(ops, op)(*ours_args, impl="auto", **{name: bad})
+
+
 # ---------------------------------------------------------------------------
 # Import boundary and the reference loader
 # ---------------------------------------------------------------------------

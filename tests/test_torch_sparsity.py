@@ -110,9 +110,48 @@ def test_compress_rejects_non_block_masks(model):
     mask[0, 0, 0, 0] = False
     with pytest.raises(ValueError, match="whole"):
         TA.compress_params(pt, {"layers": {"wq": mask}}, 16, 16)
-    with pytest.raises(ValueError, match="input-major"):
-        TA.compress_params(pt, {"layers": {"wo": torch.ones_like(pt["layers"]["wo"],
-                                                                  dtype=torch.bool)}}, 16, 16)
+    # wo has no compressed layout: its masked weight stays dense, as the
+    # reference runs it, whatever the mask
+    wo_mask = torch.ones_like(pt["layers"]["wo"], dtype=torch.bool)
+    wo_mask[0, 0, 0, 0] = False
+    for args, kw in (((16, 16), {}), ((), {"m": 4})):
+        out = TA.compress_params(pt, {"layers": {"wo": wo_mask}}, *args, **kw)
+        assert out["layers"]["wo"] is pt["layers"]["wo"]
+
+
+@pytest.mark.parametrize("arch,spec_args", [
+    ("qwen3-4b", ("IntraBlock", (4, 1, 0.5))),
+    ("llama3-8b", ("FullBlock", (4, 16, 0.5))),
+], ids=["qwen3-4b-intra", "llama3-8b-full"])
+def test_default_key_prune_compresses_and_matches_reference(R, arch, spec_args):
+    """Every key of PRUNABLE_KEYS, wo included: the port compresses the six
+    input-major projections, keeps wo masked-dense, and its forward equals
+    the reference's masked forward."""
+    kind, args = spec_args
+    jcfg = R.configs.get_config(arch).reduced()
+    cfg = ArchConfig(**dataclasses.asdict(jcfg))
+    pj = R.transformer.init_params(jcfg, jax.random.PRNGKey(3), dtype=jnp.float32)
+    pt = params_from_jax(jax.tree.map(np.asarray, pj), "cpu")
+    intra = kind == "IntraBlock"
+    ppj, mj = R.apply.prune_params(
+        pj, R.flexblock.FlexBlockSpec((getattr(R.flexblock, kind)(*args),)), align_cols=intra)
+    ppt, mt = TA.prune_params(pt, FlexBlockSpec(({"IntraBlock": IntraBlock,
+                                                  "FullBlock": FullBlock}[kind](*args),)),
+                              align_cols=intra, device="cpu")
+    pruned = {k for k, m in mt["layers"].items() if m is not None}
+    assert pruned == set(KEYS) | {"wo"}
+    for key in pruned:
+        np.testing.assert_array_equal(mt["layers"][key].numpy(),
+                                      np.asarray(mj["layers"][key]).astype(bool))
+    assert 0 < float(mt["layers"]["wo"].float().mean()) < 1
+    cp = TA.compress_params(ppt, mt, m=args[0]) if intra else TA.compress_params(ppt, mt, 4, 16)
+    assert cp["layers"]["wo"] is ppt["layers"]["wo"]
+    for key in KEYS:
+        assert isinstance(cp["layers"][key], IntraBlockLinear if intra else BlockSparseLinear)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+    lc = TT.forward(cp, torch.from_numpy(toks).long(), cfg)
+    np.testing.assert_allclose(lc.numpy(), np.asarray(R.transformer.forward(
+        ppj, jnp.asarray(toks), jcfg)), atol=2e-4, rtol=0)
 
 
 def test_wo_with_large_blocks_is_rejected_as_in_reference(R, model):
