@@ -10,10 +10,11 @@ Phases, each reported on its own line(s):
 2. kernels  — hold each kernel against its plain PyTorch version at the
    shapes of the main paths, in bf16 and f32 (int8 for the bit-serial
    profile), and time kernel, plain version and the nearest single
-   PyTorch call.  Every row names the variant that ran and is timed from
-   CUDA graphs (card time alone), with the eager times beside them (what
-   back-to-back calls from Python cost, host included); each
-   row gives ``share_of_bound`` (bound / ms) and ``x_library`` (ms /
+   PyTorch call; flash attention also at gemma-7b's prefill shape (head
+   dim 256: the general variant).  Every row names the variant that ran
+   and is timed from CUDA graphs (card time alone), with the eager times
+   beside them (what back-to-back calls from Python cost, host included);
+   each row gives ``share_of_bound`` (bound / ms) and ``x_library`` (ms /
    library ms).  The bf16 matmul rows add the card time of the same
    variant at cluster sizes 1, 2, 4 and 8 beside the plan's, the flash
    wgmma rows (S = 512 and 2048) the card time at every lever setting
@@ -41,33 +42,54 @@ Phases, each reported on its own line(s):
    host sync for the whole profile; the fused kernel against
    quantize_int8 + the plain count, and the int8 kernel against the plain
    count, in every (layer, kind);
-6. microbench — ``microbench_kernels`` on the card, its samples written
+6. gemma-7b IntraBlock path: free the qwen3-4b weights, init gemma-7b
+   at full width (28 layers, d_model 3072, 16 heads of 256, MHA, vocab
+   256000 tied), prune the six projections with row-aligned
+   IntraBlock(4, 1, 0.5), compress, serve the same 8 requests and run the
+   same parity phase; its prefill attention runs flash's general variant
+   (head dim 256), whose card time per prefill is printed;
+7. gemma2-9b FullBlock path: free the gemma-7b weights, init gemma2-9b at
+   full width (42 layers alternating local (window 4096) and global
+   attention, attention softcap 50, final-logit softcap 30, post-norms),
+   prune with FullBlock(128, 128, 0.5), compress, serve the 8 requests
+   with the first prompt replaced by one of 4600 tokens through
+   ``ServeEngine(slots=4, max_len=5120)`` (its local layers drop keys in
+   prefill and in every decode step), run the parity phase, then the
+   window check: layer 0 (local) on the long prompt through
+   ``chunked_attention`` with window 4096 must equal the same call with no
+   window bit for bit on the rows before position 4096, and differ on
+   every row after it.  Its prefill takes no flash launch: the softcap is
+   outside the flash kernel's contract;
+8. microbench — ``microbench_kernels`` on the card, its samples written
    as JSONL under ``build/`` and read back;
-7. cost     — on the host, from what the card produced in this run: a
+9. cost     — on the host, from what the card produced in this run: a
    calibration profile fitted to the microbench samples (saved under
    ``build/profiles/``), the profile's 108 skippable-bit ratios mapped
-   onto ``lm_workload``'s op names, and CIMinus cost reports of the two
+   onto ``lm_workload``'s op names, and CIMinus cost reports of the four
    served models with the FlexBlock specs they were pruned with, on
    ``usecase_arch(4, input_sparsity=True)`` at 512 tokens: qwen3-4b (a)
    without input sparsity, (b) with the measured ratios, (c) with the
-   ratios and the fitted profile; llama3-8b (a) and (c).  Each report must
-   be finite and round-trip through JSON, (b) may not be slower than (a),
-   a profile with unit efficiencies must give (b) bit for bit, (c) must be
-   (b) with each op's latency divided by its class's efficiency, and the
-   density of every mask the card produced must be the spec's;
-8. the ``{"kernels": [...]}`` line; 9. the card's name and power limit.
+   ratios and the fitted profile; llama3-8b, gemma-7b and gemma2-9b (a)
+   and (c).  Each report must be finite and round-trip through JSON, (b)
+   may not be slower than (a), a profile with unit efficiencies must give
+   (b) bit for bit, (c) must be (b) (or (a)) with each op's latency
+   divided by its class's efficiency, and the density of every mask the
+   card produced must be the spec's;
+10. the ``{"kernels": [...]}`` line; 11. the card's name and power limit.
 
 The launch counts are set to 0 just before each path and read just
-after it: the three FullBlock-path kernels from prune to the end of
-llama3-8b serving, ``intrablock_gather_matmul`` from prune to the end of
-qwen3-4b serving, ``bitserial_zero_profile`` over the profile call.
+after it: on each served path from prune to the end of serving (every
+kernel's count is kept per path), ``bitserial_zero_profile`` over the
+profile call.
 After each served path its compressed projections must have run only
 through the ``decode`` and ``prefill`` variants, one launch per
 projection, layer and decode step or prompt, none through ``general``;
 its prefill attention only through the flash ``wgmma`` variant (one
-launch per layer and prompt), and the llama3-8b prune only through the
-block-importance ``strip`` variant (one launch per projection and layer),
-and the profile only through the bit-serial ``fused`` variant.
+launch per layer and prompt; gemma-7b: ``general``, head dim 256;
+gemma2-9b: no flash launch at all), the llama3-8b and gemma2-9b prunes
+only through the block-importance ``strip`` variant (one launch per
+projection and layer), and the profile only through the bit-serial
+``fused`` variant.
 Any failed check exits nonzero.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
@@ -274,9 +296,12 @@ def kernel_phase() -> dict:
     # -- flash attention: prefill self-attention ------------------------------
     # (B, S, Hq, Hkv, hd, window): llama3-8b prefill of the longest prompt
     # (512 tokens) and the same heads at S = 2048, where the tensor cores
-    # bound it; head dims 64/256 and a window for coverage (general variant).
+    # bound it; gemma-7b's prefill of the longest prompt (16 heads of 256,
+    # MHA: the general variant); head dims 64/256 and a window for coverage.
     fa_cases = [(1, 512, 32, 8, 128, None), (1, 2048, 32, 8, 128, None),
-                (1, 256, 8, 2, 64, 64), (1, 256, 8, 2, 256, None)]
+                (1, 512, 16, 16, 256, None), (1, 256, 8, 2, 64, 64),
+                (1, 256, 8, 2, 256, None)]
+    fa_variants = {}
     tol = {torch.bfloat16: 3e-2, torch.float32: 3e-5}
     for (B, S, Hq, Hkv, hd, window) in fa_cases:
         G = Hq // Hkv
@@ -321,11 +346,16 @@ def kernel_phase() -> dict:
                 line["levers"] = f"{p.rows}/{p.keys}/{p.pack}"
                 line["ms_by_levers"] = flash_sweep(sets, window)
             report(name, line)
-            if S == 512 and dt == torch.bfloat16:
+            if (S, hd, dt) == (512, 128, torch.bfloat16):
                 rows["flash_attention"] = dict(
                     line, shape=f"q ({B},{S},{Hq},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal",
                     library="F.scaled_dot_product_attention (kv heads repeated)")
+            if (S, Hq, hd, dt) == (512, 16, 256, torch.bfloat16):
+                check(variant == "general", f"{name}: ran the {variant} variant")
+                fa_variants["general"] = dict(
+                    line, shape=f"q/k/v ({B},{S},{Hq},{hd}) bf16 causal (gemma-7b prefill)")
             del sets, lib_sets, q, k, v, out, plain
+    rows["flash_attention"]["variants"] = fa_variants
 
     # -- block-sparse matmul: the six pruned projections ---------------------
     # (K, N) of llama3-8b's projections at 50% FullBlock(128,128) density,
@@ -630,7 +660,7 @@ def kernel_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 3-5: the main path at full width
+# Phases 3-7: the served paths at full width
 # ---------------------------------------------------------------------------
 
 def matrix_shapes(params) -> dict:
@@ -639,28 +669,14 @@ def matrix_shapes(params) -> dict:
             for k in KEYS}
 
 
-def main_path(cfg, rows: dict) -> dict:
-    """Prune, compress, serve and check llama3-8b; returns what the cost
-    phase needs of it (config, spec, the masks' densities, matrix shapes)."""
-    from repro_torch.core.flexblock import FlexBlockSpec, FullBlock
+def block_loss_check(cfg, params) -> None:
+    """Kernel Eq. 1 block losses against plain losses, and the masks each
+    would give.  A block whose kept/dropped state differs sits at the keep
+    threshold: its gap is |plain loss - threshold| / threshold, the
+    threshold being the n_keep-th largest plain loss of its matrix."""
+    from repro_torch.core.flexblock import FullBlock
     from repro_torch.core.pruning import block_losses, keep_from_losses
-    from repro_torch.kernels import ops
-    from repro_torch.models.transformer import init_params
-    from repro_torch.sparsity.apply import compress_params, prune_params, sparsity_report
 
-    spec = FlexBlockSpec((FullBlock(BLOCK, BLOCK, 0.5),))
-    t0 = time.perf_counter()
-    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
-    shapes = matrix_shapes(params)
-    print(f"[prune] init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{sum(t.numel() for t in params['layers'].values()) / 1e9:.3f} G layer params "
-          f"in {time.perf_counter() - t0:.1f}s", flush=True)
-
-    # Kernel losses against plain losses, and the masks each would give.
-    # A block whose kept/dropped state differs sits at the keep threshold:
-    # its gap is |plain loss - threshold| / threshold, the threshold being
-    # the n_keep-th largest plain loss of its matrix.
     worst, flipped, n_blocks, gap = 0.0, 0, 0, 0.0
     for key in KEYS:
         w = params["layers"][key]
@@ -682,35 +698,123 @@ def main_path(cfg, rows: dict) -> dict:
     check(gap <= 2 * worst, f"a mask block differs {gap} from the threshold, beyond rounding")
     check(worst <= 1e-5, f"block losses differ: {worst} > 1e-5")
 
-    # ---- the main path: counts from here to the end of serving --------------
+
+def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 1024,
+                long_prompt=None) -> dict:
+    """Init ``cfg`` at full width (random bf16 weights from SEED), run
+    ``pre_check(cfg, params)`` if given, then drive the path with the launch
+    counts set to 0 just before it: prune the six projections with
+    ``spec`` (IntraBlock row-aligned), compress, serve the 8 requests
+    (:func:`serve_phase`), read the counts.  Checks the densities, that
+    the compressed projections ran only through their op's ``decode`` and
+    ``prefill`` variants, the block losses (FullBlock) only through
+    ``strip``, the prefill attention only through flash's ``flash``
+    variant (or, for ``flash=None``, no flash launch), and no launch of
+    the other compressed op; then runs the parity phase.  Returns what the
+    later phases need: config, spec, densities, matrix shapes, compressed
+    params, prompts and the path's launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sparsity.apply import compress_params, prune_params, sparsity_report
+
+    intra = spec.patterns[0].kind == "intra"
+    op, other = (("intrablock_gather_matmul", "block_sparse_matmul") if intra
+                 else ("block_sparse_matmul", "intrablock_gather_matmul"))
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    shapes = matrix_shapes(params)
+    n_all = sum(t.numel() for t in params["layers"].values()) + params["embed"].numel()
+    print(f"[prune] init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_all / 1e9:.3f} G params (embedding included) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if pre_check is not None:
+        pre_check(cfg, params)
+
+    # ---- the path: counts from here to the end of serving --------------------
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    params, masks = prune_params(params, spec, keys=KEYS, impl="auto", device="cuda")
+    params, masks = prune_params(params, spec, keys=KEYS, align_cols=intra, impl="auto",
+                                 device="cuda")
     rep = sparsity_report(params, masks)
-    cparams = compress_params(params, masks, BLOCK, BLOCK)
+    aligned = {}
+    if intra:
+        for key in KEYS:
+            m = masks["layers"][key]
+            m = m.reshape(m.shape[0], m.shape[1], -1)
+            aligned[key] = bool(torch.equal(m, m[:, :, :1].expand_as(m)))
+        cparams = compress_params(params, masks, m=INTRA_M)
+    else:
+        cparams = compress_params(params, masks, BLOCK, BLOCK)
     del params, masks
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"[prune] pruned + compressed in {time.perf_counter() - t0:.1f}s; density "
-          + json.dumps({k.split('/')[-1]: round(v, 6) for k, v in rep.items()}), flush=True)
+    print(f"[prune] {cfg.name}: {spec.describe()}{' row-aligned' if intra else ''}, pruned + "
+          f"compressed in {time.perf_counter() - t0:.1f}s; density "
+          + json.dumps({k.split('/')[-1]: round(v, 6) for k, v in rep.items()})
+          + (f"; row-aligned {json.dumps(aligned)}" if intra else ""), flush=True)
     for key in KEYS:
         check(abs(rep[f"layers/{key}"] - 0.5) < 1e-9, f"{key}: density {rep[f'layers/{key}']}")
-    comp = {k: tuple(cparams["layers"][k].w_comp.shape) for k in KEYS}
-    print(f"[prune] compressed w_comp (L, Gn, slots, bm, bn): {json.dumps(comp)}; "
-          f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+        check(aligned.get(key, True), f"{key}: a mask is not row-aligned")
+    if intra:
+        comp = {k: [tuple(cparams["layers"][k].w_comp.shape),
+                    tuple(cparams["layers"][k].row_idx.shape)] for k in KEYS}
+        layout = "w_comp (L, Kc, N), row_idx (L, Kc)"
+    else:
+        comp = {k: tuple(cparams["layers"][k].w_comp.shape) for k in KEYS}
+        layout = "w_comp (L, Gn, slots, bm, bn)"
+    print(f"[prune] {cfg.name}: compressed {layout}: {json.dumps(comp)}; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
 
-    prompts, reqs, counts = serve_phase(cfg, cparams)
-    # ---- end of the main path ------------------------------------------------
+    prompts, reqs, counts = serve_phase(cfg, cparams, max_len=max_len, long_prompt=long_prompt)
+    # ---- end of the path ---------------------------------------------------------
+    for name in ("flash_attention", "block_sparse_matmul", "block_importance",
+                 "intrablock_gather_matmul"):
+        rows[name].setdefault("launches_by_path", {})[cfg.name] = counts[name]
+    check(counts[op] > 0, f"{op} was not launched on the {cfg.name} path")
+    check(counts[other] == 0, f"{other} ran on the {cfg.name} path")
+    check_main_variants(cfg, op, counts, len(reqs))
+    if intra:
+        check(counts["block_importance"] == 0, f"block_importance ran on the {cfg.name} path")
+    else:
+        check_single_variant(cfg, "block_importance", "strip", counts, len(KEYS) * cfg.n_layers)
+    if flash is None:
+        v = counts["variants"]["flash_attention"]
+        print(f"[serve] {cfg.name}: flash_attention launches by variant {json.dumps(v)}; want "
+              f"none (attention softcap {cfg.attn_softcap}: chunked_attention)", flush=True)
+        check(counts["flash_attention"] == 0 and not any(v.values()),
+              f"{cfg.name}: flash_attention ran {v} on a softcapped path")
+    else:
+        check_single_variant(cfg, "flash_attention", flash, counts, cfg.n_layers * len(reqs))
+
+    # Logits have std ~1 at this init.  On an H100 (700 W) the kernel paths
+    # stay within 0.06-0.07 of the plain one for llama3-8b, qwen3-4b and
+    # gemma-7b and within 0.114 for gemma2-9b (bf16 over 28-42 layers),
+    # while leaving out the middle layer's w_down moves them by 0.38-0.86:
+    # 0.15 sits between the two.
+    faults = intrablock_faults(cfg, cparams) if intra else fullblock_faults(cfg, cparams)
+    t0 = time.perf_counter()
+    parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15, faults=faults)
+    print(f"[time] {cfg.name} parity phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return {"cfg": cfg, "spec": spec, "density": rep, "shapes": shapes, "cparams": cparams,
+            "prompts": prompts, "counts": counts}
+
+
+def main_path(cfg, rows: dict) -> dict:
+    """Prune, compress, serve and check llama3-8b (FullBlock); returns what
+    the cost phase needs of it."""
+    from repro_torch.core.flexblock import FlexBlockSpec, FullBlock
+
+    model = served_path(cfg, rows, FlexBlockSpec((FullBlock(BLOCK, BLOCK, 0.5),)),
+                        flash="wgmma", pre_check=block_loss_check)
     for name in ("flash_attention", "block_sparse_matmul", "block_importance"):
-        check(counts[name] > 0, f"{name} was not launched on the llama3-8b path")
-        rows[name]["launches"] = counts[name]
-    check_main_variants(cfg, "block_sparse_matmul", counts, len(reqs))
-    check_single_variant(cfg, "flash_attention", "wgmma", counts, cfg.n_layers * len(reqs))
-    check_single_variant(cfg, "block_importance", "strip", counts, len(KEYS) * cfg.n_layers)
+        rows[name]["launches"] = model["counts"][name]
+    return cost_inputs(model)
 
-    parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15,
-                 faults=fullblock_faults(cfg, cparams))
-    return {"cfg": cfg, "spec": spec, "density": rep, "shapes": shapes}
+
+def cost_inputs(model: dict) -> dict:
+    """What the cost phase needs of a served model (no tensor)."""
+    return {k: model[k] for k in ("cfg", "spec", "density", "shapes", "ratios") if k in model}
 
 
 def check_main_variants(cfg, op: str, counts: dict, prefills: int) -> None:
@@ -737,18 +841,20 @@ def check_single_variant(cfg, op: str, variant: str, counts: dict, want: int) ->
           f"{op}: launches by variant {v}, want {want} {variant} and no other")
 
 
-def serve_phase(cfg, cparams):
-    """Serve 8 requests (prompts of 100..512 tokens from numpy seed 0, 32
-    new tokens each) through ``ServeEngine(slots=4, max_len=1024)``; read
-    the launch counts at the end of serving.  Returns (prompts, requests,
-    counts)."""
+def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None):
+    """Serve 8 requests (prompts of 100..512 tokens from numpy seed 0, the
+    first made ``long_prompt`` tokens long when given, 32 new tokens each)
+    through ``ServeEngine(slots=4, max_len=max_len)``; read the launch
+    counts at the end of serving.  Returns (prompts, requests, counts)."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import Request, ServeEngine
 
     rng = np.random.default_rng(SEED)
     lens = rng.integers(100, 513, size=8)
+    if long_prompt:
+        lens[0] = long_prompt
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
-    engine = ServeEngine(cfg, cparams, slots=4, max_len=1024, dtype=torch.bfloat16,
+    engine = ServeEngine(cfg, cparams, slots=4, max_len=max_len, dtype=torch.bfloat16,
                          impl="auto", device="cuda")
     reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
     for r in reqs:
@@ -811,8 +917,9 @@ def step_logits(cparams, cfg, prompt: np.ndarray, impl: str, feed=()) -> torch.T
 
 
 def fullblock_faults(cfg, cparams) -> dict:
-    """Planted faults in layer 16's w_down (shared w_comp, copied idx):
-    the whole projection left out, and one live 128x128 block dropped."""
+    """Planted faults in the middle layer's w_down (shared w_comp, copied
+    idx): the whole projection left out, and one live 128x128 block
+    dropped."""
     from repro_torch.models.layers import BlockSparseLinear
 
     wd, l = cparams["layers"]["w_down"], cfg.n_layers // 2
@@ -829,7 +936,7 @@ def fullblock_faults(cfg, cparams) -> dict:
 
 
 def intrablock_faults(cfg, cparams) -> dict:
-    """Planted faults in layer 18's w_down: its w_comp zeroed (the whole
+    """Planted faults in the middle layer's w_down: its w_comp zeroed (the whole
     projection left out), and its row_idx moved to the neighbouring row
     of each pair (r xor 1: every gathered input is the wrong one, each
     still inside its 4-row block)."""
@@ -858,9 +965,10 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
     can flip within the tolerance).  ``faults`` maps a name to a copy of
     the params with a fault planted in it; the logit error each gives is
     reported, and the first must exceed the tolerance.  Last, the served logits must be f32 products,
-    as the reference's ``preferred_element_type=f32`` unembedding gives.
+    as the reference's ``preferred_element_type=f32`` unembedding gives (then
+    the config's final-logit softcap, where it has one).
     """
-    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.layers import rms_norm, softcap
     from repro_torch.models.transformer import _run
 
     feed = served[0][:4]
@@ -898,8 +1006,8 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
                                              device="cuda")[None], cfg, "auto", False)
     h = rms_norm(x[0, -1:], cparams["final_norm"], cfg.norm_eps)
     w = cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]
-    f32 = (h.float() @ w.float())[0]
-    rounded = (h @ w).float()[0]
+    f32 = softcap((h.float() @ w.float())[0], cfg.logit_softcap)
+    rounded = softcap((h @ w).float()[0], cfg.logit_softcap)
     e32 = (auto[0] - f32).abs().max().item()
     e16 = (rounded - f32).abs().max().item()
     del f32, rounded
@@ -920,64 +1028,12 @@ def intrablock_path(cfg, rows: dict) -> dict:
     """Prune, compress, serve, check and profile qwen3-4b; returns what the
     cost phase needs of it, the profile's ratios included."""
     from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
-    from repro_torch.kernels import ops
-    from repro_torch.models.transformer import init_params
-    from repro_torch.sparsity.apply import compress_params, prune_params, sparsity_report
 
-    spec = FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),))
-    t0 = time.perf_counter()
-    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
-    shapes = matrix_shapes(params)
-    n_all = sum(t.numel() for t in params["layers"].values()) + params["embed"].numel()
-    print(f"[prune] init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_all / 1e9:.3f} G params (tied embedding included) in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-
-    # ---- the IntraBlock path: counts from here to the end of serving -------
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    params, masks = prune_params(params, spec, keys=KEYS, align_cols=True, impl="auto",
-                                 device="cuda")
-    rep = sparsity_report(params, masks)
-    aligned = {}
-    for key in KEYS:
-        m = masks["layers"][key]
-        m = m.reshape(m.shape[0], m.shape[1], -1)
-        aligned[key] = bool(torch.equal(m, m[:, :, :1].expand_as(m)))
-    cparams = compress_params(params, masks, m=INTRA_M)
-    del params, masks
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    print(f"[prune] {cfg.name}: IntraBlock({INTRA_M},1,0.5) row-aligned, pruned + compressed "
-          f"in {time.perf_counter() - t0:.1f}s; density "
-          + json.dumps({k.split('/')[-1]: round(v, 6) for k, v in rep.items()})
-          + f"; row-aligned {json.dumps(aligned)}", flush=True)
-    for key in KEYS:
-        check(abs(rep[f"layers/{key}"] - 0.5) < 1e-9, f"{key}: density {rep[f'layers/{key}']}")
-        check(aligned[key], f"{key}: a mask is not row-aligned")
-    comp = {k: [tuple(cparams["layers"][k].w_comp.shape),
-                tuple(cparams["layers"][k].row_idx.shape)] for k in KEYS}
-    print(f"[prune] {cfg.name}: compressed w_comp (L, Kc, N), row_idx (L, Kc): "
-          f"{json.dumps(comp)}; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
-
-    prompts, reqs, counts = serve_phase(cfg, cparams)
-    # ---- end of the IntraBlock path ------------------------------------------
-    for name in ("intrablock_gather_matmul", "flash_attention"):
-        check(counts[name] > 0, f"{name} was not launched on the {cfg.name} path")
-    check(counts["block_sparse_matmul"] == 0, "a FullBlock matmul ran on the IntraBlock path")
-    rows["intrablock_gather_matmul"]["launches"] = counts["intrablock_gather_matmul"]
-    check_main_variants(cfg, "intrablock_gather_matmul", counts, len(reqs))
-    check_single_variant(cfg, "flash_attention", "wgmma", counts, cfg.n_layers * len(reqs))
-
-    # Logits have std ~1 at this init.  On an H100 the kernel path stays
-    # within 0.068 of the plain one (bf16 over 36 layers), while leaving out
-    # layer 18's w_down moves them by 0.40: 0.15 sits between the two.
-    parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15,
-                 faults=intrablock_faults(cfg, cparams))
-    ratios = profile_phase(cfg, cparams, prompts, rows)
-    return {"cfg": cfg, "spec": spec, "density": rep, "shapes": shapes, "ratios": ratios}
+    model = served_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)),
+                        flash="wgmma")
+    rows["intrablock_gather_matmul"]["launches"] = model["counts"]["intrablock_gather_matmul"]
+    model["ratios"] = profile_phase(cfg, model["cparams"], model["prompts"], rows)
+    return cost_inputs(model)
 
 
 def profile_phase(cfg, cparams, prompts, rows: dict) -> dict:
@@ -1023,6 +1079,10 @@ def profile_phase(cfg, cparams, prompts, rows: dict) -> dict:
     check(variants == {"strip": 0, "fused": len(names), "general": 0},
           f"the profile's variants {variants}, want {len(names)} fused")
     rows["bitserial_zero_profile"]["launches"] = counts["bitserial_zero_profile"]
+    rows["bitserial_zero_profile"]["launches_by_path"] = {
+        f"{cfg.name} profile": counts["bitserial_zero_profile"]}
+    for v, line in rows["bitserial_zero_profile"]["variants"].items():
+        line["launches"] = variants[v]
 
     # host syncs of one more profile call, against those of one host copy:
     # torch's sync debug mode warns on each synchronising call
@@ -1084,6 +1144,114 @@ def profile_phase(cfg, cparams, prompts, rows: dict) -> dict:
     check(not differ_int8, f"bit-serial counts differ kernel vs plain: {differ_int8[:4]}")
     check(all(0.0 <= r <= 1.0 for r in ratios.values()), "a skippable ratio outside [0, 1]")
     return ratios
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-7: the gemma family
+# ---------------------------------------------------------------------------
+
+LONG_PROMPT = 4600      # gemma2-9b's long request: past its 4096-token local window
+
+
+def gemma7b_path(cfg, rows: dict) -> dict:
+    """Prune (row-aligned IntraBlock), compress, serve and check gemma-7b,
+    whose prefill attention runs flash's general variant (head dim 256);
+    then that variant's card time per prefill of the 8 prompts."""
+    from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+    from repro_torch.kernels import ops
+
+    model = served_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)),
+                        flash="general")
+    rows["flash_attention"]["variants"]["general"]["launches"] = \
+        model["counts"]["flash_attention"]
+    # one launch per layer at each prompt's padded length, on random bf16
+    # q/k/v of the layer's shape, replayed from CUDA graphs
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def padded(p):
+        return -(-len(p) // 128) * 128
+
+    per_len = {}
+    for S in sorted({padded(p) for p in model["prompts"]}):
+        sets = [tuple(torch.randn(1, S, H, hd, generator=g, device="cuda").to(torch.bfloat16)
+                      for H in (Hq, Hkv, Hkv))
+                for _ in range(n_copies(2 * S * (Hq + Hkv) * hd * 2))]
+        per_len[S] = graph_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), sets)
+        del sets
+    per_prefill = [cfg.n_layers * per_len[padded(p)] for p in model["prompts"]]
+    print(f"[serve] {cfg.name}: flash general (hd {hd}) card ms per launch by padded prompt "
+          f"length {json.dumps({str(k): round(v, 4) for k, v in per_len.items()})}; per prefill "
+          f"({cfg.n_layers} launches) {[round(t, 3) for t in per_prefill]} ms, "
+          f"{sum(per_prefill):.3f} ms over the 8 prompts", flush=True)
+    return cost_inputs(model)
+
+
+def gemma2_path(cfg, rows: dict) -> dict:
+    """Prune (FullBlock), compress, serve and check gemma2-9b with one
+    request of LONG_PROMPT tokens, then the window check and the
+    softcaps' reach."""
+    from repro_torch.core.flexblock import FlexBlockSpec, FullBlock
+
+    model = served_path(cfg, rows, FlexBlockSpec((FullBlock(BLOCK, BLOCK, 0.5),)), flash=None,
+                        max_len=5120, long_prompt=LONG_PROMPT)
+    t0 = time.perf_counter()
+    window_check(cfg, model["cparams"], model["prompts"][0])
+    print(f"[time] {cfg.name} window check {time.perf_counter() - t0:.1f}s", flush=True)
+    return cost_inputs(model)
+
+
+def window_check(cfg, cparams, prompt) -> None:
+    """Layer 0 (a local layer) on the long prompt: its attention through
+    ``chunked_attention`` with ``window=cfg.window`` must equal the same
+    call with ``window=None`` bit for bit on the query rows before
+    position cfg.window (the mask is all true there, so the same code
+    gives the same bits) and differ on every row from it on.  In f32, so
+    that the one key row cfg.window drops shows after rounding.  Then
+    prints how far layer 0's raw scores and the raw final logits reach
+    toward the two softcaps."""
+    from repro_torch.models.layers import chunked_attention, project, rms_norm, rope
+    from repro_torch.models.transformer import _layer, _run, _unembed, _windows
+
+    W, cap = cfg.window, cfg.attn_softcap
+    check(_windows(cfg)[0] == W, f"{cfg.name}: layer 0 is not a local layer")
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+    S = tokens.shape[1]
+    check(S > W, f"the long prompt ({S}) does not pass the window {W}")
+    lp = _layer(cparams["layers"], 0)
+    h = rms_norm(cparams["embed"][tokens], lp["ln1"], cfg.norm_eps)
+    pos = torch.arange(S, device="cuda")[None]
+    q, k, v = (project(h, lp[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qk_norm:
+        q, k = rms_norm(q, lp["q_norm"], cfg.norm_eps), rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    q, k, v = rope(q, pos, cfg.rope_theta).float(), rope(k, pos, cfg.rope_theta).float(), v.float()
+    win = chunked_attention(q, k, v, causal=True, window=W, attn_cap=cap)
+    glob = chunked_attention(q, k, v, causal=True, window=None, attn_cap=cap)
+    same = torch.equal(win[:, :W], glob[:, :W])
+    rows_differ = int((win[:, W:] != glob[:, W:]).flatten(2).any(dim=2).sum())
+    d_max = (win[:, W:] - glob[:, W:]).abs().max().item()
+    print(f"[window] {cfg.name}: layer 0 (window {W}) on the {S}-token prompt, chunked_attention "
+          f"in f32 with window {W} vs none: rows < {W} bit-equal: {same}; rows >= {W} that "
+          f"differ: {rows_differ} of {S - W} (max |d| {d_max:.3e})", flush=True)
+    check(same, f"{cfg.name}: the window changed a row before position {W}")
+    check(rows_differ == S - W, f"{cfg.name}: {S - W - rows_differ} rows past the window "
+                                f"equal the global attention")
+
+    Hkv, hd = k.shape[2], k.shape[3]
+    qg = q.reshape(1, S, Hkv, -1, hd)
+    s_max = max((torch.einsum("bqhgd,bkhd->bhgqk", qg[:, i:i + 1024], k) / math.sqrt(hd))
+                .abs().max().item() for i in range(0, S, 1024))
+    x, _, _ = _run(cparams, tokens, cfg, "auto", False)
+    z_max = _unembed(cparams, x[:, -64:], dataclasses.replace(cfg, logit_softcap=0.0)) \
+        .abs().max().item()
+    below = s_max < cap and z_max < cfg.logit_softcap
+    print(f"[softcap] {cfg.name}: layer 0's raw attention scores on the long prompt reach "
+          f"max |s| {s_max:.3f} (cap {cap}); the raw final logits of its last 64 tokens reach "
+          f"max |z| {z_max:.3f} (cap {cfg.logit_softcap}); "
+          + ("both below their caps: with random weights a planted 'softcap off' fault would "
+             "not show on the card, so the caps are held to the reference by the CPU tests "
+             "(tests/test_torch_gemma.py), which scale the inputs until each cap bites"
+             if below else "a cap is reached on the card"), flush=True)
 
 
 def microbench_phase() -> list:
@@ -1238,9 +1406,10 @@ def cost_phase(samples: list, served: list) -> None:
     print(f"[time] cost phase {time.perf_counter() - t0:.2f}s", flush=True)
 
 
-# what the kernels line gives of each further variant of a kernel
-VARIANT_KEYS = ("shape", "ms", "eager_ms", "general_ms", "plain_ms", "bound_ms", "bound_by",
-                "share_of_bound")
+# what the kernels line gives of each further variant of a kernel (None
+# where a row has no such number)
+VARIANT_KEYS = ("shape", "launches", "ms", "eager_ms", "general_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "share_of_bound", "x_library")
 
 
 def main() -> int:
@@ -1292,8 +1461,16 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[time] qwen3-4b path {time.perf_counter() - t0:.1f}s", flush=True)
+        gemma = []
+        for name, path in (("gemma-7b", gemma7b_path), ("gemma2-9b", gemma2_path)):
+            t0 = time.perf_counter()
+            gemma.append(path(get_config(name), rows))
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[time] {name} path {time.perf_counter() - t0:.1f}s; device memory after "
+                  f"freeing it {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
         samples = microbench_phase()
-        cost_phase(samples, [qwen, llama])
+        cost_phase(samples, [qwen, llama, *gemma])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1309,7 +1486,8 @@ def main() -> int:
                         **({"variant": r["variant"]} if "variant" in r else {}),
                         **{k: r[k] for k in ("op_ms", "eager_ms", "amax_ms", "amax_bound_ms",
                                              "unfused_ms") if k in r},
-                        **({"variants": {v: {k: l[k] for k in VARIANT_KEYS}
+                        "launches_by_path": r.get("launches_by_path", {}),
+                        **({"variants": {v: {k: l.get(k) for k in VARIANT_KEYS}
                                          for v, l in r["variants"].items()}}
                            if "variants" in r else {}),
                         **ratios(r)})

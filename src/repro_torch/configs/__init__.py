@@ -9,6 +9,8 @@ from .base import ArchConfig
 _ARCH_MODULES = {
     "llama3-8b": "llama3_8b",
     "qwen3-4b": "qwen3_4b",
+    "gemma-7b": "gemma_7b",
+    "gemma2-9b": "gemma2_9b",
 }
 
 

@@ -1,7 +1,7 @@
 """Model-layer primitives of the dense decoder (port of
-``repro/models/layers.py``): RMSNorm, RoPE, chunked online-softmax
-attention with GQA and windows, the attention sub-block and the gated
-MLP.
+``repro/models/layers.py``): RMSNorm, RoPE, softcap, chunked
+online-softmax attention with GQA, windows and an attention softcap, the
+attention sub-block and the gated MLP.
 
 Projections are either dense weights in the reference layout (``wq``
 (d, Hq, hd), ``wo`` (Hq, hd, d), ``w_up`` (d, F), ...) or compressed
@@ -135,6 +135,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(x / cap)``; ``x`` itself when ``cap`` is 0."""
+    return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -147,14 +152,17 @@ def _as_batch(v, B: int, device) -> torch.Tensor:
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[Any] = None,
                       q_offset: Any = 0, kv_len: Optional[Any] = None,
-                      chunk: int = 1024) -> torch.Tensor:
+                      attn_cap: float = 0.0, chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention scanned over kv chunks (the generic path
     of the reference, ``layers.py:277-294``).
 
     q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd).  ``q_offset`` (absolute
     position of q[0]) and ``kv_len`` (valid cache length) may be scalars
-    or (B,) tensors; ``window`` is a scalar.  Scores and the running max/sum/accumulator
-    are f32; P is cast to the value dtype before P·V, as in the reference.
+    or (B,) tensors; ``window`` is a scalar: query i sees keys
+    (i - window, i].  ``attn_cap > 0`` caps the scores as the reference's
+    ``_attn_tile`` does: scores x scale, then ``cap * tanh(s / cap)``, then
+    the additive mask.  Scores and the running max/sum/accumulator are
+    f32; P is cast to the value dtype before P·V, as in the reference.
     """
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -189,7 +197,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             ok &= (k_idx < Skv)[None, None, :]
         bias = torch.zeros(ok.shape, device=dev).masked_fill(~ok, float("-inf"))
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_i.float()) * scale
-        s = s + bias[:, None, None]
+        s = softcap(s, attn_cap) + bias[:, None, None]
         m_cur = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(torch.isinf(m_cur), torch.zeros_like(m_cur), m_cur)
         p = torch.exp(s - m_safe[..., None])
@@ -203,8 +211,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   impl: str = "auto") -> torch.Tensor:
-    """Causal self-attention through the ``flash_attention`` op.
+                   window: Optional[int] = None, impl: str = "auto") -> torch.Tensor:
+    """Causal (optionally windowed) self-attention through the
+    ``flash_attention`` op.
 
     q/k/v are padded at the sequence tail to a multiple of the kernel's
     tile and the output is sliced back.  Under a causal mask this is
@@ -214,19 +223,27 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pad = (-S) % ATTN_TILE
     if pad:
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
-    out = ops.flash_attention(q, k, v, causal=True, impl=impl,
+    out = ops.flash_attention(q, k, v, causal=True, window=window, impl=impl,
                               tile_q=ATTN_TILE, tile_k=ATTN_TILE)
     return out[:, :S]
 
 
 def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
+                    window: Optional[int] = None,
                     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     cache_len: Optional[Any] = None,
                     impl: str = "auto") -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Projections + RoPE + causal attention with no window (global).
+    """Projections + RoPE + causal attention; ``window`` (None = global)
+    bounds each query to its last ``window`` keys, in prefill and decode.
 
-    * prefill/forward (``cache_kv=None``): self-attention over ``x``
-      through the flash-attention op; returns the new (k, v).
+    * prefill/forward (``cache_kv=None``): self-attention over ``x``;
+      returns the new (k, v).  With ``cfg.attn_softcap == 0`` it runs
+      through the flash-attention op.  With an attention softcap (gemma2)
+      it runs through :func:`chunked_attention` with ``attn_cap``: the
+      reference's Pallas flash kernel (``repro/kernels/flash_attention.py``)
+      has no softcap in its contract, and the JAX model never calls it,
+      so the port's flash kernel takes none either.  The route follows
+      from ``cfg`` alone, before any launch.
     * decode: ``cache_kv=(K, V)`` buffers (B, Smax, Hkv, hd).  The new
       k/v are written into them **in place** at ``cache_len`` (scalar or
       (B,)), and attention spans the whole cache through
@@ -242,7 +259,11 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     k = rope(k, positions, cfg.rope_theta)
     if cache_kv is None:
-        out = self_attention(q, k, v, impl=impl)
+        if cfg.attn_softcap > 0:
+            out = chunked_attention(q, k, v, causal=True, window=window,
+                                    attn_cap=cfg.attn_softcap)
+        else:
+            out = self_attention(q, k, v, window=window, impl=impl)
         new_kv = (k, v)
     else:
         K, V = cache_kv
@@ -254,7 +275,8 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
             bidx = torch.arange(K.shape[0], device=x.device)
             K[bidx, pos.long()] = k[:, 0].to(K.dtype)
             V[bidx, pos.long()] = v[:, 0].to(V.dtype)
-        out = chunked_attention(q, K, V, causal=True, q_offset=pos, chunk=K.shape[1])
+        out = chunked_attention(q, K, V, causal=True, window=window, q_offset=pos,
+                                attn_cap=cfg.attn_softcap, chunk=K.shape[1])
         new_kv = (K, V)
     y = project(out, p["wo"], impl, n_in=2)
     return y, new_kv

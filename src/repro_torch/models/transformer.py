@@ -1,5 +1,7 @@
 """Dense decoder stack (port of the dense family of
-``repro/models/transformer.py``).
+``repro/models/transformer.py``): global attention (llama3, qwen3,
+gemma) and gemma2's alternation of local (sliding-window) and global
+layers, with attention and final-logit softcaps and post-norms.
 
 Parameters are a plain dict laid out like the reference pytree: layer
 weights stacked on a leading L axis (``wq`` (L, d, Hq, hd), ``wo``
@@ -27,7 +29,7 @@ from .. import resolve_device
 from ..configs.base import ArchConfig
 from .layers import COMPRESSED, attention_block, mlp_block, rms_norm
 
-__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step"]
+__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step", "layer_flags"]
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -36,12 +38,35 @@ _VOCAB_CHUNK = 16384      # lm_head columns widened to f32 at a time
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The port covers the dense GQA decoder with global attention."""
-    if (cfg.family != "dense" or cfg.n_experts > 1 or cfg.attention != "global"
-            or cfg.attn_softcap > 0 or cfg.ssm_state or cfg.enc_dec or cfg.prefix_len):
+    """The port covers the dense GQA decoder with global or alternating
+    local/global attention (attention softcap allowed); MoE, SSM, hybrid,
+    encoder-decoder and prefix-LM configs are not ported yet."""
+    if (cfg.family != "dense" or cfg.n_experts > 1
+            or cfg.attention not in ("global", "local_global")
+            or cfg.ssm_state or cfg.enc_dec or cfg.prefix_len):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family with global attention and no "
-            "attention softcap is ported to repro_torch")
+            f"{cfg.name}: only the dense family with global or local/global "
+            "attention is ported to repro_torch")
+
+
+def layer_flags(cfg: ArchConfig) -> Tuple[bool, ...]:
+    """Per-layer is-global-attention flags (the reference's ``layer_flags``,
+    ``transformer.py:169-175``): gemma2 alternates local (even) and global
+    (odd) layers.  Python bools, computed once, so the layer loop never
+    reads a flag back from the card."""
+    if cfg.attention == "local_global":
+        return tuple(l % 2 == 1 for l in range(cfg.n_layers))
+    if cfg.attention == "sliding":
+        return (False,) * cfg.n_layers
+    return (True,) * cfg.n_layers
+
+
+def _windows(cfg: ArchConfig) -> Tuple[Optional[int], ...]:
+    """Each layer's attention window: None on global layers, ``cfg.window``
+    on local ones.  The reference passes its traced stand-in for "no
+    window" (``_BIG_WINDOW``, a mask that is true everywhere) on global
+    layers; None is the same mask."""
+    return tuple(None if g else cfg.window for g in layer_flags(cfg))
 
 
 def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
@@ -104,13 +129,13 @@ def _layer(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
             for k, w in layers.items()}
 
 
-def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, cache_kv=None,
+def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache_kv=None,
                    cache_len=None, impl: str = "auto", tap=None):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if tap is not None:
         tap("attn_in", h)
-    mix, kv = attention_block(h, lp, cfg, positions=positions, cache_kv=cache_kv,
-                              cache_len=cache_len, impl=impl)
+    mix, kv = attention_block(h, lp, cfg, positions=positions, window=window,
+                              cache_kv=cache_kv, cache_len=cache_len, impl=impl)
     if cfg.post_norms:
         mix = rms_norm(mix, lp["post_ln1"], cfg.norm_eps)
     x = x + mix
@@ -151,10 +176,11 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     ks, vs = [], []
-    for l in range(cfg.n_layers):
+    for l, window in enumerate(_windows(cfg)):
         layer_tap = None if tap is None else (lambda kind, a, l=l: tap(l, kind, a))
         x, (k, v) = _decoder_layer(x, _layer(params["layers"], l), cfg,
-                                   positions=positions, impl=impl, tap=layer_tap)
+                                   positions=positions, window=window, impl=impl,
+                                   tap=layer_tap)
         if keep_cache:
             ks.append(k)
             vs.append(v)
@@ -201,10 +227,10 @@ def decode_step(params: Params, tokens: torch.Tensor, cfg: ArchConfig, cache: Ca
     B = x.shape[0]
     pos = torch.as_tensor(cache["pos"], device=x.device)
     positions = (pos if pos.dim() == 0 else pos[:, None]).expand(B, 1)
-    for l in range(cfg.n_layers):
+    for l, window in enumerate(_windows(cfg)):
         x, _ = _decoder_layer(x, _layer(params["layers"], l), cfg, positions=positions,
-                              cache_kv=(cache["k"][l], cache["v"][l]), cache_len=pos,
-                              impl=impl)
+                              window=window, cache_kv=(cache["k"][l], cache["v"][l]),
+                              cache_len=pos, impl=impl)
     logits = _unembed(params, x, cfg)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1

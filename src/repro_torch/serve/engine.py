@@ -8,6 +8,11 @@ at its own (B,) cache position.  Finished slots (EOS, max tokens, cache
 full) free and refill from the queue.  ``max_queue`` bounds admission
 (rejects with ``reject_reason="queue_full"``) and ``Request.deadline_s``
 drops a queued request or cuts off a decoding one.
+
+As in the reference, construction runs the warn-only model-plane
+pre-flight on the config's ``lm_workload`` (:func:`repro_torch.analysis.preflight`),
+and each step records an ``obs.counter("serve.step", ...)`` when an
+observer is enabled.  Neither changes an output.
 """
 from __future__ import annotations
 
@@ -18,8 +23,10 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
+from ..analysis import preflight
 from ..configs.base import ArchConfig
+from ..core.workload import lm_workload
 from ..models.transformer import decode_step, init_cache, prefill
 from ..obs.metrics import ServeMetrics
 
@@ -42,12 +49,18 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, *, slots: int = 4, max_len: int = 256,
-                 max_queue: Optional[int] = None,
+                 greedy: bool = True, max_queue: Optional[int] = None,
                  dtype=torch.float32, impl: str = "auto",
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg, self.params = cfg, params
         self.slots, self.max_len = slots, max_len
         self.max_queue = max_queue
+        # warn-only pre-flight: a structurally broken config surfaces here,
+        # not as a shape error mid-request
+        preflight(lm_workload(cfg, seq_len=max_len, batch=slots),
+                  strict=False, where="serve.engine")
+        # kept as the reference keeps it; decoding is argmax either way
+        self.greedy = greedy
         self.impl = impl
         self.device = resolve_device(device)
         self.cache = init_cache(cfg, slots, max_len, dtype=dtype, device=self.device)
@@ -148,6 +161,8 @@ class ServeEngine:
         m.on_tokens(len(active), step_s)
         for _ in range(completed):
             m.on_complete()
+        obs.counter("serve.step", len(active),
+                    queue_depth=m.queue_depth, completed=completed)
         return len(active)
 
     def run(self) -> None:

@@ -493,3 +493,88 @@ def test_default_key_prune_runs_wo_masked_dense_and_the_six_through_kernels(gen,
     assert ops.launch_counts()[op] == len(six) * cfg.n_layers
     lr = TT.forward(pp, toks, cfg, impl="ref")
     assert (la.float() - lr.float()).abs().max().item() < 0.1
+
+
+# ---------------------------------------------------------------------------
+# The gemma family
+# ---------------------------------------------------------------------------
+
+def test_flash_attention_at_gemma7b_prefill_shape_takes_the_general_variant(gen):
+    """gemma-7b's prefill attention: q/k/v (1, 512, 16, 256) bf16, MHA,
+    causal: head dim 256 runs the general variant, within 3e-2 of plain."""
+    q, k, v = (_randn(gen, 1, 512, 16, 256, dtype=torch.bfloat16) for _ in range(3))
+    before = ops.variant_counts()
+    out = ops.flash_attention(q, k, v)
+    assert _variant_delta(before) == {"flash_attention": {"general": 1}}
+    torch.testing.assert_close(out.float(), ops.flash_attention(q, k, v, impl="ref").float(),
+                               atol=3e-2, rtol=0)
+
+
+def test_gemma2_shaped_attention_on_the_card(gen):
+    """gemma2-9b's attention shape (16 q / 8 kv heads of 256) past a
+    window, with scores pushed past the softcap: chunked_attention on the
+    card equals the CPU's (f32, no TF32; 1e-4 for the order of the sums
+    and tanh's last bits at the cap), the window changes nothing before
+    its length and every row after it, and no kernel runs."""
+    from repro_torch.models.layers import chunked_attention
+    S, W = 600, 256
+    q = _randn(gen, 1, S, 16, 256) * 30.0
+    k, v = _randn(gen, 1, S, 8, 256), _randn(gen, 1, S, 8, 256)
+    assert (torch.einsum("bqhd,bkhd->bhqk", q[:, :, ::2], k) / 16).abs().max() > 100
+    before = ops.launch_counts()
+    win = chunked_attention(q, k, v, window=W, attn_cap=50.0, chunk=256)
+    glob = chunked_attention(q, k, v, window=None, attn_cap=50.0, chunk=256)
+    assert ops.launch_counts() == before
+    cpu = chunked_attention(q.cpu(), k.cpu(), v.cpu(), window=W, attn_cap=50.0, chunk=256)
+    torch.testing.assert_close(win.cpu(), cpu, atol=1e-4, rtol=0)
+    assert torch.equal(win[:, :W], glob[:, :W])
+    assert bool((win[:, W:] != glob[:, W:]).flatten(2).any(dim=2).all())
+
+
+def test_gemma2_model_on_the_card_takes_no_flash_launch(gen):
+    """A small gemma2-9b (2 layers: local window 64, then global; softcaps,
+    post-norms; head dim 256) pruned with FullBlock(128, 128, 0.5): forward
+    and serving past the window run the six projections through the
+    block-sparse kernel and attention through chunked_attention, no flash
+    launch; logits within 0.1 of the plain path."""
+    cfg = dataclasses.replace(get_config("gemma2-9b").reduced(), d_model=256, head_dim=256,
+                              n_heads=4, n_kv_heads=2, d_ff=512, window=64)
+    params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    pp, masks = prune_params(params, FlexBlockSpec((FullBlock(128, 128, 0.5),)),
+                             keys=("wq", "wk", "wv", "w_gate", "w_up", "w_down"))
+    cp = compress_params(pp, masks, 128, 128)
+    toks = torch.randint(0, cfg.vocab_size, (1, 200), generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    la = TT.forward(cp, toks, cfg)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 0 and counts["block_sparse_matmul"] == 6 * cfg.n_layers
+    lr = TT.forward(cp, toks, cfg, impl="ref")
+    assert (la - lr).abs().max().item() < 0.1
+    engine = ServeEngine(cfg, cp, slots=2, max_len=256, dtype=torch.bfloat16)
+    reqs = [Request(prompt=toks[0, :n].cpu().numpy(), max_new_tokens=4) for n in (200, 70, 9)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    assert all(r.done and len(r.output) == 4 for r in reqs)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+def test_gemma7b_model_on_the_card_runs_flash_general(gen):
+    """A small gemma-7b (MHA, head dim 256) pruned with row-aligned
+    IntraBlock(4, 1, 0.5): prefill attention runs flash's general variant,
+    one launch per layer, logits within 0.1 of the plain path."""
+    cfg = dataclasses.replace(get_config("gemma-7b").reduced(), d_model=256, head_dim=256,
+                              n_heads=4, n_kv_heads=4, d_ff=512)
+    params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    pp, masks = prune_params(params, FlexBlockSpec((IntraBlock(4, 1, 0.5),)), align_cols=True,
+                             keys=("wq", "wk", "wv", "w_gate", "w_up", "w_down"))
+    cp = compress_params(pp, masks, m=4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 130), generator=gen, device="cuda")
+    before = ops.variant_counts()
+    la = TT.forward(cp, toks, cfg)
+    delta = _variant_delta(before)
+    assert delta["flash_attention"] == {"general": cfg.n_layers}
+    assert sum(delta["intrablock_gather_matmul"].values()) == 6 * cfg.n_layers
+    lr = TT.forward(cp, toks, cfg, impl="ref")
+    assert (la - lr).abs().max().item() < 0.1
