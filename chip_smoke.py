@@ -60,22 +60,35 @@ Phases, each reported on its own line(s):
    window bit for bit on the rows before position 4096, and differ on
    every row after it.  Its prefill takes no flash launch: the softcap is
    outside the flash kernel's contract;
-8. microbench — ``microbench_kernels`` on the card, its samples written
+8. qwen3-moe-30b-a3b FullBlock path: free the gemma2-9b weights, init
+   qwen3-moe-30b-a3b at full width and depth (48 layers, d_model 2048,
+   32 q / 4 kv heads of 128, 128 experts of d_ff 768, top-8, capacity
+   factor 1.25; 30.5 G parameters, 61 GB in bf16), prune the six
+   projections with FullBlock(128, 128, 0.5) (each expert leaf moved to
+   the host first and pruned on its own, its 128x128 blocks spanning all
+   128 experts of the (E, d·ff) view), compress wq/wk/wv (the expert
+   leaves stay masked-dense, as the reference runs them), serve the 8
+   requests through ``ServeEngine(slots=4, max_len=1024)`` and run the
+   parity phase, with the share of routing choices that differ between
+   the kernel and plain paths and each layer on the same input through
+   both; the peak device memory of the prune step and of serving is
+   printed;
+9. microbench — ``microbench_kernels`` on the card, its samples written
    as JSONL under ``build/`` and read back;
-9. cost     — on the host, from what the card produced in this run: a
+10. cost    — on the host, from what the card produced in this run: a
    calibration profile fitted to the microbench samples (saved under
    ``build/profiles/``), the profile's 108 skippable-bit ratios mapped
-   onto ``lm_workload``'s op names, and CIMinus cost reports of the four
+   onto ``lm_workload``'s op names, and CIMinus cost reports of the five
    served models with the FlexBlock specs they were pruned with, on
    ``usecase_arch(4, input_sparsity=True)`` at 512 tokens: qwen3-4b (a)
    without input sparsity, (b) with the measured ratios, (c) with the
-   ratios and the fitted profile; llama3-8b, gemma-7b and gemma2-9b (a)
-   and (c).  Each report must be finite and round-trip through JSON, (b)
+   ratios and the fitted profile; llama3-8b, gemma-7b, gemma2-9b and
+   qwen3-moe-30b-a3b (a) and (c).  Each report must be finite and round-trip through JSON, (b)
    may not be slower than (a), a profile with unit efficiencies must give
    (b) bit for bit, (c) must be (b) (or (a)) with each op's latency
    divided by its class's efficiency, and the density of every mask the
    card produced must be the spec's;
-10. the ``{"kernels": [...]}`` line; 11. the card's name and power limit.
+11. the ``{"kernels": [...]}`` line; 12. the card's name and power limit.
 
 The launch counts are set to 0 just before each path and read just
 after it: on each served path from prune to the end of serving (every
@@ -83,18 +96,19 @@ kernel's count is kept per path), ``bitserial_zero_profile`` over the
 profile call.
 After each served path its compressed projections must have run only
 through the ``decode`` and ``prefill`` variants, one launch per
-projection, layer and decode step or prompt, none through ``general``;
-its prefill attention only through the flash ``wgmma`` variant (one
-launch per layer and prompt; gemma-7b: ``general``, head dim 256;
-gemma2-9b: no flash launch at all), the llama3-8b and gemma2-9b prunes
-only through the block-importance ``strip`` variant (one launch per
-projection and layer), and the profile only through the bit-serial
-``fused`` variant.
+projection, layer and decode step or prompt, none through ``general``
+(qwen3-moe-30b-a3b: wq/wk/wv only); its prefill attention only through
+the flash ``wgmma`` variant (one launch per layer and prompt; gemma-7b:
+``general``, head dim 256; gemma2-9b: no flash launch at all), the
+llama3-8b, gemma2-9b and qwen3-moe-30b-a3b prunes only through the
+block-importance ``strip`` variant (one launch per projection and
+layer), and the profile only through the bit-serial ``fused`` variant.
 Any failed check exits nonzero.  Without a CUDA device, or without the
 repository beside it, the script exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -117,6 +131,7 @@ BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 KEYS = ("wq", "wk", "wv", "w_gate", "w_up", "w_down")
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")      # an MoE's: (L, E, K, N), kept masked-dense
 BLOCK = 128
 INTRA_M = 4            # IntraBlock(4, 1, 0.5): 2 of every 4 rows, shared by all columns
 # rows one CIM array broadcasts an input group to: sub_rows of usecase_arch
@@ -297,10 +312,11 @@ def kernel_phase() -> dict:
     # (B, S, Hq, Hkv, hd, window): llama3-8b prefill of the longest prompt
     # (512 tokens) and the same heads at S = 2048, where the tensor cores
     # bound it; gemma-7b's prefill of the longest prompt (16 heads of 256,
-    # MHA: the general variant); head dims 64/256 and a window for coverage.
+    # MHA: the general variant); qwen3-moe-30b-a3b's (8 q heads per kv head);
+    # head dims 64/256 and a window for coverage.
     fa_cases = [(1, 512, 32, 8, 128, None), (1, 2048, 32, 8, 128, None),
-                (1, 512, 16, 16, 256, None), (1, 256, 8, 2, 64, 64),
-                (1, 256, 8, 2, 256, None)]
+                (1, 512, 16, 16, 256, None), (1, 512, 32, 4, 128, None),
+                (1, 256, 8, 2, 64, 64), (1, 256, 8, 2, 256, None)]
     fa_variants = {}
     tol = {torch.bfloat16: 3e-2, torch.float32: 3e-5}
     for (B, S, Hq, Hkv, hd, window) in fa_cases:
@@ -346,7 +362,7 @@ def kernel_phase() -> dict:
                 line["levers"] = f"{p.rows}/{p.keys}/{p.pack}"
                 line["ms_by_levers"] = flash_sweep(sets, window)
             report(name, line)
-            if (S, hd, dt) == (512, 128, torch.bfloat16):
+            if (S, Hkv, hd, dt) == (512, 8, 128, torch.bfloat16):
                 rows["flash_attention"] = dict(
                     line, shape=f"q ({B},{S},{Hq},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal",
                     library="F.scaled_dot_product_attention (kv heads repeated)")
@@ -358,10 +374,11 @@ def kernel_phase() -> dict:
     rows["flash_attention"]["variants"] = fa_variants
 
     # -- block-sparse matmul: the six pruned projections ---------------------
-    # (K, N) of llama3-8b's projections at 50% FullBlock(128,128) density,
-    # at decode (B = 4 slots) and at prefill (B = 512).
+    # (K, N) of llama3-8b's projections, and of qwen3-moe-30b-a3b's wq and
+    # wk/wv, at 50% FullBlock(128,128) density, at decode (B = 4 slots) and
+    # at prefill (B = 512).
     proj = {"wq": (4096, 4096), "wk": (4096, 1024), "w_gate": (4096, 14336),
-            "w_down": (14336, 4096)}
+            "w_down": (14336, 4096), "moe wq": (2048, 4096), "moe wk/wv": (2048, 512)}
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}   # of max |plain|
 
     def layout(K, N, dt):
@@ -440,8 +457,10 @@ def kernel_phase() -> dict:
                                          _build.stream_ptr(a.device)), fn)
         return o
 
+    # llama3-8b's projections, and one layer of a qwen3-moe-30b-a3b expert
+    # leaf in the (E, d·ff) view prune_params masks
     bi_shapes = {"wq": (4096, 4096), "wk/wv": (4096, 1024), "w_gate/w_up": (4096, 14336),
-                 "w_down": (14336, 4096)}
+                 "w_down": (14336, 4096), "moe expert": (128, 2048 * 768)}
     for key, (M, N) in bi_shapes.items():
         for dt in dtypes:
             esize = torch.empty((), dtype=dt).element_size()
@@ -660,7 +679,7 @@ def kernel_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 3-7: the served paths at full width
+# Phases 3-8: the served paths at full width
 # ---------------------------------------------------------------------------
 
 def matrix_shapes(params) -> dict:
@@ -705,19 +724,28 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
     ``pre_check(cfg, params)`` if given, then drive the path with the launch
     counts set to 0 just before it: prune the six projections with
     ``spec`` (IntraBlock row-aligned), compress, serve the 8 requests
-    (:func:`serve_phase`), read the counts.  Checks the densities, that
-    the compressed projections ran only through their op's ``decode`` and
-    ``prefill`` variants, the block losses (FullBlock) only through
-    ``strip``, the prefill attention only through flash's ``flash``
-    variant (or, for ``flash=None``, no flash launch), and no launch of
-    the other compressed op; then runs the parity phase.  Returns what the
-    later phases need: config, spec, densities, matrix shapes, compressed
-    params, prompts and the path's launch counts."""
+    (:func:`serve_phase`), read the counts.  An MoE's expert leaves are
+    each moved to the host and pruned on their own (``prune_params``
+    builds the pruned copy on the card one layer at a time and keeps its
+    mask on the host), so that no leaf stands twice on the card; a mask is
+    dropped once its density is read.  Checks the densities, that only the
+    projections with a compressed layout were compressed (an MoE's expert
+    leaves stay masked-dense), that those ran only through their op's
+    ``decode`` and ``prefill`` variants, the block losses (FullBlock) only
+    through ``strip``, the prefill attention only through flash's
+    ``flash`` variant (or, for ``flash=None``, no flash launch), and no
+    launch of the other compressed op; prints the peak device memory of
+    the prune step and of serving; then runs the parity phase.  Returns
+    what the later phases need: config, spec, densities, matrix shapes,
+    compressed params, prompts and the path's launch counts."""
     from repro_torch.kernels import ops
+    from repro_torch.models.layers import COMPRESSED
     from repro_torch.models.transformer import init_params
     from repro_torch.sparsity.apply import compress_params, prune_params, sparsity_report
 
     intra = spec.patterns[0].kind == "intra"
+    moe = cfg.n_experts > 1
+    host_keys = EXPERT_KEYS if moe else ()
     op, other = (("intrablock_gather_matmul", "block_sparse_matmul") if intra
                  else ("block_sparse_matmul", "intrablock_gather_matmul"))
     t0 = time.perf_counter()
@@ -733,10 +761,31 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
 
     # ---- the path: counts from here to the end of serving --------------------
     ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params, masks = prune_params(params, spec, keys=KEYS, align_cols=intra, impl="auto",
-                                 device="cuda")
+    params, masks = prune_params(params, spec, keys=tuple(k for k in KEYS if k not in host_keys),
+                                 align_cols=intra, impl="auto", device="cuda")
     rep = sparsity_report(params, masks)
+    for key in host_keys:
+        t1 = time.perf_counter()
+        leaf = params["layers"].pop(key).cpu()           # frees the card's copy
+        t2 = time.perf_counter()
+        one, m = prune_params({"layers": {key: leaf}}, spec, keys=(key,), align_cols=intra,
+                              impl="auto", device="cuda")
+        del leaf
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        params["layers"][key] = one["layers"][key]
+        rep[f"layers/{key}"] = sparsity_report(one, m)[f"layers/{key}"]
+        masks["layers"][key] = None
+        del one, m
+        print(f"[prune] {cfg.name}: {key} to the host {t2 - t1:.1f}s, pruned back onto the card "
+              f"{t3 - t2:.1f}s, density read from its host mask {time.perf_counter() - t3:.1f}s",
+              flush=True)
+    if host_keys:
+        sizes = {k: params["layers"][k].numel() for k in KEYS}
+        rep["overall_density"] = (sum(rep[f"layers/{k}"] * n for k, n in sizes.items())
+                                  / sum(sizes.values()))
     aligned = {}
     if intra:
         for key in KEYS:
@@ -748,6 +797,7 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
         cparams = compress_params(params, masks, BLOCK, BLOCK)
     del params, masks
     torch.cuda.synchronize()
+    prune_peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     print(f"[prune] {cfg.name}: {spec.describe()}{' row-aligned' if intra else ''}, pruned + "
           f"compressed in {time.perf_counter() - t0:.1f}s; density "
@@ -756,24 +806,36 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
     for key in KEYS:
         check(abs(rep[f"layers/{key}"] - 0.5) < 1e-9, f"{key}: density {rep[f'layers/{key}']}")
         check(aligned.get(key, True), f"{key}: a mask is not row-aligned")
+    comp_keys = tuple(k for k in KEYS if isinstance(cparams["layers"][k], COMPRESSED))
+    dense_keys = tuple(k for k in KEYS if k not in comp_keys)
+    check(dense_keys == (EXPERT_KEYS if moe else ()),
+          f"{cfg.name}: {dense_keys} were not compressed")
     if intra:
         comp = {k: [tuple(cparams["layers"][k].w_comp.shape),
-                    tuple(cparams["layers"][k].row_idx.shape)] for k in KEYS}
+                    tuple(cparams["layers"][k].row_idx.shape)] for k in comp_keys}
         layout = "w_comp (L, Kc, N), row_idx (L, Kc)"
     else:
-        comp = {k: tuple(cparams["layers"][k].w_comp.shape) for k in KEYS}
+        comp = {k: tuple(cparams["layers"][k].w_comp.shape) for k in comp_keys}
         layout = "w_comp (L, Gn, slots, bm, bn)"
-    print(f"[prune] {cfg.name}: compressed {layout}: {json.dumps(comp)}; device memory "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"[prune] {cfg.name}: compressed {layout}: {json.dumps(comp)}"
+          + (f"; masked-dense (no compressed layout, as the reference): "
+             + json.dumps({k: tuple(cparams["layers"][k].shape) for k in dense_keys})
+             if dense_keys else "")
+          + f"; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak of the "
+            f"prune step {prune_peak / 2**30:.2f} GiB", flush=True)
 
+    torch.cuda.reset_peak_memory_stats()
     prompts, reqs, counts = serve_phase(cfg, cparams, max_len=max_len, long_prompt=long_prompt)
+    print(f"[serve] {cfg.name}: peak device memory while serving "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (max_memory_allocated; card "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB)", flush=True)
     # ---- end of the path ---------------------------------------------------------
     for name in ("flash_attention", "block_sparse_matmul", "block_importance",
                  "intrablock_gather_matmul"):
         rows[name].setdefault("launches_by_path", {})[cfg.name] = counts[name]
     check(counts[op] > 0, f"{op} was not launched on the {cfg.name} path")
     check(counts[other] == 0, f"{other} ran on the {cfg.name} path")
-    check_main_variants(cfg, op, counts, len(reqs))
+    check_main_variants(cfg, op, counts, len(reqs), len(comp_keys))
     if intra:
         check(counts["block_importance"] == 0, f"block_importance ran on the {cfg.name} path")
     else:
@@ -792,7 +854,8 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
     # gemma-7b and within 0.114 for gemma2-9b (bf16 over 28-42 layers),
     # while leaving out the middle layer's w_down moves them by 0.38-0.86:
     # 0.15 sits between the two.
-    faults = intrablock_faults(cfg, cparams) if intra else fullblock_faults(cfg, cparams)
+    faults = (moe_faults(cfg, cparams) if moe else intrablock_faults(cfg, cparams) if intra
+              else fullblock_faults(cfg, cparams))
     t0 = time.perf_counter()
     parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15, faults=faults)
     print(f"[time] {cfg.name} parity phase {time.perf_counter() - t0:.1f}s", flush=True)
@@ -817,13 +880,13 @@ def cost_inputs(model: dict) -> dict:
     return {k: model[k] for k in ("cfg", "spec", "density", "shapes", "ratios") if k in model}
 
 
-def check_main_variants(cfg, op: str, counts: dict, prefills: int) -> None:
-    """The path's compressed projections ran only through the main
-    variants: one decode launch per projection, layer and decode step (4
-    slots), one prefill launch per projection, layer and prompt, and no
+def check_main_variants(cfg, op: str, counts: dict, prefills: int, n_keys: int) -> None:
+    """The path's ``n_keys`` compressed projections ran only through the
+    main variants: one decode launch per projection, layer and decode step
+    (4 slots), one prefill launch per projection, layer and prompt, and no
     general or f32 launch."""
     v = counts["variants"][op]
-    per = len(KEYS) * cfg.n_layers
+    per = n_keys * cfg.n_layers
     want = {"decode": per * counts["steps"], "prefill": per * prefills, "general": 0, "f32": 0}
     print(f"[serve] {cfg.name}: {op} launches by variant {json.dumps(v)}; want "
           f"{json.dumps(want)} ({counts[op]} in all)", flush=True)
@@ -955,6 +1018,91 @@ def intrablock_faults(cfg, cparams) -> dict:
             for what, w in bad.items()}
 
 
+def moe_faults(cfg, cparams) -> dict:
+    """Planted faults in the middle layer of an MoE: wv left out (its
+    block list emptied, a copied idx), and the layer's expert w_down
+    zeroed.  The second is made in place for the fault's run and undone
+    after it: a copy of the 19 GB leaf would not fit beside the model."""
+    from repro_torch.models.layers import BlockSparseLinear
+
+    l, wv = cfg.n_layers // 2, cparams["layers"]["wv"]
+    idx = wv.idx.clone()
+    idx[l] = -1
+    no_wv = dict(cparams, layers=dict(cparams["layers"], wv=BlockSparseLinear(
+        wv.w_comp, idx, wv.in_features, wv.out_shape)))
+
+    @contextlib.contextmanager
+    def zeroed_w_down():
+        wd = cparams["layers"]["w_down"][l]
+        saved = wd.clone()
+        wd.zero_()
+        try:
+            yield cparams
+        finally:
+            wd.copy_(saved)
+
+    return {"wv of one layer left out": no_wv, "expert w_down of one layer zeroed": zeroed_w_down}
+
+
+def route_sets(cfg, cparams, prompt, impl: str) -> torch.Tensor:
+    """The top-k expert set (sorted) of every (layer, token) of the
+    prompt's prefill through ``impl``: (L, S, K).  The router is applied
+    to each MoE block's input as the block applies it."""
+    from repro_torch.models.layers import _moe_route
+    from repro_torch.models.transformer import _run
+
+    sets = {}
+
+    def tap(l, kind, a):
+        if kind == "mlp_in":
+            e = _moe_route(a.reshape(-1, a.shape[-1]), cparams["layers"]["w_router"][l],
+                           cfg.top_k, a.dtype)[1]
+            sets[l] = e.sort(dim=1).values
+    _run(cparams, torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None], cfg, impl,
+         False, tap=tap)
+    return torch.stack([sets[l] for l in range(cfg.n_layers)])
+
+
+def layer_parity(cfg, cparams, prompt) -> tuple:
+    """Each layer on the same input through both paths: the plain path's
+    hidden state before layer l goes through layer l with impl="auto" and
+    with impl="ref".  Returns, per layer, the logit difference its output
+    difference d_l would make carried unchanged to the end (d_l through
+    the final norm's scale at the plain path's final hidden state, then
+    the unembedding, in f32; max over positions and vocabulary), and the
+    share of its tokens whose top-k set differs.  The final hidden
+    state's scale, not the layer's own: the residual stream grows with
+    depth, and normalising an early layer's small output by its own
+    scale would magnify its rounding."""
+    from repro_torch.models.layers import _moe_route
+    from repro_torch.models.transformer import _decoder_layer, _layer, _windows
+
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+    x = cparams["embed"][tokens]
+    pos = torch.arange(tokens.shape[1], device="cuda")[None]
+    deltas, flips = [], []
+    for l, window in enumerate(_windows(cfg)):
+        lp = _layer(cparams["layers"], l)
+        outs, routes = [], []
+        for impl in ("auto", "ref"):
+            seen = {}
+            y, _ = _decoder_layer(x, lp, cfg, positions=pos, window=window, impl=impl,
+                                  tap=lambda kind, a: seen.setdefault(kind, a))
+            outs.append(y)
+            routes.append(_moe_route(seen["mlp_in"][0], lp["w_router"], cfg.top_k,
+                                     y.dtype)[1].sort(dim=1).values)
+        deltas.append(outs[0][0] - outs[1][0])
+        flips.append((routes[0] != routes[1]).any(dim=1).float().mean().item())
+        x = outs[1]
+    xf = x[0].float()
+    scale = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + cfg.norm_eps) \
+        * (1.0 + cparams["final_norm"].float())
+    w = (cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]).float()
+    diffs = [max((d.float()[i:i + 128] * scale[i:i + 128] @ w).abs().max().item()
+                 for i in range(0, d.shape[0], 128)) for d in deltas]
+    return diffs, flips
+
+
 def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> None:
     """The served path against ``impl="ref"`` on the same compressed weights.
 
@@ -963,42 +1111,76 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
     tokens: each served token against the plain path's argmax, required
     to agree where the plain top-2 margin exceeds 2*tol (a smaller margin
     can flip within the tolerance).  ``faults`` maps a name to a copy of
-    the params with a fault planted in it; the logit error each gives is
-    reported, and the first must exceed the tolerance.  Last, the served logits must be f32 products,
-    as the reference's ``preferred_element_type=f32`` unembedding gives (then
-    the config's final-logit softcap, where it has one).
+    the params with a fault planted in it, or to a context manager factory
+    that plants it and yields the params; the logit error each gives over
+    the same steps is reported, and the first must exceed the tolerance.  Last, the served
+    logits must be f32 products, as the reference's
+    ``preferred_element_type=f32`` unembedding gives (then the config's
+    final-logit softcap, where it has one).
+
+    An MoE's routing is discrete, so a bf16 difference in a router's
+    input can move a top-k choice or who keeps a capacity slot.
+    The share of (layer, token) top-k sets that differ between the two
+    paths over the 8 prompts' prefill is printed, and so is each layer on
+    the same input through both paths (:func:`layer_parity`, the first
+    prompt).  The logits must stay within ``tol`` end to end; where the
+    flips carry them past it, every layer must stay within ``tol`` on the
+    same input instead, and the served tokens must agree where the plain
+    margin exceeds twice the measured difference.  Every planted fault
+    must exceed the tolerance.
     """
     from repro_torch.models.layers import rms_norm, softcap
     from repro_torch.models.transformer import _run
 
+    routed = cfg.n_experts > 1
     feed = served[0][:4]
-    auto = [step_logits(cparams, cfg, prompts[0], "auto", feed)]
-    plain = [step_logits(cparams, cfg, prompts[0], "ref", feed)]
-    want = [served[0][:5]]
-    for p, out in zip(prompts[1:], served[1:]):
-        auto.append(step_logits(cparams, cfg, p, "auto"))
-        plain.append(step_logits(cparams, cfg, p, "ref"))
-        want.append(out[:1])
-    auto, plain = torch.cat(auto), torch.cat(plain)
-    want = [t for w in want for t in w]
+
+    def steps(params, impl):
+        return torch.cat([step_logits(params, cfg, prompts[0], impl, feed)]
+                         + [step_logits(params, cfg, p, impl) for p in prompts[1:]])
+
+    auto, plain = steps(cparams, "auto"), steps(cparams, "ref")
+    want = served[0][:5] + [out[0] for out in served[1:]]
     err = (auto - plain).abs().amax(dim=1)
     top2 = plain.topk(2, dim=1).values
     margins = (top2[:, 0] - top2[:, 1]).tolist()
     picked = plain.argmax(dim=1).tolist()
-    decided = [i for i, m in enumerate(margins) if m > 2 * tol]
-    wrong = [i for i in decided if picked[i] != want[i]]
+    e2e = err.max().item()
     print(f"[parity] {cfg.name}: kernels vs impl=ref over {len(margins)} steps (8 prompts' last "
-          f"token, 4 decode steps of request 0): max |dlogit| {err.max().item():.4f} "
+          f"token, 4 decode steps of request 0): max |dlogit| {e2e:.4f} "
           f"(tol {tol}), per step {[round(e, 4) for e in err.tolist()]}", flush=True)
+    layer_max = None
+    if routed:
+        t0 = time.perf_counter()
+        differ = total = 0
+        for p in prompts:
+            a, b = route_sets(cfg, cparams, p, "auto"), route_sets(cfg, cparams, p, "ref")
+            differ += int((a != b).any(dim=2).sum())
+            total += a.shape[0] * a.shape[1]
+        diffs, flips = layer_parity(cfg, cparams, prompts[0])
+        layer_max = max(diffs)
+        print(f"[parity] {cfg.name}: routing, kernels vs impl=ref over the 8 prompts' prefill: "
+              f"{differ} of {total} (layer, token) top-{cfg.top_k} sets differ "
+              f"({differ / total:.4%}); each layer on the same input (request 0, "
+              f"{len(prompts[0])} tokens): max |dlogit| of a layer's output {layer_max:.4f} "
+              f"(tol {tol}), per layer {[round(d, 4) for d in diffs]}, top-k sets that differ "
+              f"per layer {[round(f, 4) for f in flips]} ({time.perf_counter() - t0:.1f}s)",
+              flush=True)
+    bound = tol if e2e <= tol or not routed else e2e
+    decided = [i for i, m in enumerate(margins) if m > 2 * bound]
+    wrong = [i for i in decided if picked[i] != want[i]]
     print(f"[parity] {cfg.name}: served tokens vs impl=ref argmax: agree on "
           f"{sum(p == w for p, w in zip(picked, want))} of {len(want)} steps; "
-          f"{len(decided)} steps have a ref top-2 margin above 2*tol and must agree, "
+          f"{len(decided)} steps have a ref top-2 margin above {2 * bound:.4f} and must agree, "
           f"{len(wrong)} do not; margins {[round(m, 4) for m in margins]}", flush=True)
 
-    fault_err = {what: (step_logits(bad, cfg, prompts[0], "auto", feed) - plain[:5])
-                 .abs().max().item() for what, bad in faults.items()}
-    print(f"[parity] {cfg.name}: planted faults, max |dlogit| vs impl=ref on request 0: "
-          + json.dumps({k: round(v, 4) for k, v in fault_err.items()}), flush=True)
+    fault_err = {}
+    for what, bad in faults.items():
+        with (bad() if callable(bad) else contextlib.nullcontext(bad)) as p:
+            fault_err[what] = (steps(p, "auto") - plain).abs().max().item()
+    print(f"[parity] {cfg.name}: planted faults, max |dlogit| vs impl=ref over the same "
+          f"{len(margins)} steps: " + json.dumps({k: round(v, 4) for k, v in fault_err.items()}),
+          flush=True)
 
     # f32 unembedding: the served prefill logits against an f32 product
     # of the final hidden state and the whole unembedding widened to f32.
@@ -1013,10 +1195,14 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
     del f32, rounded
     print(f"[parity] {cfg.name}: served prefill logits vs an f32 unembedding: max |d| "
           f"{e32:.3e} (tol 1e-4); bf16-rounded logits would differ by {e16:.3e}", flush=True)
-    check(err.max().item() <= tol, f"logits differ by {err.max().item()} > {tol}")
+    if routed and e2e > tol:
+        check(layer_max <= tol, f"logits differ by {e2e} > {tol} end to end, and a layer on the "
+                                f"same input by {layer_max} > {tol}")
+    else:
+        check(e2e <= tol, f"logits differ by {e2e} > {tol}")
     check(not wrong, f"served tokens differ from impl=ref at decided steps {wrong}")
-    first = next(iter(fault_err))
-    check(fault_err[first] > tol, f"{first}: stays within the logit tolerance {tol}")
+    for what in (fault_err if routed else list(fault_err)[:1]):
+        check(fault_err[what] > tol, f"{what}: stays within the logit tolerance {tol}")
     check(e32 <= 1e-4, f"served logits are not f32 products: {e32} > 1e-4")
 
 
@@ -1254,6 +1440,52 @@ def window_check(cfg, cparams, prompt) -> None:
              if below else "a cap is reached on the card"), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the MoE family
+# ---------------------------------------------------------------------------
+
+def host_memory_gib() -> dict:
+    """The host's total and available memory (``free -g``'s columns), GiB."""
+    info = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+    return {k: int(info[k].split()[0]) / 2**20 for k in ("MemTotal", "MemAvailable")}
+
+
+def dense_scale_experts(cfg, params) -> None:
+    """Give every expert the std of a dense MLP of its own shape (1/sqrt(d)
+    for w_gate/w_up, 1/sqrt(ff) for w_down), in place: the init's rule
+    counts E in an expert leaf's fan_in (E·d), which leaves the MoE
+    block's output ~E^-1.5 (1/1448 at 128 experts) of a dense MLP's, so
+    small beside attention that no routing choice or planted expert fault
+    could show in the logits."""
+    for key in EXPERT_KEYS:
+        params["layers"][key].mul_(math.sqrt(cfg.n_experts))
+    torch.cuda.synchronize()
+    print(f"[moe] {cfg.name}: expert leaves scaled by sqrt(E) = {math.sqrt(cfg.n_experts):.4f} "
+          f"to a dense MLP's std (w_up std now "
+          f"{params['layers']['w_up'][0].float().std().item():.5f}, "
+          f"1/sqrt(d) = {1 / math.sqrt(cfg.d_model):.5f})", flush=True)
+
+
+def moe_path(cfg, rows: dict) -> dict:
+    """Prune (FullBlock), compress, serve and check qwen3-moe-30b-a3b at
+    full width and depth: 61 GB of bf16 weights, 58 GB of them in the
+    expert leaves (scaled as :func:`dense_scale_experts` says), which are
+    moved to the host and pruned one key at a time (see
+    :func:`served_path`) and stay masked-dense; wq/wk/wv run through the
+    block-sparse kernel."""
+    from repro_torch.core.flexblock import FlexBlockSpec, FullBlock
+
+    mem = host_memory_gib()
+    print(f"[moe] host memory: total {mem['MemTotal']:.1f} GiB, available "
+          f"{mem['MemAvailable']:.1f} GiB; device memory reserved before the path "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB, allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(mem["MemAvailable"] > 40, "the host cannot hold one expert leaf and its mask")
+    model = served_path(cfg, rows, FlexBlockSpec((FullBlock(BLOCK, BLOCK, 0.5),)),
+                        flash="wgmma", pre_check=dense_scale_experts)
+    return cost_inputs(model)
+
+
 def microbench_phase() -> list:
     """``microbench_kernels`` on the card; its samples go to JSONL under
     build/ and must read back unchanged.  Returns the samples."""
@@ -1277,7 +1509,7 @@ def microbench_phase() -> list:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the CIMinus cost model, fed by this run's measurements
+# Phase 10: the CIMinus cost model, fed by this run's measurements
 # ---------------------------------------------------------------------------
 
 # the profile's three input kinds → the ops of lm_workload that read them
@@ -1335,7 +1567,7 @@ def check_scaled(label: str, scaled, base, wl, prof) -> None:
 
 def cost_phase(samples: list, served: list) -> None:
     """Fit the card's profile, then cost each served model (see the
-    module docstring, phase 7).  Runs on the host."""
+    module docstring, phase 10).  Runs on the host."""
     from repro_torch.calibrate.fit import fit_profile
     from repro_torch.core.costmodel import compare, dense_baseline, simulate
     from repro_torch.core.mapping import default_mapping
@@ -1461,16 +1693,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[time] qwen3-4b path {time.perf_counter() - t0:.1f}s", flush=True)
-        gemma = []
-        for name, path in (("gemma-7b", gemma7b_path), ("gemma2-9b", gemma2_path)):
+        later = []
+        for name, path in (("gemma-7b", gemma7b_path), ("gemma2-9b", gemma2_path),
+                           ("qwen3-moe-30b-a3b", moe_path)):
             t0 = time.perf_counter()
-            gemma.append(path(get_config(name), rows))
+            later.append(path(get_config(name), rows))
             gc.collect()
             torch.cuda.empty_cache()
             print(f"[time] {name} path {time.perf_counter() - t0:.1f}s; device memory after "
                   f"freeing it {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
         samples = microbench_phase()
-        cost_phase(samples, [qwen, llama, *gemma])
+        cost_phase(samples, [qwen, llama, *later])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,6 +11,8 @@ _ARCH_MODULES = {
     "qwen3-4b": "qwen3_4b",
     "gemma-7b": "gemma_7b",
     "gemma2-9b": "gemma2_9b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "dbrx-132b": "dbrx_132b",
 }
 
 

@@ -1,7 +1,8 @@
-"""Model-layer primitives of the dense decoder (port of
+"""Model-layer primitives of the decoder (port of
 ``repro/models/layers.py``): RMSNorm, RoPE, softcap, chunked
 online-softmax attention with GQA, windows and an attention softcap, the
-attention sub-block and the gated MLP.
+attention sub-block, the gated MLP and the capacity-bounded top-k MoE
+block (the reference's global-dispatch path).
 
 Projections are either dense weights in the reference layout (``wq``
 (d, Hq, hd), ``wo`` (Hq, hd, d), ``w_up`` (d, F), ...) or compressed
@@ -300,3 +301,100 @@ def mlp_block(x: torch.Tensor, p: Params, cfg, impl: str = "auto",
     if tap is not None:
         tap("down_in", h)
     return project(h, p["w_down"], impl)
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with capacity-bounded scatter dispatch
+# ---------------------------------------------------------------------------
+
+def _moe_route(xt: torch.Tensor, w_router: torch.Tensor, K: int,
+               dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference router: f32 logits of the stored operands (its
+    ``preferred_element_type=f32``), softmax, the K largest probabilities,
+    renormalised over the K with a 1e-9 floor and cast to ``dtype``.
+    Returns (top_p (T, K), top_e (T, K) int64).  Ties go to the lower
+    expert, as ``jax.lax.top_k`` breaks them: the first K of a stable
+    descending sort (``torch.topk`` promises no order among equals)."""
+    probs = torch.softmax(xt.float() @ w_router.float(), dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]
+    top_p = (top_p / top_p.sum(dim=-1, keepdim=True).clamp_min(1e-9)).to(dtype)
+    return top_p, top_e
+
+
+def _moe_dispatch(xt: torch.Tensor, w_router: torch.Tensor, E: int, K: int,
+                  capacity_factor: float, dtype: torch.dtype):
+    """Route tokens: returns (eb (E, C, D), top_p, keep, dest, tok_idx, C).
+
+    Capacity ``C = max(1, ceil(T·K/E·capacity_factor))`` is a Python int
+    from the shapes, so nothing is read back from the card.  A (token, k)
+    slot's place within its expert is its rank in a stable argsort of the
+    flattened expert ids, so the lower (t, k) index wins a place; slots at
+    or past C go to the overflow row E·C, which is thrown away (GShard
+    capacity drops, as the reference).
+    """
+    T, D = xt.shape
+    dev = xt.device
+    top_p, top_e = _moe_route(xt, w_router, K, dtype)
+    C = max(1, math.ceil(T * K / E * capacity_factor))
+    e_flat = top_e.reshape(-1)                                    # (T·K,)
+    order = torch.argsort(e_flat, stable=True)
+    ranks = torch.empty_like(order)
+    ranks[order] = torch.arange(T * K, device=dev)
+    starts = torch.searchsorted(e_flat[order], torch.arange(E, device=dev), side="left")
+    pos = ranks - starts[e_flat]
+    keep = pos < C
+    dest = torch.where(keep, e_flat * C + pos, E * C)
+    tok_idx = torch.arange(T, device=dev).repeat_interleave(K)
+    # kept destinations are distinct, so each kept row is its token's copy;
+    # only the discarded overflow row takes several writes
+    buf = torch.zeros((E * C + 1, D), dtype=dtype, device=dev)
+    buf.index_copy_(0, dest, xt[tok_idx].to(dtype))
+    return buf[:-1].reshape(E, C, D), top_p, keep, dest, tok_idx, C
+
+
+def _moe_combine(eo: torch.Tensor, top_p: torch.Tensor, keep: torch.Tensor,
+                 dest: torch.Tensor, tok_idx: torch.Tensor, T: int, D: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of dispatch: gather each (token, k) slot's expert output (a
+    dropped slot reads a zero row, so its weight is lost, not
+    renormalised), scale by ``top_p`` and sum each token's K contributions
+    in k order, rounding to ``dtype`` after each add: the order in which
+    the reference's scatter-add applies them.  No atomics, so the sum is
+    the same on every run and device."""
+    E_C = eo.shape[0] * eo.shape[1]
+    out_flat = torch.cat([eo.reshape(E_C, D), eo.new_zeros((1, D))])
+    gathered = out_flat[torch.where(keep, dest, E_C)]             # (T·K, D)
+    weighted = (gathered * top_p.reshape(-1)[:, None]).reshape(T, -1, D)
+    y = weighted[:, 0].to(dtype)
+    for k in range(1, weighted.shape[1]):
+        y = y + weighted[:, k]
+    return y
+
+
+def _expert_ffn(eb: torch.Tensor, p: Params, cfg, dtype: torch.dtype) -> torch.Tensor:
+    """(E, C, D) → (E, C, D) through every expert's (optionally gated) MLP,
+    each over its whole capacity slab; GELU (tanh approximation) in the
+    compute dtype, as the reference."""
+    if cfg.gated_mlp:
+        g = torch.bmm(eb, p["w_gate"]).to(dtype)
+        u = torch.bmm(eb, p["w_up"]).to(dtype)
+        h = F.gelu(g, approximate="tanh") * u
+    else:
+        h = F.gelu(torch.bmm(eb, p["w_up"]).to(dtype), approximate="tanh")
+    return torch.bmm(h, p["w_down"]).to(dtype)
+
+
+def moe_block(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+    """Capacity-based top-k MoE over the B·S tokens of ``x`` (B, S, D): the
+    reference's global-dispatch path (``_moe_block_global``).  Its
+    expert-parallel path (``_moe_block_ep``, a shard_map over a mesh) is
+    not ported.  The expert leaves are dense (masked) weights, so no
+    kernel runs here."""
+    B, S, D = x.shape
+    T = B * S
+    eb, top_p, keep, dest, tok_idx, _ = _moe_dispatch(
+        x.reshape(T, D), p["w_router"], cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+        x.dtype)
+    eo = _expert_ffn(eb, p, cfg, x.dtype)
+    return _moe_combine(eo, top_p, keep, dest, tok_idx, T, D, x.dtype).reshape(B, S, D)

@@ -1,7 +1,9 @@
-"""Dense decoder stack (port of the dense family of
+"""Decoder stack (port of the dense and MoE families of
 ``repro/models/transformer.py``): global attention (llama3, qwen3,
-gemma) and gemma2's alternation of local (sliding-window) and global
-layers, with attention and final-logit softcaps and post-norms.
+gemma, qwen3-moe, dbrx) and gemma2's alternation of local
+(sliding-window) and global layers, with attention and final-logit
+softcaps and post-norms; a layer's FFN is the gated MLP, or the top-k
+MoE block when the config has more than one expert.
 
 Parameters are a plain dict laid out like the reference pytree: layer
 weights stacked on a leading L axis (``wq`` (L, d, Hq, hd), ``wo``
@@ -27,7 +29,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from .layers import COMPRESSED, attention_block, mlp_block, rms_norm
+from .layers import COMPRESSED, attention_block, mlp_block, moe_block, rms_norm
 
 __all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step", "layer_flags"]
 
@@ -38,15 +40,15 @@ _VOCAB_CHUNK = 16384      # lm_head columns widened to f32 at a time
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The port covers the dense GQA decoder with global or alternating
-    local/global attention (attention softcap allowed); MoE, SSM, hybrid,
-    encoder-decoder and prefix-LM configs are not ported yet."""
-    if (cfg.family != "dense" or cfg.n_experts > 1
+    """The port covers the dense and MoE GQA decoders with global or
+    alternating local/global attention (attention softcap allowed); SSM,
+    hybrid, encoder-decoder and prefix-LM configs are not ported yet."""
+    if (cfg.family not in ("dense", "moe")
             or cfg.attention not in ("global", "local_global")
             or cfg.ssm_state or cfg.enc_dec or cfg.prefix_len):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family with global or local/global "
-            "attention is ported to repro_torch")
+            f"{cfg.name}: only the dense and MoE families with global or "
+            "local/global attention are ported to repro_torch")
 
 
 def layer_flags(cfg: ArchConfig) -> Tuple[bool, ...]:
@@ -74,9 +76,15 @@ def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     shapes = {"ln1": (d,), "ln2": (d,),
               "wq": (d, Hq, hd), "wk": (d, Hkv, hd), "wv": (d, Hkv, hd),
-              "wo": (Hq, hd, d), "w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)}
+              "wo": (Hq, hd, d)}
+    if cfg.n_experts > 1:
+        E = cfg.n_experts
+        shapes.update({"w_router": (d, E), "w_up": (E, d, cfg.d_ff),
+                       "w_down": (E, cfg.d_ff, d)})
+    else:
+        shapes.update({"w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)})
     if cfg.gated_mlp:
-        shapes["w_gate"] = (d, cfg.d_ff)
+        shapes["w_gate"] = shapes["w_up"]
     if cfg.qk_norm:
         shapes.update({"q_norm": (hd,), "k_norm": (hd,)})
     if cfg.post_norms:
@@ -90,7 +98,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
 
     Norm scales are zero; a weight of per-layer shape ``shp`` is normal
     with std 1/sqrt(fan_in) (fan_in = d_model for wq/wk/wv, else the
-    product of all but the last dim); embed and lm_head have std
+    product of all but the last dim: E·d for an expert leaf (E, d, ff),
+    as the reference has it); embed and lm_head have std
     1/sqrt(d).  Drawn on ``device`` (default ``cuda``) from a
     ``torch.Generator`` seeded with ``seed``, one layer at a time so the
     f32 draw never holds more than one layer.
@@ -142,7 +151,7 @@ def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache_kv=N
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if tap is not None:
         tap("mlp_in", h)
-    ff = mlp_block(h, lp, cfg, impl, tap)
+    ff = moe_block(h, lp, cfg) if cfg.n_experts > 1 else mlp_block(h, lp, cfg, impl, tap)
     if cfg.post_norms:
         ff = rms_norm(ff, lp["post_ln2"], cfg.norm_eps)
     return x + ff, kv
@@ -169,8 +178,9 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
          keep_cache: bool, tap: Optional[Callable[[int, str, torch.Tensor], None]] = None):
     """The decoder stack over full sequences.  ``tap(l, kind, act)``, when
     given, sees the inputs of layer ``l``'s pruned projections as they are
-    made: ``attn_in`` (wq/wk/wv), ``mlp_in`` (w_gate/w_up) and
-    ``down_in`` (w_down), each (B, S, features) (the §IV-B profile)."""
+    made: ``attn_in`` (wq/wk/wv), ``mlp_in`` (w_gate/w_up, or the MoE
+    block's router and experts) and ``down_in`` (w_down of a dense MLP),
+    each (B, S, features) (the §IV-B profile)."""
     _check_supported(cfg)
     x = params["embed"][tokens]
     B, S, _ = x.shape

@@ -12,8 +12,10 @@
   for row-aligned IntraBlock masks, an
   :class:`~repro_torch.models.layers.IntraBlockLinear` in the
   ``compress_intrablock`` layout (``intrablock_gather_matmul`` op).
-  A masked weight that is no input-major projection (``wo``, which the
-  reference prunes as (Hq, hd·d)) stays the masked dense weight.
+  Only ``wq``/``wk``/``wv`` and the 3-D (L, K, N) projections (a dense
+  MLP's) have such a layout; ``wo`` (which the reference prunes as
+  (Hq, hd·d)) and the MoE expert leaves (L, E, K, N) stay the masked
+  dense weight, which is what the reference runs.
 * ``cim_cost_of_model`` — lower the arch to a CIMinus workload and cost
   it on a CIM architecture (the reference's modeling-plane round trip,
   host-side numpy).
@@ -48,6 +50,15 @@ def _as_matrix(w: torch.Tensor) -> torch.Tensor:
     return w if w.dim() == 2 else w.reshape(w.shape[0], -1)
 
 
+def _has_compressed_layout(name: str, w) -> bool:
+    """Whether ``compress_params`` gives the stacked leaf ``w`` a compressed
+    layout: ``wq``/``wk``/``wv`` (L, d, H, hd) and the 3-D (L, K, N)
+    projections of a dense MLP.  ``wo`` (L, Hq, hd, d) and the MoE expert
+    leaves (L, E, K, N) have none.  No config is at hand, so the rule
+    rests on name and rank."""
+    return w.dim() == 3 or (w.dim() == 4 and name in ("wq", "wk", "wv"))
+
+
 def prune_params(params: Dict[str, Any], spec: FlexBlockSpec, *, criterion: str = "l1",
                  align_cols: bool = False, keys: Tuple[str, ...] = PRUNABLE_KEYS,
                  impl: str = "auto", device: Optional[Union[str, torch.device]] = None
@@ -57,9 +68,16 @@ def prune_params(params: Dict[str, Any], spec: FlexBlockSpec, *, criterion: str 
     ``masks["layers"]`` mirrors ``params["layers"]``: a bool tensor of the
     weight's shape per pruned key, None elsewhere.  ``align_cols`` shares
     each IntraBlock pattern across the columns of a matrix (see
-    :func:`~repro_torch.core.pruning.intrablock_mask`).  The weights are
-    moved to ``device`` (default ``cuda``); the given tensors are left as
-    they were.
+    :func:`~repro_torch.core.pruning.intrablock_mask`).  The given tensors
+    are left as they were.
+
+    Each pruned leaf is built in a new tensor on ``device`` (default
+    ``cuda``), one layer at a time: a leaf given on the host never stands
+    whole on the device beside its pruned copy.  A mask stays on
+    ``device`` where :func:`compress_params` reads it (a leaf with a
+    compressed layout) and goes to the host otherwise (``wo``, the expert
+    leaves), where the reference keeps all its masks: at
+    qwen3-moe-30b-a3b's width the expert masks alone hold 29 GB.
     """
     dev = resolve_device(device)
     layers = params["layers"]
@@ -69,17 +87,21 @@ def prune_params(params: Dict[str, Any], spec: FlexBlockSpec, *, criterion: str 
         if name not in keys:
             masks["layers"][name] = None
             continue
-        w = w.to(dev)
-        mask = torch.empty(w.shape, dtype=torch.bool, device=dev)
+        out = torch.empty(w.shape, dtype=w.dtype, device=dev)
+        mask = torch.empty(w.shape, dtype=torch.bool,
+                           device=dev if _has_compressed_layout(name, w) else "cpu")
         for l in range(w.shape[0]):
-            mat = _as_matrix(w[l])
+            wl = w[l].to(dev)
+            mat = _as_matrix(wl)
             if 1 in mat.shape:
-                mask[l] = True
-                continue
-            mask[l] = flexblock_mask(mat, spec, criterion, align_cols=align_cols,
-                                     impl=impl).reshape(w.shape[1:])
+                m = torch.ones(wl.shape, dtype=torch.bool, device=dev)
+            else:
+                m = flexblock_mask(mat, spec, criterion, align_cols=align_cols,
+                                   impl=impl).reshape(wl.shape)
+            torch.mul(wl, m, out=out[l])
+            mask[l] = m
         masks["layers"][name] = mask
-        new_layers[name] = w * mask
+        new_layers[name] = out
     out = dict(params)
     out["layers"] = new_layers
     return out, masks
@@ -91,7 +113,7 @@ def sparsity_report(params: Dict[str, Any], masks: Dict[str, Any]) -> Dict[str, 
     for name, m in masks.get("layers", {}).items():
         if m is None:
             continue
-        kept = float(m.sum())
+        kept = float(torch.count_nonzero(m))   # 16x a bool sum's speed on the host
         rep[f"layers/{name}"] = kept / m.numel()
         nz += kept
         total += m.numel()
@@ -112,10 +134,13 @@ def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: Optional[
     * IntraBlock: each layer's mask must be row-aligned with the same
       survivor count in every m-row block, as ``compress_intrablock``
       requires; the layers of one key must keep the same row count Kc.
-    * ``wo``, and any other masked weight that is no (L, K, ...)
-      input-major projection, has no compressed layout: it stays the
-      masked dense weight ``prune_params`` stored, which is what the
-      reference runs.
+    * Only ``wq``/``wk``/``wv`` (L, d, H, hd) and the dense MLP leaves
+      (L, K, N) are compressed.  ``wo`` and the MoE expert leaves
+      (L, E, K, N), which the reference masks as (Hq, hd·d) and (E, d·ff),
+      have no compressed layout (the reference has none either): each
+      stays the masked dense weight ``prune_params`` stored, which is what
+      the reference runs.  ``compress_params`` has no config, so this
+      rule rests on the leaf's name and rank.
 
     The returned dict holds no reference to the dense projections it
     replaced, so once the caller drops the input params those weights are
@@ -128,7 +153,7 @@ def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: Optional[
         if mask is None:
             continue
         w = params["layers"][name]
-        if name == "wo" or w.dim() not in (3, 4):
+        if not _has_compressed_layout(name, w):
             continue
         L, K = w.shape[0], w.shape[1]
         mats = w.reshape(L, K, -1)

@@ -10,9 +10,18 @@ every ``repro`` entry it added, and from the packages that were already
 there every submodule attribute it set.  The returned module objects keep
 working; the JAX package's own tests, run later in the same process,
 import exactly what they would have imported without this loader.
+
+A reference function that imports at call time (``moe_block`` imports
+``..distributed.sharding`` when it runs) would re-import through
+``sys.modules`` and meet the real ``compat``.  Run such calls inside
+``with R.active(): ...``: the block puts back into ``sys.modules`` the
+very module objects :func:`load` imported (``repro.distributed.sharding``
+and the stand-in among them), re-imports nothing, and on leaving restores
+``sys.modules`` and package attributes as it found them.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import sys
 import types
@@ -44,6 +53,10 @@ MODULES = {
     "core": "repro.core",
 }
 
+# imported at call time: by layers.moe_block, and by serve.engine.ServeEngine
+# when it is built
+LAZY = ("repro.distributed.sharding", "repro.analysis")
+
 
 def _is_repro(name: str) -> bool:
     return name == "repro" or name.startswith("repro.")
@@ -65,24 +78,55 @@ def _compat_standin() -> types.ModuleType:
     return m
 
 
-def load() -> types.SimpleNamespace:
-    """The reference modules of :data:`MODULES`, as a namespace."""
+def _snapshot():
+    """The ``repro`` entries of ``sys.modules`` and the attributes of each."""
     before = dict(sys.modules)
     attrs = {n: dict(vars(m)) for n, m in before.items() if _is_repro(n) and m is not None}
+    return before, attrs
+
+
+def _restore(before, attrs) -> None:
+    """Undo every change to ``repro`` entries and their attributes since
+    :func:`_snapshot` gave ``before`` and ``attrs``."""
+    for name in [n for n in sys.modules if _is_repro(n)]:
+        if name not in before:
+            del sys.modules[name]
+        elif sys.modules[name] is not before[name]:
+            sys.modules[name] = before[name]
+    for name in [n for n in before if _is_repro(n) and n not in sys.modules]:
+        sys.modules[name] = before[name]
+    for name, old in attrs.items():
+        mod = before[name]
+        for k in [k for k in vars(mod) if k not in old]:
+            delattr(mod, k)
+        for k, v in old.items():
+            if vars(mod).get(k) is not v:
+                setattr(mod, k, v)
+
+
+def load() -> types.SimpleNamespace:
+    """The reference modules of :data:`MODULES`, as a namespace, with
+    ``active()``: a context manager for reference calls that import lazily."""
+    before, attrs = _snapshot()
     try:
         try:
             importlib.import_module("repro.runtime.compat")
         except ImportError:
             sys.modules["repro.runtime.compat"] = _compat_standin()
         mods = {k: importlib.import_module(v) for k, v in MODULES.items()}
+        for name in LAZY:
+            importlib.import_module(name)
+        loaded = {n: m for n, m in sys.modules.items() if _is_repro(n)}
     finally:
-        for name in [n for n in sys.modules if _is_repro(n) and n not in before]:
-            del sys.modules[name]
-        for name, old in attrs.items():
-            mod = before[name]
-            for k in [k for k in vars(mod) if k not in old]:
-                delattr(mod, k)
-            for k, v in old.items():
-                if vars(mod).get(k) is not v:
-                    setattr(mod, k, v)
-    return types.SimpleNamespace(**mods)
+        _restore(before, attrs)
+
+    @contextlib.contextmanager
+    def active():
+        outer = _snapshot()
+        sys.modules.update(loaded)
+        try:
+            yield
+        finally:
+            _restore(*outer)
+
+    return types.SimpleNamespace(**mods, active=active)

@@ -578,3 +578,116 @@ def test_gemma7b_model_on_the_card_runs_flash_general(gen):
     assert sum(delta["intrablock_gather_matmul"].values()) == 6 * cfg.n_layers
     lr = TT.forward(cp, toks, cfg, impl="ref")
     assert (la - lr).abs().max().item() < 0.1
+
+
+# ---------------------------------------------------------------------------
+# The MoE family (qwen3-moe-30b-a3b's shapes)
+# ---------------------------------------------------------------------------
+
+def test_flash_attention_wgmma_at_qwen3_moe_prefill_shape(gen):
+    """qwen3-moe-30b-a3b's prefill attention: q (1, 512, 32, 128), k/v
+    (1, 512, 4, 128), 8 q heads per kv head: the wgmma variant, within
+    3e-2 of plain, two calls bitwise equal."""
+    q = _randn(gen, 1, 512, 32, 128, dtype=torch.bfloat16)
+    k, v = (_randn(gen, 1, 512, 4, 128, dtype=torch.bfloat16) for _ in range(2))
+    before = ops.variant_counts()
+    out = ops.flash_attention(q, k, v)
+    again = ops.flash_attention(q, k, v)
+    assert _variant_delta(before) == {"flash_attention": {"wgmma": 2}}
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ops.flash_attention(q, k, v, impl="ref").float(),
+                               atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("N", [512, 4096])
+@pytest.mark.parametrize("B", [4, 451])
+def test_block_sparse_matmul_at_qwen3_moe_attention_shapes(gen, B, N):
+    """wk/wv (2048 → 512) and wq (2048 → 4096) at 50% FullBlock(128, 128):
+    decode (4 slots) and prefill (the longest smoke prompt) variants
+    within 1e-2 of max |plain|, two calls bitwise equal."""
+    K = 2048
+    keep = torch.zeros(K // 128 * (N // 128), dtype=torch.bool, device="cuda")
+    keep[torch.randperm(keep.numel(), generator=gen, device="cuda")[: keep.numel() // 2]] = True
+    w_comp, idx = ops.compress_fullblock_torch(_randn(gen, K, N, dtype=torch.bfloat16) / 45.0,
+                                               keep.reshape(K // 128, N // 128), 128, 128)
+    x = _randn(gen, B, K, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    out = ops.block_sparse_matmul(x, w_comp, idx)
+    again = ops.block_sparse_matmul(x, w_comp, idx)
+    assert _variant_delta(before) == {"block_sparse_matmul": {"decode" if B <= 16 else "prefill": 2}}
+    assert torch.equal(out, again)
+    want = ref.block_sparse_matmul_ref(x, w_comp, idx)
+    scale = max(want.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
+
+
+def test_block_importance_strip_over_an_expert_view(gen):
+    """One layer of an expert leaf (128, 2048, 768) bf16 in the (E, d·ff)
+    view prune_params masks: (128, 1,572,864), one row of 12,288 blocks,
+    through the strip variant within rtol 1e-5 of plain."""
+    w = _randn(gen, 128, 2048 * 768, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    out = ops.block_importance(w, 128, 128, "l1")
+    again = ops.block_importance(w, 128, 128, "l1")
+    assert _variant_delta(before) == {"block_importance": {"strip": 2}}
+    assert out.shape == (1, 12288) and torch.equal(out, again)
+    torch.testing.assert_close(out, ref.block_importance_ref(w, 128, 128, "l1"),
+                               rtol=1e-5, atol=0)
+
+
+def test_moe_model_on_the_card_matches_the_cpu_with_drops(gen):
+    """A small qwen3-moe (2 layers, d_model 256, 128 experts top-8,
+    capacity factor 1.0) in f32 on the card equals the same model on the
+    CPU: the dispatch (keep, destinations; drops asserted) exactly, the
+    block, forward and a 4-slot decode step to 1e-4 (sums in other orders,
+    no TF32).  Pruned with FullBlock(128, 128, 0.5) (an expert block spans
+    all 128 experts) and served in bf16, wq/wk/wv run through the
+    block-sparse kernel and the expert leaves stay dense."""
+    from repro_torch.models import layers as TL
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(), d_model=256,
+                              head_dim=128, n_heads=4, n_kv_heads=2, d_ff=256, n_experts=128,
+                              top_k=8, capacity_factor=1.0)
+    params = TT.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    on_card = {k: v.cuda() if torch.is_tensor(v) else {kk: vv.cuda() for kk, vv in v.items()}
+               for k, v in params.items()}
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    args = (cfg.n_experts, cfg.top_k, cfg.capacity_factor, torch.float32)
+    dc = TL._moe_dispatch(x.reshape(80, -1), lp["w_router"], *args)
+    dg = TL._moe_dispatch(x.reshape(80, -1).cuda(), lp["w_router"].cuda(), *args)
+    assert torch.equal(dg[2].cpu(), dc[2]) and torch.equal(dg[3].cpu(), dc[3])
+    assert not bool(dc[2].all())
+    lpg = {k: v.cuda() for k, v in lp.items()}
+    torch.testing.assert_close(TL.moe_block(x.cuda(), lpg, cfg).cpu(), TL.moe_block(x, lp, cfg),
+                               atol=1e-4, rtol=0)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33), generator=torch.Generator().manual_seed(2))
+    torch.testing.assert_close(TT.forward(on_card, toks.cuda(), cfg).cpu(),
+                               TT.forward(params, toks, cfg), atol=1e-4, rtol=0)
+    caches = [TT.prefill(p, t[:, :32], cfg)[1] for p, t in ((params, toks), (on_card, toks.cuda()))]
+    for c in caches:
+        for key in ("k", "v"):
+            c[key] = torch.nn.functional.pad(c[key], (0, 0, 0, 0, 0, 1))
+    steps = [TT.decode_step(p, t[:, 32], cfg, c)[0]
+             for p, t, c in ((params, toks, caches[0]), (on_card, toks.cuda(), caches[1]))]
+    torch.testing.assert_close(steps[1].cpu(), steps[0], atol=1e-4, rtol=0)
+
+    pb = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    pp, masks = prune_params(pb, FlexBlockSpec((FullBlock(128, 128, 0.5),)),
+                             keys=("wq", "wk", "wv", "w_gate", "w_up", "w_down"))
+    assert masks["layers"]["w_up"].device.type == "cpu" and masks["layers"]["wq"].is_cuda
+    cp = compress_params(pp, masks, 128, 128)
+    assert all(isinstance(cp["layers"][k], BlockSparseLinear) for k in ("wq", "wk", "wv"))
+    assert all(cp["layers"][k] is pp["layers"][k] for k in ("w_gate", "w_up", "w_down"))
+    assert ops.variant_counts()["block_importance"]["strip"] == 6 * cfg.n_layers
+    engine = ServeEngine(cfg, cp, slots=4, max_len=128, dtype=torch.bfloat16)
+    reqs = [Request(prompt=toks[i, :n].numpy(), max_new_tokens=5)
+            for i, n in enumerate((33, 20, 9))]
+    for r in reqs:
+        engine.submit(r)
+    ops.reset_launch_counts()
+    engine.run()
+    assert all(r.done and len(r.output) == 5 for r in reqs)
+    counts = ops.launch_counts()
+    assert counts["block_sparse_matmul"] == 3 * cfg.n_layers * (len(reqs) + engine.last_stats["steps"])
+    assert counts["intrablock_gather_matmul"] == 0
