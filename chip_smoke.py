@@ -73,33 +73,55 @@ Phases, each reported on its own line(s):
    the kernel and plain paths and each layer on the same input through
    both; the peak device memory of the prune step and of serving is
    printed;
-9. microbench — ``microbench_kernels`` on the card, its samples written
+9. mamba2-130m IntraBlock path: free the MoE weights, init mamba2-130m at
+   full width and depth (24 attention-free Mamba-2 layers, d_model 768,
+   24 SSM heads of 64, state 128, no MLP), prune w_in/w_out with
+   row-aligned IntraBlock(4, 1, 0.5), compress, serve the 8 requests
+   (the engine merges each prefill's SSM and conv states into its slot)
+   and run the parity phase; then the chunked SSD against the recurrence:
+   in f32 on the plain path, a 300-token prefill (two chunks, the second
+   ragged) against a 236-token prefill and 64 decode steps;
+10. hymba-1.5b IntraBlock path: init hymba-1.5b at full width and depth
+   (32 layers of sliding-window attention (window 1024, 25 q / 5 kv heads
+   of 64) beside the SSM mixer (50 heads, state 16), gated MLP), prune its
+   eight projections with row-aligned IntraBlock(4, 1, 0.5), compress,
+   serve the 8 requests with the first prompt made 1600 tokens long
+   through ``ServeEngine(slots=4, max_len=2048)`` and run the parity
+   phase, then the window check on layer 0, with flash's general variant
+   (head dim 64) held against ``chunked_attention`` on the long prompt;
+11. microbench — ``microbench_kernels`` on the card, its samples written
    as JSONL under ``build/`` and read back;
-10. cost    — on the host, from what the card produced in this run: a
+12. cost    — on the host, from what the card produced in this run: a
    calibration profile fitted to the microbench samples (saved under
    ``build/profiles/``), the profile's 108 skippable-bit ratios mapped
    onto ``lm_workload``'s op names, and CIMinus cost reports of the five
    served models with the FlexBlock specs they were pruned with, on
    ``usecase_arch(4, input_sparsity=True)`` at 512 tokens: qwen3-4b (a)
    without input sparsity, (b) with the measured ratios, (c) with the
-   ratios and the fitted profile; llama3-8b, gemma-7b, gemma2-9b and
-   qwen3-moe-30b-a3b (a) and (c).  Each report must be finite and round-trip through JSON, (b)
-   may not be slower than (a), a profile with unit efficiencies must give
-   (b) bit for bit, (c) must be (b) (or (a)) with each op's latency
-   divided by its class's efficiency, and the density of every mask the
-   card produced must be the spec's;
-11. the ``{"kernels": [...]}`` line; 12. the card's name and power limit.
+   ratios and the fitted profile; llama3-8b, gemma-7b, gemma2-9b,
+   qwen3-moe-30b-a3b, mamba2-130m and hymba-1.5b (a) and (c); the last
+   two's (a) must equal the cycles and speedup the port's
+   ``cim_cost_of_model`` gives on a CPU.  Each report must be finite and
+   round-trip through JSON, (b) may not be slower than (a), a profile with
+   unit efficiencies must give (b) bit for bit, (c) must be (b) (or (a))
+   with each op's latency divided by its class's efficiency, and the
+   density of every mask the card produced must be the spec's;
+13. the ``{"kernels": [...]}`` line; 14. the card's name and power limit.
 
 The launch counts are set to 0 just before each path and read just
 after it: on each served path from prune to the end of serving (every
 kernel's count is kept per path), ``bitserial_zero_profile`` over the
 profile call.
 After each served path its compressed projections must have run only
-through the ``decode`` and ``prefill`` variants, one launch per
-projection, layer and decode step or prompt, none through ``general``
+through the ``decode`` and ``prefill`` variants where their width N is a
+multiple of 128 (one launch per projection, layer and decode step or
+prompt) and only through ``general`` where it is not (one launch per
+projection, layer and decode step or prompt: mamba2-130m's w_in,
+hymba-1.5b's wq/wk/wv/w_down/w_in/w_out), never ``f32``
 (qwen3-moe-30b-a3b: wq/wk/wv only); its prefill attention only through
 the flash ``wgmma`` variant (one launch per layer and prompt; gemma-7b:
-``general``, head dim 256; gemma2-9b: no flash launch at all), the
+``general``, head dim 256; hymba-1.5b: ``general``, head dim 64;
+gemma2-9b and mamba2-130m: no flash launch at all), the
 llama3-8b, gemma2-9b and qwen3-moe-30b-a3b prunes only through the
 block-importance ``strip`` variant (one launch per projection and
 layer), and the profile only through the bit-serial ``fused`` variant.
@@ -131,6 +153,7 @@ BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 KEYS = ("wq", "wk", "wv", "w_gate", "w_up", "w_down")
+SSM_KEYS = ("w_in", "w_out")                      # the SSM mixer's projections
 EXPERT_KEYS = ("w_gate", "w_up", "w_down")      # an MoE's: (L, E, K, N), kept masked-dense
 BLOCK = 128
 INTRA_M = 4            # IntraBlock(4, 1, 0.5): 2 of every 4 rows, shared by all columns
@@ -313,10 +336,13 @@ def kernel_phase() -> dict:
     # (512 tokens) and the same heads at S = 2048, where the tensor cores
     # bound it; gemma-7b's prefill of the longest prompt (16 heads of 256,
     # MHA: the general variant); qwen3-moe-30b-a3b's (8 q heads per kv head);
-    # head dims 64/256 and a window for coverage.
+    # head dims 64/256 and a window for coverage; hymba-1.5b's prefill of its
+    # 1600-token prompt (padded to 1664; 25 q / 5 kv heads of 64, window
+    # 1024: the general variant).
     fa_cases = [(1, 512, 32, 8, 128, None), (1, 2048, 32, 8, 128, None),
                 (1, 512, 16, 16, 256, None), (1, 512, 32, 4, 128, None),
-                (1, 256, 8, 2, 64, 64), (1, 256, 8, 2, 256, None)]
+                (1, 256, 8, 2, 64, 64), (1, 256, 8, 2, 256, None),
+                (1, 1664, 25, 5, 64, 1024)]
     fa_variants = {}
     tol = {torch.bfloat16: 3e-2, torch.float32: 3e-5}
     for (B, S, Hq, Hkv, hd, window) in fa_cases:
@@ -370,6 +396,11 @@ def kernel_phase() -> dict:
                 check(variant == "general", f"{name}: ran the {variant} variant")
                 fa_variants["general"] = dict(
                     line, shape=f"q/k/v ({B},{S},{Hq},{hd}) bf16 causal (gemma-7b prefill)")
+            if (S, Hq, hd, window) == (1664, 25, 64, 1024):
+                check(variant == "general", f"{name}: ran the {variant} variant")
+                fa_variants["general/hymba-1.5b"] = dict(
+                    line, shape=f"q ({B},{S},{Hq},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal, "
+                                f"window {window} (hymba-1.5b prefill of 1600 tokens)")
             del sets, lib_sets, q, k, v, out, plain
     rows["flash_attention"]["variants"] = fa_variants
 
@@ -502,13 +533,16 @@ def kernel_phase() -> dict:
             del sets, w
 
     # -- IntraBlock gather-matmul: qwen3-4b's pruned projections ------------
-    # (K, N) at row-aligned 2:4 (Kc = K/2), decode (B = 4) and prefill (B = 512).
+    # (K, N) at row-aligned 2:4 (Kc = K/2), decode (B = 4) and prefill (B = 512);
+    # then the SSM paths' w_in at decode in bf16, whose N % 128 != 0 runs the
+    # general variant (mamba2-130m (768, 3352), hymba-1.5b (1600, 6482)).
     # The library yardstick is torch.matmul on the decompressed masked-dense
     # weight: one call computing the same function, reading twice the
     # weight bytes.
     from repro_torch.kernels import intrablock_matmul as igm_mod
     iproj = {"wq": (2560, 4096), "wk": (2560, 1024), "w_gate": (2560, 9728),
-             "w_down": (9728, 2560)}
+             "w_down": (9728, 2560), "mamba2-130m w_in": (768, 3352),
+             "hymba-1.5b w_in": (1600, 6482)}
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}   # of max |plain|
 
     def intra_layout(K, N, dt):
@@ -520,11 +554,13 @@ def kernel_phase() -> dict:
         w_comp, row_idx = ops.compress_intrablock_torch(w, mask, INTRA_M)
         return w_comp, row_idx, w * mask
 
+    igm_variants = {}
     for key, (K, N) in iproj.items():
+        ssm = key.endswith("w_in")
         Kc = K // 2
-        for dt in dtypes:
+        for dt in (torch.bfloat16,) if ssm else dtypes:
             esize = torch.empty((), dtype=dt).element_size()
-            for B in (4, 512):
+            for B in (4,) if ssm else (4, 512):
                 nbytes = B * K * esize + Kc * N * esize + Kc * 4 + B * N * esize
                 sets = [(randn(B, K, dtype=dt),) + intra_layout(K, N, dt)
                         for _ in range(n_copies(nbytes))]
@@ -538,6 +574,7 @@ def kernel_phase() -> dict:
                 scale = plain.float().abs().max().item()
                 name = f"intrablock_gather_matmul {key} B={B} K={K} Kc={Kc} N={N} {str(dt)[6:]}"
                 check(err <= tol[dt] * scale, f"{name}: max_abs_err {err} > {tol[dt]}*{scale}")
+                check(not ssm or variant == "general", f"{name}: ran the {variant} variant")
                 kern = lambda a, wc, ix, d: igm_mod.intrablock_gather_matmul_cuda(
                     a, wc, ix, check_range=False)
                 lib = lambda a, wc, ix, d: torch.matmul(a, d)
@@ -550,18 +587,22 @@ def kernel_phase() -> dict:
                         "eager_ms": cuda_ms(kern, sets), "eager_library_ms": cuda_ms(lib, sets),
                         **bound(nbytes, 2 * B * Kc * N, peak[dt])}
                 line.update(ratios(line))
-                if dt == torch.bfloat16:
+                if dt == torch.bfloat16 and variant != "general":
                     line["cluster"] = plans.igm_plan(B, Kc, N, dt,
                                                      _build.alignment(w_comp.data_ptr())).cluster
                     line["ms_by_cluster"] = cluster_sweep("intrablock_gather_matmul", variant,
                                                           sets)
                 report(name, line)
+                shape = (f"decode x ({B},{K}) gathered by row_idx ({Kc},) @ w_comp ({Kc},{N})"
+                         f"{f' ({key})' if ssm else ''}, row-aligned IntraBlock(4,1,0.5), bf16")
                 if key == "w_gate" and B == 4 and dt == torch.bfloat16:
                     rows["intrablock_gather_matmul"] = dict(
-                        line, shape=f"decode x ({B},{K}) gathered by row_idx ({Kc},) @ w_comp "
-                                    f"({Kc},{N}), row-aligned IntraBlock(4,1,0.5), bf16",
+                        line, shape=shape,
                         library="torch.matmul on the decompressed masked-dense weight")
+                if ssm:
+                    igm_variants[f"general/{key}"] = dict(line, shape=shape)
                 del sets, x, w_comp, row_idx, dense
+    rows["intrablock_gather_matmul"]["variants"] = igm_variants
 
     # -- bit-serial zero profile: int8 count, and the fused quantise-and-count --
     # int8 (V, K): the profile's shapes (1916 prefill tokens of the d_model
@@ -682,10 +723,19 @@ def kernel_phase() -> dict:
 # Phases 3-8: the served paths at full width
 # ---------------------------------------------------------------------------
 
-def matrix_shapes(params) -> dict:
+def pruned_keys(cfg) -> tuple:
+    """The projections a served path prunes: wq/wk/wv where the config
+    attends, w_gate/w_up/w_down where it has an MLP, w_in/w_out where it
+    has the SSM mixer.  ``wo`` is never pruned here."""
+    keys = KEYS[:3] if cfg.attention != "none" else ()
+    keys += KEYS[3:] if cfg.d_ff > 0 else ()
+    return keys + (SSM_KEYS if cfg.ssm_state else ())
+
+
+def matrix_shapes(cfg, params) -> dict:
     """Each pruned key's per-layer matrix (K, N), as ``prune_params`` masks it."""
     return {k: (params["layers"][k].shape[1], math.prod(params["layers"][k].shape[2:]))
-            for k in KEYS}
+            for k in pruned_keys(cfg)}
 
 
 def block_loss_check(cfg, params) -> None:
@@ -722,18 +772,18 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
                 long_prompt=None) -> dict:
     """Init ``cfg`` at full width (random bf16 weights from SEED), run
     ``pre_check(cfg, params)`` if given, then drive the path with the launch
-    counts set to 0 just before it: prune the six projections with
-    ``spec`` (IntraBlock row-aligned), compress, serve the 8 requests
-    (:func:`serve_phase`), read the counts.  An MoE's expert leaves are
+    counts set to 0 just before it: prune the config's projections
+    (:func:`pruned_keys`) with ``spec`` (IntraBlock row-aligned), compress,
+    serve the 8 requests (:func:`serve_phase`), read the counts.  An MoE's expert leaves are
     each moved to the host and pruned on their own (``prune_params``
     builds the pruned copy on the card one layer at a time and keeps its
     mask on the host), so that no leaf stands twice on the card; a mask is
     dropped once its density is read.  Checks the densities, that only the
     projections with a compressed layout were compressed (an MoE's expert
-    leaves stay masked-dense), that those ran only through their op's
-    ``decode`` and ``prefill`` variants, the block losses (FullBlock) only
-    through ``strip``, the prefill attention only through flash's
-    ``flash`` variant (or, for ``flash=None``, no flash launch), and no
+    leaves stay masked-dense), that those ran only through the variants
+    their widths call for (:func:`check_main_variants`), the block losses
+    (FullBlock) only through ``strip``, the prefill attention only through
+    flash's ``flash`` variant (or, for ``flash=None``, no flash launch), and no
     launch of the other compressed op; prints the peak device memory of
     the prune step and of serving; then runs the parity phase.  Returns
     what the later phases need: config, spec, densities, matrix shapes,
@@ -751,7 +801,8 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
     t0 = time.perf_counter()
     params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
-    shapes = matrix_shapes(params)
+    keys = pruned_keys(cfg)
+    shapes = matrix_shapes(cfg, params)
     n_all = sum(t.numel() for t in params["layers"].values()) + params["embed"].numel()
     print(f"[prune] init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_all / 1e9:.3f} G params (embedding included) in "
@@ -763,7 +814,7 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params, masks = prune_params(params, spec, keys=tuple(k for k in KEYS if k not in host_keys),
+    params, masks = prune_params(params, spec, keys=tuple(k for k in keys if k not in host_keys),
                                  align_cols=intra, impl="auto", device="cuda")
     rep = sparsity_report(params, masks)
     for key in host_keys:
@@ -783,12 +834,12 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
               f"{t3 - t2:.1f}s, density read from its host mask {time.perf_counter() - t3:.1f}s",
               flush=True)
     if host_keys:
-        sizes = {k: params["layers"][k].numel() for k in KEYS}
+        sizes = {k: params["layers"][k].numel() for k in keys}
         rep["overall_density"] = (sum(rep[f"layers/{k}"] * n for k, n in sizes.items())
                                   / sum(sizes.values()))
     aligned = {}
     if intra:
-        for key in KEYS:
+        for key in keys:
             m = masks["layers"][key]
             m = m.reshape(m.shape[0], m.shape[1], -1)
             aligned[key] = bool(torch.equal(m, m[:, :, :1].expand_as(m)))
@@ -803,11 +854,11 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
           f"compressed in {time.perf_counter() - t0:.1f}s; density "
           + json.dumps({k.split('/')[-1]: round(v, 6) for k, v in rep.items()})
           + (f"; row-aligned {json.dumps(aligned)}" if intra else ""), flush=True)
-    for key in KEYS:
+    for key in keys:
         check(abs(rep[f"layers/{key}"] - 0.5) < 1e-9, f"{key}: density {rep[f'layers/{key}']}")
         check(aligned.get(key, True), f"{key}: a mask is not row-aligned")
-    comp_keys = tuple(k for k in KEYS if isinstance(cparams["layers"][k], COMPRESSED))
-    dense_keys = tuple(k for k in KEYS if k not in comp_keys)
+    comp_keys = tuple(k for k in keys if isinstance(cparams["layers"][k], COMPRESSED))
+    dense_keys = tuple(k for k in keys if k not in comp_keys)
     check(dense_keys == (EXPERT_KEYS if moe else ()),
           f"{cfg.name}: {dense_keys} were not compressed")
     if intra:
@@ -835,17 +886,19 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
         rows[name].setdefault("launches_by_path", {})[cfg.name] = counts[name]
     check(counts[op] > 0, f"{op} was not launched on the {cfg.name} path")
     check(counts[other] == 0, f"{other} ran on the {cfg.name} path")
-    check_main_variants(cfg, op, counts, len(reqs), len(comp_keys))
+    check_main_variants(cfg, op, counts, len(reqs), cparams, comp_keys)
     if intra:
         check(counts["block_importance"] == 0, f"block_importance ran on the {cfg.name} path")
     else:
-        check_single_variant(cfg, "block_importance", "strip", counts, len(KEYS) * cfg.n_layers)
+        check_single_variant(cfg, "block_importance", "strip", counts, len(keys) * cfg.n_layers)
     if flash is None:
         v = counts["variants"]["flash_attention"]
+        why = ("no attention" if cfg.attention == "none"
+               else f"attention softcap {cfg.attn_softcap}: chunked_attention")
         print(f"[serve] {cfg.name}: flash_attention launches by variant {json.dumps(v)}; want "
-              f"none (attention softcap {cfg.attn_softcap}: chunked_attention)", flush=True)
+              f"none ({why})", flush=True)
         check(counts["flash_attention"] == 0 and not any(v.values()),
-              f"{cfg.name}: flash_attention ran {v} on a softcapped path")
+              f"{cfg.name}: flash_attention ran {v} on a path without flash ({why})")
     else:
         check_single_variant(cfg, "flash_attention", flash, counts, cfg.n_layers * len(reqs))
 
@@ -853,9 +906,16 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
     # stay within 0.06-0.07 of the plain one for llama3-8b, qwen3-4b and
     # gemma-7b and within 0.114 for gemma2-9b (bf16 over 28-42 layers),
     # while leaving out the middle layer's w_down moves them by 0.38-0.86:
-    # 0.15 sits between the two.
-    faults = (moe_faults(cfg, cparams) if moe else intrablock_faults(cfg, cparams) if intra
-              else fullblock_faults(cfg, cparams))
+    # 0.15 sits between the two.  An SSM path's faults are planted in the
+    # mixer's w_out (and hymba's w_down).
+    if moe:
+        faults = moe_faults(cfg, cparams)
+    elif cfg.ssm_state:
+        faults = intrablock_faults(cfg, cparams, "w_out")
+        if cfg.d_ff:
+            faults.update(intrablock_faults(cfg, cparams, "w_down"))
+    else:
+        faults = intrablock_faults(cfg, cparams) if intra else fullblock_faults(cfg, cparams)
     t0 = time.perf_counter()
     parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15, faults=faults)
     print(f"[time] {cfg.name} parity phase {time.perf_counter() - t0:.1f}s", flush=True)
@@ -880,17 +940,24 @@ def cost_inputs(model: dict) -> dict:
     return {k: model[k] for k in ("cfg", "spec", "density", "shapes", "ratios") if k in model}
 
 
-def check_main_variants(cfg, op: str, counts: dict, prefills: int, n_keys: int) -> None:
-    """The path's ``n_keys`` compressed projections ran only through the
-    main variants: one decode launch per projection, layer and decode step
-    (4 slots), one prefill launch per projection, layer and prompt, and no
-    general or f32 launch."""
+def check_main_variants(cfg, op: str, counts: dict, prefills: int, cparams, keys) -> None:
+    """The path's compressed projections ``keys`` ran only through the
+    variants their widths call for: a projection whose N is a multiple of
+    128 one decode launch per layer and decode step (4 slots) and one
+    prefill launch per layer and prompt; any other one general launch per
+    layer and decode step or prompt (the main variants tile N by 128); no
+    f32 launch."""
     v = counts["variants"][op]
-    per = n_keys * cfg.n_layers
-    want = {"decode": per * counts["steps"], "prefill": per * prefills, "general": 0, "f32": 0}
+    n = {k: math.prod(cparams["layers"][k].out_shape) for k in keys}
+    ragged = [k for k in keys if n[k] % BLOCK]
+    main = len(keys) - len(ragged)
+    steps = counts["steps"]
+    want = {"decode": main * cfg.n_layers * steps, "prefill": main * cfg.n_layers * prefills,
+            "general": len(ragged) * cfg.n_layers * (steps + prefills), "f32": 0}
     print(f"[serve] {cfg.name}: {op} launches by variant {json.dumps(v)}; want "
-          f"{json.dumps(want)} ({counts[op]} in all)", flush=True)
-    check(v == want and counts[op] == want["decode"] + want["prefill"],
+          f"{json.dumps(want)} ({counts[op]} in all; N by projection {json.dumps(n)}, general "
+          f"for {ragged})", flush=True)
+    check(v == want and counts[op] == sum(want.values()),
           f"{op}: launches by variant {v}, want {want}")
 
 
@@ -971,7 +1038,8 @@ def step_logits(cparams, cfg, prompt: np.ndarray, impl: str, feed=()) -> torch.T
     lg, cache = prefill(cparams, torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None],
                         cfg, impl=impl)
     for key in ("k", "v"):
-        cache[key] = F.pad(cache[key], (0, 0, 0, 0, 0, len(feed)))
+        if key in cache:
+            cache[key] = F.pad(cache[key], (0, 0, 0, 0, 0, len(feed)))
     out = [lg[0, -1]]
     for t in feed:
         lg, cache = decode_step(cparams, torch.tensor([t], device="cuda"), cfg, cache, impl=impl)
@@ -998,23 +1066,23 @@ def fullblock_faults(cfg, cparams) -> dict:
     return faults
 
 
-def intrablock_faults(cfg, cparams) -> dict:
-    """Planted faults in the middle layer's w_down: its w_comp zeroed (the whole
-    projection left out), and its row_idx moved to the neighbouring row
-    of each pair (r xor 1: every gathered input is the wrong one, each
+def intrablock_faults(cfg, cparams, key: str = "w_down") -> dict:
+    """Planted faults in the middle layer's ``key``: its w_comp zeroed (the
+    whole projection left out), and its row_idx moved to the neighbouring
+    row of each pair (r xor 1: every gathered input is the wrong one, each
     still inside its 4-row block)."""
     from repro_torch.models.layers import IntraBlockLinear
 
-    wd, l = cparams["layers"]["w_down"], cfg.n_layers // 2
+    wd, l = cparams["layers"][key], cfg.n_layers // 2
     zeroed = wd.w_comp.clone()
     zeroed[l] = 0
     shifted = wd.row_idx.clone()
     shifted[l] ^= 1
-    bad = {"w_down of one layer left out": IntraBlockLinear(
+    bad = {f"{key} of one layer left out": IntraBlockLinear(
                zeroed, wd.row_idx, wd.in_features, wd.out_shape),
-           "w_down row_idx of one layer shifted to the neighbouring row": IntraBlockLinear(
+           f"{key} row_idx of one layer shifted to the neighbouring row": IntraBlockLinear(
                wd.w_comp, shifted, wd.in_features, wd.out_shape)}
-    return {what: dict(cparams, layers=dict(cparams["layers"], w_down=w))
+    return {what: dict(cparams, layers=dict(cparams["layers"], **{key: w}))
             for what, w in bad.items()}
 
 
@@ -1063,41 +1131,58 @@ def route_sets(cfg, cparams, prompt, impl: str) -> torch.Tensor:
     return torch.stack([sets[l] for l in range(cfg.n_layers)])
 
 
-def layer_parity(cfg, cparams, prompt) -> tuple:
+def layer_parity(cfg, cparams, prompt, ref_params=None) -> tuple:
     """Each layer on the same input through both paths: the plain path's
-    hidden state before layer l goes through layer l with impl="auto" and
-    with impl="ref".  Returns, per layer, the logit difference its output
-    difference d_l would make carried unchanged to the end (d_l through
-    the final norm's scale at the plain path's final hidden state, then
-    the unembedding, in f32; max over positions and vocabulary), and the
-    share of its tokens whose top-k set differs.  The final hidden
-    state's scale, not the layer's own: the residual stream grows with
-    depth, and normalising an early layer's small output by its own
-    scale would magnify its rounding."""
+    hidden state before layer l goes through layer l with impl="auto" (on
+    ``cparams``) and with impl="ref" (on ``ref_params``, default
+    ``cparams``), first as a prefill of the prompt's tokens but the last,
+    then as one decode step of the last token against the plain path's
+    cache entries of that layer (a copy for each path).  Returns, per
+    layer, the logit difference its output difference d_l would make
+    carried unchanged to the end (d_l through the final norm's scale at
+    the plain path's final hidden state, then the unembedding, in f32;
+    max over the prefill's positions, the decode token and the
+    vocabulary), and for an MoE the share of its prefill tokens whose
+    top-k set differs.  The final hidden state's scale, not the layer's
+    own: the residual stream grows with depth, and normalising an early
+    layer's small output by its own scale would magnify its rounding."""
     from repro_torch.models.layers import _moe_route
     from repro_torch.models.transformer import _decoder_layer, _layer, _windows
 
+    ref_params = cparams if ref_params is None else ref_params
+    routed = cfg.n_experts > 1
     tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
-    x = cparams["embed"][tokens]
-    pos = torch.arange(tokens.shape[1], device="cuda")[None]
+    S = tokens.shape[1] - 1
+    x = ref_params["embed"][tokens[:, :S]]
+    xd = ref_params["embed"][tokens[:, S:]]
+    pos = torch.arange(S, device="cuda")[None]
+    dpos = torch.full((1, 1), S, device="cuda")
     deltas, flips = [], []
     for l, window in enumerate(_windows(cfg)):
-        lp = _layer(cparams["layers"], l)
-        outs, routes = [], []
-        for impl in ("auto", "ref"):
+        lps = (_layer(cparams["layers"], l), _layer(ref_params["layers"], l))
+        outs, routes, dec = [], [], []
+        for impl, lp in zip(("auto", "ref"), lps):
             seen = {}
-            y, _ = _decoder_layer(x, lp, cfg, positions=pos, window=window, impl=impl,
-                                  tap=lambda kind, a: seen.setdefault(kind, a))
+            y, new = _decoder_layer(x, lp, cfg, positions=pos, window=window, impl=impl,
+                                    tap=lambda kind, a: seen.setdefault(kind, a))
             outs.append(y)
-            routes.append(_moe_route(seen["mlp_in"][0], lp["w_router"], cfg.top_k,
-                                     y.dtype)[1].sort(dim=1).values)
-        deltas.append(outs[0][0] - outs[1][0])
-        flips.append((routes[0] != routes[1]).any(dim=1).float().mean().item())
-        x = outs[1]
-    xf = x[0].float()
+            if routed:
+                routes.append(_moe_route(seen["mlp_in"][0], lp["w_router"], cfg.top_k,
+                                         y.dtype)[1].sort(dim=1).values)
+        for impl, lp in zip(("auto", "ref"), lps):
+            # the plain path's cache entries of this layer, k/v with room for one token
+            cache = {k: (F.pad(t, (0, 0, 0, 0, 0, 1)) if k in ("k", "v") else t.clone())
+                     for k, t in new.items()}
+            dec.append(_decoder_layer(xd, lp, cfg, positions=dpos, window=window, cache=cache,
+                                      cache_len=torch.tensor(S, device="cuda"), impl=impl)[0])
+        deltas.append(torch.cat([outs[0][0] - outs[1][0], dec[0][0] - dec[1][0]]))
+        if routed:
+            flips.append((routes[0] != routes[1]).any(dim=1).float().mean().item())
+        x, xd = outs[1], dec[1]
+    xf = torch.cat([x[0], xd[0]]).float()
     scale = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + cfg.norm_eps) \
-        * (1.0 + cparams["final_norm"].float())
-    w = (cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]).float()
+        * (1.0 + ref_params["final_norm"].float())
+    w = (ref_params["embed"].T if cfg.tie_embeddings else ref_params["lm_head"]).float()
     diffs = [max((d.float()[i:i + 128] * scale[i:i + 128] @ w).abs().max().item()
                  for i in range(0, d.shape[0], 128)) for d in deltas]
     return diffs, flips
@@ -1113,26 +1198,35 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
     can flip within the tolerance).  ``faults`` maps a name to a copy of
     the params with a fault planted in it, or to a context manager factory
     that plants it and yields the params; the logit error each gives over
-    the same steps is reported, and the first must exceed the tolerance.  Last, the served
+    the same steps is reported, and the first must exceed the tolerance
+    (every one on an MoE or SSM path).  Last, the served
     logits must be f32 products, as the reference's
     ``preferred_element_type=f32`` unembedding gives (then the config's
     final-logit softcap, where it has one).
 
-    An MoE's routing is discrete, so a bf16 difference in a router's
-    input can move a top-k choice or who keeps a capacity slot.
-    The share of (layer, token) top-k sets that differ between the two
-    paths over the 8 prompts' prefill is printed, and so is each layer on
-    the same input through both paths (:func:`layer_parity`, the first
-    prompt).  The logits must stay within ``tol`` end to end; where the
-    flips carry them past it, every layer must stay within ``tol`` on the
-    same input instead, and the served tokens must agree where the plain
-    margin exceeds twice the measured difference.  Every planted fault
-    must exceed the tolerance.
+    Two families can carry a last-bit difference far: an MoE's routing is
+    discrete, so a bf16 difference in a router's input can move a top-k
+    choice or who keeps a capacity slot; the SSM mixer rounds large
+    intermediates (masked scores, carried states) to bf16, so a
+    difference in one element's rounding moves others' roundings, layer
+    after layer (where an SSM path passes the tolerance end to end, the
+    plain path in bf16 is also held against the same weights in f32 over
+    the same steps, to show that drift's size).  For
+    these, each layer on the same input through both paths is printed
+    (:func:`layer_parity`, the first prompt) and, for an MoE, the share of
+    (layer, token) top-k sets that differ over the 8 prompts' prefill.
+    The logits must stay within ``tol`` end to end; where the flips carry
+    them past it, every layer must stay within ``tol`` on the same input
+    instead, each planted fault given as a copy of the params must exceed
+    ``tol`` read the same way (its largest layer), and the served tokens
+    must agree where the plain margin exceeds twice the measured
+    difference.  Every planted fault must exceed the tolerance.
     """
     from repro_torch.models.layers import rms_norm, softcap
     from repro_torch.models.transformer import _run
 
     routed = cfg.n_experts > 1
+    layered = routed or cfg.ssm_state > 0
     feed = served[0][:4]
 
     def steps(params, impl):
@@ -1151,22 +1245,26 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
           f"(tol {tol}), per step {[round(e, 4) for e in err.tolist()]}", flush=True)
     layer_max = None
     if routed:
-        t0 = time.perf_counter()
         differ = total = 0
         for p in prompts:
             a, b = route_sets(cfg, cparams, p, "auto"), route_sets(cfg, cparams, p, "ref")
             differ += int((a != b).any(dim=2).sum())
             total += a.shape[0] * a.shape[1]
-        diffs, flips = layer_parity(cfg, cparams, prompts[0])
-        layer_max = max(diffs)
         print(f"[parity] {cfg.name}: routing, kernels vs impl=ref over the 8 prompts' prefill: "
               f"{differ} of {total} (layer, token) top-{cfg.top_k} sets differ "
-              f"({differ / total:.4%}); each layer on the same input (request 0, "
-              f"{len(prompts[0])} tokens): max |dlogit| of a layer's output {layer_max:.4f} "
-              f"(tol {tol}), per layer {[round(d, 4) for d in diffs]}, top-k sets that differ "
-              f"per layer {[round(f, 4) for f in flips]} ({time.perf_counter() - t0:.1f}s)",
-              flush=True)
-    bound = tol if e2e <= tol or not routed else e2e
+              f"({differ / total:.4%})", flush=True)
+    if layered:
+        t0 = time.perf_counter()
+        diffs, flips = layer_parity(cfg, cparams, prompts[0])
+        layer_max = max(diffs)
+        print(f"[parity] {cfg.name}: each layer on the same input (request 0, a prefill of its "
+              f"first {len(prompts[0]) - 1} tokens and a decode step of its last): max |dlogit| "
+              f"of a layer's output {layer_max:.4f} (tol {tol}), per layer "
+              f"{[round(d, 4) for d in diffs]}"
+              + (f", top-k sets that differ per layer {[round(f, 4) for f in flips]}"
+                 if routed else "") + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
+    fallback = layered and e2e > tol
+    bound = e2e if fallback else tol
     decided = [i for i, m in enumerate(margins) if m > 2 * bound]
     wrong = [i for i in decided if picked[i] != want[i]]
     print(f"[parity] {cfg.name}: served tokens vs impl=ref argmax: agree on "
@@ -1181,10 +1279,23 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
     print(f"[parity] {cfg.name}: planted faults, max |dlogit| vs impl=ref over the same "
           f"{len(margins)} steps: " + json.dumps({k: round(v, 4) for k, v in fault_err.items()}),
           flush=True)
+    if fallback and cfg.ssm_state:
+        drift = (steps(f32_copy(cparams), "ref") - plain).abs().max().item()
+        print(f"[parity] {cfg.name}: the plain path in bf16 against the same weights in f32 over "
+              f"the same {len(margins)} steps: max |dlogit| {drift:.4f} (bf16 rounding drift "
+              f"end to end, beside the kernels' {e2e:.4f})", flush=True)
+    if fallback:
+        # read layer by layer, against the unfaulted plain path on the same input
+        for what, bad in faults.items():
+            if not callable(bad):
+                fault_err[what] = max(layer_parity(cfg, bad, prompts[0], ref_params=cparams)[0])
+        print(f"[parity] {cfg.name}: end to end past the tolerance, so each planted fault read "
+              f"as its largest layer on the same input (the in-place ones end to end): "
+              + json.dumps({k: round(v, 4) for k, v in fault_err.items()}), flush=True)
 
     # f32 unembedding: the served prefill logits against an f32 product
     # of the final hidden state and the whole unembedding widened to f32.
-    x, _, _ = _run(cparams, torch.as_tensor(prompts[0], dtype=torch.long,
+    x, _ = _run(cparams, torch.as_tensor(prompts[0], dtype=torch.long,
                                              device="cuda")[None], cfg, "auto", False)
     h = rms_norm(x[0, -1:], cparams["final_norm"], cfg.norm_eps)
     w = cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]
@@ -1195,13 +1306,13 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
     del f32, rounded
     print(f"[parity] {cfg.name}: served prefill logits vs an f32 unembedding: max |d| "
           f"{e32:.3e} (tol 1e-4); bf16-rounded logits would differ by {e16:.3e}", flush=True)
-    if routed and e2e > tol:
+    if fallback:
         check(layer_max <= tol, f"logits differ by {e2e} > {tol} end to end, and a layer on the "
                                 f"same input by {layer_max} > {tol}")
     else:
         check(e2e <= tol, f"logits differ by {e2e} > {tol}")
     check(not wrong, f"served tokens differ from impl=ref at decided steps {wrong}")
-    for what in (fault_err if routed else list(fault_err)[:1]):
+    for what in (fault_err if layered else list(fault_err)[:1]):
         check(fault_err[what] > tol, f"{what}: stays within the logit tolerance {tol}")
     check(e32 <= 1e-4, f"served logits are not f32 products: {e32} > 1e-4")
 
@@ -1393,10 +1504,15 @@ def window_check(cfg, cparams, prompt) -> None:
     call with ``window=None`` bit for bit on the query rows before
     position cfg.window (the mask is all true there, so the same code
     gives the same bits) and differ on every row from it on.  In f32, so
-    that the one key row cfg.window drops shows after rounding.  Then
-    prints how far layer 0's raw scores and the raw final logits reach
-    toward the two softcaps."""
-    from repro_torch.models.layers import chunked_attention, project, rms_norm, rope
+    that the one key row cfg.window drops shows after rounding.  Where the
+    prefill attention runs flash (no attention softcap), flash's output on
+    the same bf16 q/k/v must equal ``chunked_attention(window=cfg.window)``
+    within 3e-2, through the variant the path ran.  Where the config has
+    softcaps, prints how far layer 0's raw scores and the raw final logits
+    reach toward them."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import (chunked_attention, project, rms_norm, rope,
+                                           self_attention)
     from repro_torch.models.transformer import _layer, _run, _unembed, _windows
 
     W, cap = cfg.window, cfg.attn_softcap
@@ -1410,7 +1526,8 @@ def window_check(cfg, cparams, prompt) -> None:
     q, k, v = (project(h, lp[w]) for w in ("wq", "wk", "wv"))
     if cfg.qk_norm:
         q, k = rms_norm(q, lp["q_norm"], cfg.norm_eps), rms_norm(k, lp["k_norm"], cfg.norm_eps)
-    q, k, v = rope(q, pos, cfg.rope_theta).float(), rope(k, pos, cfg.rope_theta).float(), v.float()
+    qb, kb, vb = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta), v
+    q, k, v = qb.float(), kb.float(), vb.float()
     win = chunked_attention(q, k, v, causal=True, window=W, attn_cap=cap)
     glob = chunked_attention(q, k, v, causal=True, window=None, attn_cap=cap)
     same = torch.equal(win[:, :W], glob[:, :W])
@@ -1422,12 +1539,25 @@ def window_check(cfg, cparams, prompt) -> None:
     check(same, f"{cfg.name}: the window changed a row before position {W}")
     check(rows_differ == S - W, f"{cfg.name}: {S - W - rows_differ} rows past the window "
                                 f"equal the global attention")
+    if not cap:
+        before = ops.variant_counts()["flash_attention"]
+        fa = self_attention(qb, kb, vb, window=W, impl="cuda")
+        variant = moved_variant("flash_attention", before)
+        plain = chunked_attention(qb, kb, vb, causal=True, window=W)
+        err = (fa.float() - plain.float()).abs().max().item()
+        print(f"[window] {cfg.name}: layer 0's attention on the {S}-token prompt through flash "
+              f"({variant} variant, q ({S} padded to {-(-S // 128) * 128}) x {qb.shape[2]} heads "
+              f"of {qb.shape[3]}, {kb.shape[2]} kv heads, window {W}) vs chunked_attention with "
+              f"window {W}, both on the bf16 q/k/v: max |d| {err:.3e} (tol 3e-2)", flush=True)
+        check(variant == "general", f"{cfg.name}: flash ran the {variant} variant")
+        check(err <= 3e-2, f"{cfg.name}: flash differs from chunked_attention by {err}")
+        return
 
     Hkv, hd = k.shape[2], k.shape[3]
     qg = q.reshape(1, S, Hkv, -1, hd)
     s_max = max((torch.einsum("bqhgd,bkhd->bhgqk", qg[:, i:i + 1024], k) / math.sqrt(hd))
                 .abs().max().item() for i in range(0, S, 1024))
-    x, _, _ = _run(cparams, tokens, cfg, "auto", False)
+    x, _ = _run(cparams, tokens, cfg, "auto", False)
     z_max = _unembed(cparams, x[:, -64:], dataclasses.replace(cfg, logit_softcap=0.0)) \
         .abs().max().item()
     below = s_max < cap and z_max < cfg.logit_softcap
@@ -1486,6 +1616,168 @@ def moe_path(cfg, rows: dict) -> dict:
     return cost_inputs(model)
 
 
+# ---------------------------------------------------------------------------
+# Phases 9-10: the SSM family
+# ---------------------------------------------------------------------------
+
+HYMBA_PROMPT = 1600     # hymba-1.5b's long request: past its 1024-token window
+CHUNKED, RECURRENT = 300, 236    # the recurrence check's prompt, and its prefill part
+# f32, plain path.  Layer by layer (each mixer on the same input) the
+# chunked SSD and the recurrence are the same sums in another order: a
+# chunk sums at most 256 decayed terms, so they differ by ~256 f32 unit
+# roundoffs (1.5e-5) of the largest value; 1e-4 leaves room.  End to end
+# the 24 layers amplify such differences: at this init a 1e-6 relative
+# change of the embedding moves the f32 logits (std ~1) by ~1e-3 (the
+# check prints it), so the logits are held to 2e-2 and the final states
+# to 1e-3 of their largest value.
+RECUR_LAYER_RTOL, RECUR_LOGIT_TOL, RECUR_STATE_RTOL = 1e-4, 2e-2, 1e-3
+
+
+def f32_copy(cparams) -> dict:
+    """The compressed params in f32 (IntraBlockLinear w_comp widened, the
+    same rows kept), for the plain path."""
+    from repro_torch.models.layers import IntraBlockLinear
+
+    def widen(w):
+        if isinstance(w, IntraBlockLinear):
+            return IntraBlockLinear(w.w_comp.float(), w.row_idx, w.in_features, w.out_shape,
+                                    _checked=True)
+        return w.float()
+    return {k: ({n: widen(w) for n, w in v.items()} if k == "layers" else widen(v))
+            for k, v in cparams.items()}
+
+
+def rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def mixer_recurrence(cfg, p32, toks, zero_conv: bool = False) -> dict:
+    """Each layer's SSM mixer on the same input (the chunked plain path's
+    normed hidden state before it): ``ssm_block`` over the CHUNKED tokens
+    against ``ssm_block`` over the first RECURRENT and one single-step call
+    per later token (with the conv state zeroed before them if
+    ``zero_conv``).  Returns the largest relative difference over layers
+    of the outputs of the recurrent tokens, the final SSM state and the
+    final conv state."""
+    from repro_torch.models.layers import rms_norm, ssm_block
+    from repro_torch.models.transformer import _decoder_layer, _layer
+
+    x = p32["embed"][toks]
+    pos = torch.arange(CHUNKED, device="cuda")[None]
+    worst = {"y": 0.0, "ssm": 0.0, "conv": 0.0}
+    for l in range(cfg.n_layers):
+        lp = _layer(p32["layers"], l)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, state, conv = ssm_block(h, lp, cfg, impl="ref")
+        _, st, cv = ssm_block(h[:, :RECURRENT], lp, cfg, impl="ref")
+        if zero_conv:
+            cv = torch.zeros_like(cv)
+        ys = []
+        for t in range(RECURRENT, CHUNKED):
+            yt, st, cv = ssm_block(h[:, t:t + 1], lp, cfg, state=st, conv_state=cv, impl="ref")
+            ys.append(yt)
+        for key, a, b in (("y", torch.cat(ys, dim=1), y[:, RECURRENT:]), ("ssm", st, state),
+                          ("conv", cv, conv)):
+            worst[key] = max(worst[key], rel(a, b))
+        x, _ = _decoder_layer(x, lp, cfg, positions=pos, impl="ref")
+    return worst
+
+
+def recurrence_check(cfg, cparams, prompt) -> None:
+    """The chunked SSD against the single-step recurrence, in f32 on the
+    plain path, for the prompt's first CHUNKED tokens (one full chunk of
+    256 and a ragged one): each layer's mixer on the same input
+    (:func:`mixer_recurrence`), then end to end, ``prefill`` of the
+    CHUNKED tokens against ``prefill`` of the first RECURRENT and one
+    ``decode_step`` per token after them: the final SSM and conv states,
+    the last logits, and the logits of every decode step against
+    ``forward``'s at its position.  A planted fault, the conv state zeroed
+    before the decodes, must exceed each logit and output tolerance (the
+    SSM state forgets it within the 64 steps, so the final state cannot
+    show it)."""
+    from repro_torch.models.transformer import decode_step, forward, prefill
+
+    t0 = time.perf_counter()
+    check(len(prompt) >= CHUNKED, f"prompt of {len(prompt)} tokens, want {CHUNKED}")
+    p32 = f32_copy(cparams)
+    toks = torch.as_tensor(prompt[:CHUNKED], dtype=torch.long, device="cuda")[None]
+    layer, layer_bad = mixer_recurrence(cfg, p32, toks), mixer_recurrence(cfg, p32, toks, True)
+    full = forward(p32, toks, cfg, impl="ref")[0]
+    nudged = forward(dict(p32, embed=p32["embed"] * (1 + 1e-6)), toks, cfg, impl="ref")[0]
+    last, chunked = prefill(p32, toks, cfg, impl="ref")
+
+    def recurrent(zero_conv: bool):
+        _, cache = prefill(p32, toks[:, :RECURRENT], cfg, impl="ref")
+        if zero_conv:
+            cache["conv"].zero_()
+        steps = []
+        for t in range(RECURRENT, CHUNKED):
+            lg, cache = decode_step(p32, toks[:, t], cfg, cache, impl="ref")
+            steps.append(lg[0])
+        return torch.stack(steps), cache
+
+    steps, cache = recurrent(False)
+    bad_steps, _ = recurrent(True)
+    want = full[RECURRENT:CHUNKED]
+    d_last = (steps[-1] - last[0, -1]).abs().max().item()
+    d_steps = (steps - want).abs().max().item()
+    d_state = {k: rel(cache[k], chunked[k]) for k in ("ssm", "conv")}
+    d_fault = (bad_steps - want).abs().max().item()
+    d_nudge = (nudged - full).abs().max().item()
+    fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})
+    print(f"[ssm] {cfg.name}: chunked SSD (chunk {cfg.ssm_chunk}, {CHUNKED} tokens) vs the "
+          f"recurrence ({RECURRENT} tokens, then {CHUNKED - RECURRENT} single steps), f32 plain "
+          f"path; each layer's mixer on the same input, max |d| / max |value| over layers: "
+          f"{fmt(layer)} (tol {RECUR_LAYER_RTOL}), with the conv state zeroed before the steps "
+          f"{fmt(layer_bad)}", flush=True)
+    print(f"[ssm] {cfg.name}: end to end (prefill, then decode_step): last logits max |d| "
+          f"{d_last:.3e}, every decode step's logits vs forward {d_steps:.3e} (tol "
+          f"{RECUR_LOGIT_TOL}), final states {fmt(d_state)} (tol {RECUR_STATE_RTOL}); with the "
+          f"conv state zeroed before the decodes, decode logits {d_fault:.3e}; f32 sensitivity: "
+          f"the embedding scaled by 1 + 1e-6 moves forward's logits by {d_nudge:.3e} "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    check(max(layer.values()) <= RECUR_LAYER_RTOL,
+          f"{cfg.name}: a layer's recurrence differs from its chunked SSD: {layer}")
+    check(max(d_last, d_steps) <= RECUR_LOGIT_TOL,
+          f"{cfg.name}: recurrence differs from the chunked SSD by {max(d_last, d_steps)}")
+    check(max(d_state.values()) <= RECUR_STATE_RTOL, f"{cfg.name}: states differ {d_state}")
+    check(layer_bad["y"] > RECUR_LAYER_RTOL and d_fault > RECUR_LOGIT_TOL,
+          f"{cfg.name}: a zeroed conv state stays within the tolerances")
+
+
+def mamba2_path(cfg, rows: dict) -> dict:
+    """Prune (row-aligned IntraBlock), compress, serve and check
+    mamba2-130m at full width and depth, then the chunked SSD against the
+    recurrence."""
+    from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+
+    model = served_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)), flash=None)
+    rows["intrablock_gather_matmul"]["variants"][f"general/{cfg.name} w_in"]["launches"] = \
+        model["counts"]["variants"]["intrablock_gather_matmul"]["general"]
+    recurrence_check(cfg, model["cparams"], model["prompts"][0])
+    return cost_inputs(model)
+
+
+def hymba_path(cfg, rows: dict) -> dict:
+    """Prune (row-aligned IntraBlock), compress, serve and check hymba-1.5b
+    at full width and depth with one request of HYMBA_PROMPT tokens, then
+    the window check on layer 0 with flash beside chunked_attention."""
+    from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+
+    model = served_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)),
+                        flash="general", max_len=2048, long_prompt=HYMBA_PROMPT)
+    variants = model["counts"]["variants"]
+    rows["intrablock_gather_matmul"]["variants"][f"general/{cfg.name} w_in"]["launches"] = \
+        variants["intrablock_gather_matmul"]["general"]
+    rows["flash_attention"]["variants"][f"general/{cfg.name}"]["launches"] = \
+        variants["flash_attention"]["general"]
+    t0 = time.perf_counter()
+    window_check(cfg, model["cparams"], model["prompts"][0])
+    print(f"[time] {cfg.name} window check {time.perf_counter() - t0:.1f}s", flush=True)
+    return cost_inputs(model)
+
+
 def microbench_phase() -> list:
     """``microbench_kernels`` on the card; its samples go to JSONL under
     build/ and must read back unchanged.  Returns the samples."""
@@ -1516,6 +1808,11 @@ def microbench_phase() -> list:
 RATIO_OPS = {"attn_in": ("attn_q", "attn_k", "attn_v"), "mlp_in": ("mlp_up",),
              "down_in": ("mlp_down",)}
 COST_SEQ = 512
+# (latency cycles, speedup) of cost (a), row-aligned IntraBlock(4, 1, 0.5)
+# on usecase_arch(4, input_sparsity=True) at COST_SEQ tokens, as the port's
+# cim_cost_of_model gives them on a CPU (the cost model is host numpy)
+CPU_COST = {"mamba2-130m": (2185728.0, 1.9940267041461701),
+            "hymba-1.5b": (30054144.0, 1.9278358418725883)}
 
 
 def card_line() -> str:
@@ -1599,19 +1896,29 @@ def cost_phase(samples: list, served: list) -> None:
     mapping = default_mapping(arch, "duplicate")
     for model in served:
         cfg, spec = model["cfg"], model["spec"]
-        for key in KEYS:
+        keys = pruned_keys(cfg)
+        for key in keys:
             got, want = model["density"][f"layers/{key}"], spec.overall_density(model["shapes"][key])
             check(math.isclose(got, want, rel_tol=1e-12, abs_tol=0.0),
                   f"{cfg.name} {key}: mask density {got}, spec {want}")
         print(f"[cost] {cfg.name}: the card's mask density of each pruned key equals "
               f"{spec.describe()}'s overall_density of its per-layer matrix: "
               + json.dumps({k: [model["density"][f"layers/{k}"], list(model["shapes"][k])]
-                            for k in KEYS}), flush=True)
+                            for k in keys}), flush=True)
         wl = lm_workload(cfg, seq_len=COST_SEQ, batch=1).set_sparsity(spec)
         label = f"{cfg.name} {spec.describe()} on {arch.name}, seq_len {COST_SEQ}"
         rep_a, cmp_a = cim_cost_of_model(cfg, arch, spec, seq_len=COST_SEQ)
         check_report(f"{label} (a)", rep_a)
         report_line(f"{label} (a) no input sparsity", rep_a, cmp_a, card)
+        if cfg.name in CPU_COST:
+            got = (rep_a.latency_cycles, cmp_a["speedup"])
+            print(f"[cost] {cfg.name} (a): latency cycles and speedup {got!r}; the port's "
+                  f"cim_cost_of_model on a CPU gave {CPU_COST[cfg.name]!r}; its workload's "
+                  f"ssm_in_proj is d -> 2*din ({2 * cfg.ssm_inner()}) where the served w_in is "
+                  f"2*din + 2*N + H ({2 * cfg.ssm_inner() + 2 * cfg.ssm_state + cfg.ssm_heads}) "
+                  f"wide, as in the reference", flush=True)
+            check(got == CPU_COST[cfg.name], f"{cfg.name} (a): {got} != the CPU's "
+                                             f"{CPU_COST[cfg.name]}")
         base, ratios = rep_a, None
         if "ratios" in model:
             ratios = measured_sparsity(cfg, model["ratios"])
@@ -1695,7 +2002,8 @@ def main() -> int:
         print(f"[time] qwen3-4b path {time.perf_counter() - t0:.1f}s", flush=True)
         later = []
         for name, path in (("gemma-7b", gemma7b_path), ("gemma2-9b", gemma2_path),
-                           ("qwen3-moe-30b-a3b", moe_path)):
+                           ("qwen3-moe-30b-a3b", moe_path), ("mamba2-130m", mamba2_path),
+                           ("hymba-1.5b", hymba_path)):
             t0 = time.perf_counter()
             later.append(path(get_config(name), rows))
             gc.collect()

@@ -13,6 +13,8 @@ _ARCH_MODULES = {
     "gemma2-9b": "gemma2_9b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "dbrx-132b": "dbrx_132b",
+    "mamba2-130m": "mamba2_130m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 

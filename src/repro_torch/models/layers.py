@@ -1,8 +1,9 @@
 """Model-layer primitives of the decoder (port of
 ``repro/models/layers.py``): RMSNorm, RoPE, softcap, chunked
 online-softmax attention with GQA, windows and an attention softcap, the
-attention sub-block, the gated MLP and the capacity-bounded top-k MoE
-block (the reference's global-dispatch path).
+attention sub-block, the gated MLP, the capacity-bounded top-k MoE
+block (the reference's global-dispatch path) and the Mamba-2 mixer
+(chunked SSD for prefill, the single-step recurrence for decode).
 
 Projections are either dense weights in the reference layout (``wq``
 (d, Hq, hd), ``wo`` (Hq, hd, d), ``w_up`` (d, F), ...) or compressed
@@ -398,3 +399,129 @@ def moe_block(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
         x.dtype)
     eo = _expert_ffn(eb, p, cfg, x.dtype)
     return _moe_combine(eo, top_p, keep, dest, tok_idx, T, D, x.dtype).reshape(B, S, D)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD mixer (chunked state-space duality) + single-step decode
+# ---------------------------------------------------------------------------
+
+def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, Q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (Dao & Gu 2024): the intra-chunk quadratic term plus the
+    inter-chunk state recurrence, a port of the reference's ``_ssd_chunked``
+    (``repro/models/layers.py:665-721``).
+
+    xh: (B, S, H, Pd); dt: (B, S, H) f32 > 0; A: (H,) f32 < 0; Bm/Cm:
+    (B, S, N); S a multiple of Q.  Returns y (B, S, H, Pd) in xh's dtype
+    and the final state (B, H, Pd, N) in f32.
+
+    The precision points are the reference's: the cumulative decay, the
+    decays and the chunk weights ``w`` in f32; the masked scores, ``w``
+    and the carried states rounded to xh's dtype before their products;
+    every contraction an f32 product of the stored operands (its
+    ``preferred_element_type=f32``).  ``xh * dt`` is f32, as jnp promotes
+    it.  The recurrence over chunks is a Python loop.
+    """
+    Bsz, S, H, Pd = xh.shape
+    N = Bm.shape[-1]
+    nc = S // Q
+    dtype = xh.dtype
+    xq = xh.reshape(Bsz, nc, Q, H, Pd)
+    dtq = dt.reshape(Bsz, nc, Q, H)
+    Bq = Bm.reshape(Bsz, nc, Q, N).float()
+    Cq = Cm.reshape(Bsz, nc, Q, N).float()
+
+    cum = torch.cumsum(dtq * A, dim=2)                              # (B,nc,Q,H) f32
+    total = cum[:, :, -1, :]                                        # (B,nc,H)
+
+    # intra-chunk: scores[i,j] = C_i·B_j · exp(cum_i - cum_j) for j <= i
+    cb = torch.einsum("bcqn,bckn->bcqk", Cq, Bq)
+    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])   # (B,nc,Q,Q,H)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
+    scores = torch.where(tri[None, None, :, :, None], cb[..., None] * decay,
+                         torch.zeros((), device=xh.device)).to(dtype)
+    xdt = xq.float() * dtq[..., None]                               # (B,nc,Q,H,Pd) f32
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores.float(), xdt)
+
+    # chunk states: S_c = sum_j exp(total - cum_j) · B_j ⊗ (x_j·dt_j)
+    w = torch.exp(total[:, :, None, :] - cum).to(dtype).float()     # (B,nc,Q,H)
+    Sc = torch.einsum("bcqn,bcqhp->bchpn", Bq, w[..., None] * xdt)  # (B,nc,H,Pd,N)
+
+    # inter-chunk recurrence: h_c = exp(total_c)·h_{c-1} + S_c
+    h = torch.zeros((Bsz, H, Pd, N), dtype=torch.float32, device=xh.device)
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * torch.exp(total[:, c])[:, :, None, None] + Sc[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1).to(dtype).float()         # (B,nc,H,Pd,N)
+
+    # inter-chunk output: y_i += C_i · h_{c-1} · exp(cum_i)
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cq, h_prevs) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, S, H, Pd)
+    return y.to(dtype), h
+
+
+def ssm_block(x: torch.Tensor, p: Params, cfg, *, state: Optional[torch.Tensor] = None,
+              conv_state: Optional[torch.Tensor] = None,
+              impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mamba-2 mixer (the reference's ``ssm_block``, ``layers.py:724-781``).
+    Prefill/forward: chunked SSD over the sequence, in chunks of
+    ``cfg.ssm_chunk``.  Decode (S == 1 with ``state``): the single-step
+    recurrence.
+
+    ``w_in`` → [z (din), xs (din), B (N), C (N), dt (H)]; a 4-tap depthwise
+    causal conv on xs, then SiLU; SSD; the D skip, the gate silu(z) and
+    ``w_out``.  ``w_in``/``w_out`` go through :func:`project`, so a
+    compressed one runs its kernel.  Returns (y, final state (B, H, Pd, N)
+    f32, conv state: the last 3 xs rows (B, 3, din)).
+
+    One rounding differs from the reference, in decode only: the reference
+    multiplies the f32 decode output by ``w_out`` in f32, the port rounds
+    it to x's dtype first, so that a compressed ``w_out`` runs its kernel
+    in the weight's dtype (no difference in f32).
+    """
+    B, S, D = x.shape
+    chunk = cfg.ssm_chunk
+    din = cfg.ssm_inner(D)
+    N, H = cfg.ssm_state, cfg.ssm_heads
+    Pd = din // H
+    proj = project(x, p["w_in"], impl).to(x.dtype)
+    z, xs, Bm, Cm, dt_raw = torch.split(proj, [din, din, N, N, H], dim=-1)
+    # log(1 + e^x) with no switch to x at large inputs (F.softplus's
+    # threshold), as jax.nn.softplus computes it
+    dt = torch.logaddexp(dt_raw.float() + p["dt_bias"], torch.zeros((), device=x.device))
+    A = -torch.exp(p["A_log"].float())                                  # (H,) < 0
+
+    kern = p["conv_w"]                                                  # (4, din)
+    decode = state is not None and S == 1
+    if not decode:
+        xpad = F.pad(xs, (0, 0, 3, 0))
+        xc = xpad[:, 0:S] * kern[3]
+        for i in range(1, 4):                      # the reference's sum(), in its order
+            xc = xc + xpad[:, i:i + S] * kern[3 - i]
+        new_conv = xpad[:, -3:]
+    else:
+        hist = torch.cat([conv_state, xs], dim=1)                       # (B, 4, din)
+        xc = (hist * kern.flip(0)[None]).sum(dim=1, keepdim=True)
+        new_conv = hist[:, 1:]
+    xc = F.silu(xc.float()).to(x.dtype)
+    xh = xc.reshape(B, S, H, Pd)
+
+    if not decode:
+        pad = (-S) % chunk
+        xp, dtp, Bp, Cp = xh, dt, Bm, Cm
+        if pad:
+            xp = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, Cm))
+        y, hT = _ssd_chunked(xp, dtp, A, Bp, Cp, min(chunk, xp.shape[1]))
+        y = y[:, :S]
+    else:
+        # h' = exp(dt·A)·h + dt·(B ⊗ x);  y = C·h'
+        a = torch.exp(dt[:, 0] * A[None])                               # (B, H)
+        upd = torch.einsum("bn,bhp->bhpn", Bm[:, 0].float(), xh[:, 0].float() * dt[:, 0, :, None])
+        hT = state * a[:, :, None, None] + upd
+        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), hT)[:, None]   # (B, 1, H, Pd) f32
+    y = y + xh * p["D_skip"][None, None, :, None]
+    y = y.reshape(B, S, din) * F.silu(z.float()).to(x.dtype)
+    out = project(y.to(x.dtype), p["w_out"], impl).to(x.dtype)
+    return out, hT, new_conv

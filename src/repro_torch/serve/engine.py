@@ -104,14 +104,20 @@ class ServeEngine:
                 self._prefill_slot(s, self.queue.pop(0))
 
     def _prefill_slot(self, s: int, req: Request) -> None:
-        """Batch-1 prefill of the prompt, merged into slot ``s`` of the pool."""
+        """Batch-1 prefill of the prompt, merged into slot ``s`` of the pool
+        (k/v, SSM and conv states, each where the cache has it)."""
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)[None]
         S = prompt.shape[1]
         if S >= self.max_len:
             raise ValueError(f"prompt {S} ≥ max_len {self.max_len}")
         logits, pc = prefill(self.params, prompt, self.cfg, impl=self.impl)
         for key in ("k", "v"):
-            self.cache[key][:, s, :S] = pc[key][:, 0].to(self.cache[key].dtype)
+            if key in self.cache:
+                self.cache[key][:, s, :S] = pc[key][:, 0].to(self.cache[key].dtype)
+        # the slot's SSM and conv states replace whatever its last request left
+        for key in ("ssm", "conv"):
+            if key in self.cache:
+                self.cache[key][:, s] = pc[key][:, 0].to(self.cache[key].dtype)
         tok = int(torch.argmax(logits[0, -1]))
         req.output.append(tok)
         self._last_tokens[s] = tok

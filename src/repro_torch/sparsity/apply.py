@@ -13,9 +13,11 @@
   :class:`~repro_torch.models.layers.IntraBlockLinear` in the
   ``compress_intrablock`` layout (``intrablock_gather_matmul`` op).
   Only ``wq``/``wk``/``wv`` and the 3-D (L, K, N) projections (a dense
-  MLP's) have such a layout; ``wo`` (which the reference prunes as
-  (Hq, hd·d)) and the MoE expert leaves (L, E, K, N) stay the masked
-  dense weight, which is what the reference runs.
+  MLP's, the SSM mixer's ``w_in``/``w_out``) have such a layout; ``wo``
+  (which the reference prunes as (Hq, hd·d)) and the MoE expert leaves
+  (L, E, K, N) stay the masked dense weight, which is what the reference
+  runs.  The SSM's ``conv_w``, ``A_log``, ``dt_bias`` and ``D_skip`` are
+  not in ``PRUNABLE_KEYS``, as in the reference.
 * ``cim_cost_of_model`` — lower the arch to a CIMinus workload and cost
   it on a CIM architecture (the reference's modeling-plane round trip,
   host-side numpy).
@@ -53,8 +55,8 @@ def _as_matrix(w: torch.Tensor) -> torch.Tensor:
 def _has_compressed_layout(name: str, w) -> bool:
     """Whether ``compress_params`` gives the stacked leaf ``w`` a compressed
     layout: ``wq``/``wk``/``wv`` (L, d, H, hd) and the 3-D (L, K, N)
-    projections of a dense MLP.  ``wo`` (L, Hq, hd, d) and the MoE expert
-    leaves (L, E, K, N) have none.  No config is at hand, so the rule
+    projections of a dense MLP or the SSM mixer.  ``wo`` (L, Hq, hd, d) and
+    the MoE expert leaves (L, E, K, N) have none.  No config is at hand, so the rule
     rests on name and rank."""
     return w.dim() == 3 or (w.dim() == 4 and name in ("wq", "wk", "wv"))
 
@@ -130,17 +132,22 @@ def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: Optional[
 
     * FullBlock: a projection's per-layer (K, N) mask must be whole
       bm×bn blocks.  The layers of one key share the slot count Ls (the
-      largest over layers; extra slots are -1 padding).
+      largest over layers; extra slots are -1 padding).  A matrix that
+      does not tile by (bm, bn) raises "does not tile": the SSM mixer's
+      ``w_in`` at (768, 3352) (mamba2-130m) or (1600, 6482) (hymba-1.5b)
+      at (128, 128).  ``prune_params`` masks it, padded as the reference
+      pads it, but the reference has no compressed layout for it either.
     * IntraBlock: each layer's mask must be row-aligned with the same
       survivor count in every m-row block, as ``compress_intrablock``
       requires; the layers of one key must keep the same row count Kc.
-    * Only ``wq``/``wk``/``wv`` (L, d, H, hd) and the dense MLP leaves
-      (L, K, N) are compressed.  ``wo`` and the MoE expert leaves
-      (L, E, K, N), which the reference masks as (Hq, hd·d) and (E, d·ff),
-      have no compressed layout (the reference has none either): each
-      stays the masked dense weight ``prune_params`` stored, which is what
-      the reference runs.  ``compress_params`` has no config, so this
-      rule rests on the leaf's name and rank.
+    * Only ``wq``/``wk``/``wv`` (L, d, H, hd) and the 3-D (L, K, N) leaves
+      (a dense MLP's, the SSM mixer's ``w_in``/``w_out``) are compressed.
+      ``wo`` and the MoE expert leaves (L, E, K, N), which the reference
+      masks as (Hq, hd·d) and (E, d·ff), have no compressed layout (the
+      reference has none either): each stays the masked dense weight
+      ``prune_params`` stored, which is what the reference runs.
+      ``compress_params`` has no config, so this rule rests on the leaf's
+      name and rank.
 
     The returned dict holds no reference to the dense projections it
     replaced, so once the caller drops the input params those weights are

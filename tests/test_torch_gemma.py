@@ -119,14 +119,31 @@ def test_layer_flags_and_windows_match_reference(R, arch):
         assert windows[:2] == (4096, None) and windows.count(None) == 21
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b", "whisper-medium",
-                                  "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b"])
 def test_check_supported_still_raises(R, arch):
     cfg = port_cfg(R.configs.get_config(arch).reduced())
     with pytest.raises(NotImplementedError):
         TT._check_supported(cfg)
     with pytest.raises(NotImplementedError):
         TT.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_check_supported_admits_ssm(R, arch):
+    """The families this test once refused: SSM (no attention, no MLP) and
+    hybrid (sliding window) now initialise with the reference's leaves,
+    and the window of every hymba layer is its config's."""
+    jcfg = R.configs.get_config(arch).reduced()
+    cfg = port_cfg(jcfg)
+    TT._check_supported(cfg)
+    p = TT.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    ref = jax.eval_shape(lambda: R.transformer.init_params(jcfg, jax.random.PRNGKey(0),
+                                                           dtype=jnp.float32))
+    assert set(p["layers"]) == set(ref["layers"])
+    assert all(tuple(p["layers"][k].shape) == v.shape for k, v in ref["layers"].items())
+    assert ("ln2" in p["layers"]) == (cfg.d_ff > 0)
+    if cfg.attention == "sliding":
+        assert TT._windows(cfg) == (cfg.window,) * cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", GEMMA)

@@ -691,3 +691,86 @@ def test_moe_model_on_the_card_matches_the_cpu_with_drops(gen):
     counts = ops.launch_counts()
     assert counts["block_sparse_matmul"] == 3 * cfg.n_layers * (len(reqs) + engine.last_stats["steps"])
     assert counts["intrablock_gather_matmul"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The SSM family (mamba2-130m and hymba-1.5b's shapes)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K,N", [(768, 3352), (1600, 6482), (1600, 1600), (3200, 1600),
+                                 (1600, 320)])
+@pytest.mark.parametrize("B", [4, 451])
+def test_intrablock_gather_matmul_general_at_ssm_shapes(gen, B, K, N):
+    """The projections of mamba2-130m (w_in (768, 3352)) and hymba-1.5b
+    (w_in (1600, 6482), wq and w_down/w_out to 1600, wk/wv (1600, 320))
+    at row-aligned 2:4: N % 128 != 0 takes the general variant at decode
+    (4 rows) and prefill (451) row counts, within 1e-2 of max |plain|."""
+    w = _randn(gen, K, N, dtype=torch.bfloat16) * (K ** -0.5)
+    mask = intrablock_mask(w.float(), IntraBlock(4, 1, 0.5), align_cols=True)
+    w_comp, row_idx = ops.compress_intrablock_torch(w, mask, 4)
+    x = _randn(gen, B, K, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    out = ops.intrablock_gather_matmul(x, w_comp, row_idx)
+    assert _variant_delta(before) == {"intrablock_gather_matmul": {"general": 1}}
+    want = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
+
+
+def test_flash_attention_general_at_hymba_prefill_shape(gen):
+    """hymba-1.5b's long prefill: q (1, 1664, 25, 64), k/v (1, 1664, 5, 64)
+    (a 1600-token prompt padded to tiles of 128), causal with window 1024:
+    head dim 64 runs the general variant, within 3e-2 of plain; the window
+    changes every row from 1024 on."""
+    q = _randn(gen, 1, 1664, 25, 64, dtype=torch.bfloat16)
+    k, v = (_randn(gen, 1, 1664, 5, 64, dtype=torch.bfloat16) for _ in range(2))
+    before = ops.variant_counts()
+    out = ops.flash_attention(q, k, v, window=1024)
+    assert _variant_delta(before) == {"flash_attention": {"general": 1}}
+    want = ops.flash_attention(q, k, v, window=1024, impl="ref")
+    torch.testing.assert_close(out.float(), want.float(), atol=3e-2, rtol=0)
+    glob = ops.flash_attention(q, k, v)
+    assert torch.equal(out[:, :1024], glob[:, :1024])
+    assert bool((out[:, 1024:] != glob[:, 1024:]).flatten(2).any(dim=2).all())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_ssm_layer_at_published_width_kernel_path_matches_plain(gen, arch):
+    """One layer at the published widths (vocab cut to 4096), pruned with
+    row-aligned IntraBlock(4, 1, 0.5) on its projections and compressed:
+    a 300-token forward runs each compressed projection once, through
+    general where N % 128 != 0 and prefill elsewhere (hymba: flash general
+    once), logits within 0.1 of the plain path; served through the engine
+    on two slots (prompts longer than 16 rows, so every prefill takes the
+    prefill variant), decode runs the decode variant where N % 128 == 0."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, vocab_size=4096)
+    keys = tuple(k for k in ("wq", "wk", "wv", "w_gate", "w_up", "w_down", "w_in", "w_out")
+                 if k in TT._layer_shapes(cfg))
+    params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    pp, masks = prune_params(params, FlexBlockSpec((IntraBlock(4, 1, 0.5),)), align_cols=True,
+                             keys=keys)
+    cp = compress_params(pp, masks, m=4)
+    ragged = sum(1 for k in keys if cp["layers"][k].w_comp.shape[-1] % 128)
+    assert isinstance(cp["layers"]["w_in"], IntraBlockLinear) and ragged == \
+        {"mamba2-130m": 1, "hymba-1.5b": 6}[arch]
+    toks = torch.randint(0, cfg.vocab_size, (1, 300), generator=gen, device="cuda")
+    before = ops.variant_counts()
+    la = TT.forward(cp, toks, cfg)
+    delta = _variant_delta(before)
+    assert delta["intrablock_gather_matmul"] == {
+        "general": ragged, **({"prefill": len(keys) - ragged} if len(keys) > ragged else {})}
+    assert delta.get("flash_attention", {}) == ({"general": 1} if cfg.attention != "none" else {})
+    lr = TT.forward(cp, toks, cfg, impl="ref")
+    assert (la - lr).abs().max().item() < 0.1
+    engine = ServeEngine(cfg, cp, slots=2, max_len=512, dtype=torch.bfloat16)
+    reqs = [Request(prompt=toks[0, :n].cpu().numpy(), max_new_tokens=4) for n in (300, 40, 20)]
+    for r in reqs:
+        engine.submit(r)
+    before = ops.variant_counts()
+    engine.run()
+    assert all(r.done and len(r.output) == 4 for r in reqs)
+    steps = engine.last_stats["steps"]
+    delta = _variant_delta(before)["intrablock_gather_matmul"]
+    assert delta["general"] == ragged * (steps + len(reqs))
+    assert delta.get("decode", 0) == (len(keys) - ragged) * steps
+    assert engine.cache["ssm"].dtype == torch.float32 and engine.cache["ssm"].is_cuda

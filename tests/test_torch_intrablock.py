@@ -249,7 +249,7 @@ def test_capture_mlp_activations_like_reference(R, qwen):
 
     def apply_fn(params, toks):
         inter = {}
-        x, _, _ = TT._run(params, toks, cfg, "auto", False,
+        x, _ = TT._run(params, toks, cfg, "auto", False,
                           tap=lambda l, k, a: inter.__setitem__(f"l{l}/{k}", a))
         return x, inter
 

@@ -83,7 +83,7 @@ def test_config_copy_matches_reference(R):
     assert dataclasses.asdict(get_config("llama3-8b").reduced()) == \
         dataclasses.asdict(jcfg.reduced())
     with pytest.raises(KeyError):
-        get_config("mamba2-130m")
+        get_config("whisper-medium")
 
 
 # ---------------------------------------------------------------------------
@@ -281,11 +281,27 @@ def test_params_from_jax_keeps_bf16_bits(R, llama):
     assert masks["layers"]["ln1"] is None and masks["layers"]["wq"].dtype == torch.uint8
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b", "whisper-medium"])
+@pytest.mark.parametrize("arch", ["whisper-medium"])
 def test_other_families_raise(R, arch):
     cfg = port_cfg(R.configs.get_config(arch).reduced())
     with pytest.raises(NotImplementedError):
         TT.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_check_supported_admits_ssm(R, arch):
+    """The SSM and hybrid families are ported: init gives the reference's
+    leaves, SSM leaves included, and no attention leaf without attention."""
+    jcfg = R.configs.get_config(arch).reduced()
+    cfg = port_cfg(jcfg)
+    TT._check_supported(cfg)
+    p = TT.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    ref = jax.eval_shape(lambda: R.transformer.init_params(jcfg, jax.random.PRNGKey(0),
+                                                           dtype=jnp.float32))
+    assert {k: tuple(v.shape) for k, v in p["layers"].items()} == \
+        {k: v.shape for k, v in ref["layers"].items()}
+    assert {"w_in", "w_out", "conv_w", "dt_bias", "A_log", "D_skip"} <= set(p["layers"])
+    assert ("wq" in p["layers"]) == (cfg.attention != "none")
 
 
 def test_entry_points_raise_without_a_device_on_a_cpu_host(monkeypatch, llama):
