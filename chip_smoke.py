@@ -6,19 +6,24 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 Phases, each reported on its own line(s):
 
 1. build    — compile the port's five CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel),
+   then print ptxas's registers and spill bytes of every flash wgmma
+   setting built; a setting at hd 256 or one the plan picks must not spill;
 2. kernels  — hold each kernel against its plain PyTorch version at the
    shapes of the main paths, in bf16 and f32 (int8 for the bit-serial
    profile), and time kernel, plain version and the nearest single
    PyTorch call; flash attention also at gemma-7b's prefill shape (head
-   dim 256: the general variant).  Every row names the variant that ran
+   dim 256) and hymba-1.5b's (head dim 64, window 1024), the gather-matmul
+   also at the SSM paths' w_in (N % 128 != 0; hymba's N % 8 != 0 through
+   its padded row stride), each beside the general variant's card time on
+   the same inputs (``general_ms``).  Every row names the variant that ran
    and is timed from CUDA graphs (card time alone), with the eager times
    beside them (what back-to-back calls from Python cost, host included);
    each row gives ``share_of_bound`` (bound / ms) and ``x_library`` (ms /
    library ms).  The bf16 matmul rows add the card time of the same
    variant at cluster sizes 1, 2, 4 and 8 beside the plan's, the flash
-   wgmma rows (S = 512 and 2048) the card time at every lever setting
-   (rows per CTA / keys per tile / q heads per CTA), and the
+   wgmma rows the card time at every lever setting built for their head
+   dim (rows per CTA / keys per tile / q heads per CTA), and the
    block-importance and int8 bit-serial rows the first kernel's card time
    (``general_ms``); the fused quantise-and-count rows (bf16 and f32 at the
    profile's shapes) add the whole op, its min/max pass and the unfused
@@ -46,8 +51,8 @@ Phases, each reported on its own line(s):
    at full width (28 layers, d_model 3072, 16 heads of 256, MHA, vocab
    256000 tied), prune the six projections with row-aligned
    IntraBlock(4, 1, 0.5), compress, serve the same 8 requests and run the
-   same parity phase; its prefill attention runs flash's general variant
-   (head dim 256), whose card time per prefill is printed;
+   same parity phase; its prefill attention runs flash's wgmma variant at
+   head dim 256, whose card time per prefill is printed;
 7. gemma2-9b FullBlock path: free the gemma-7b weights, init gemma2-9b at
    full width (42 layers alternating local (window 4096) and global
    attention, attention softcap 50, final-logit softcap 30, post-norms),
@@ -87,7 +92,7 @@ Phases, each reported on its own line(s):
    eight projections with row-aligned IntraBlock(4, 1, 0.5), compress,
    serve the 8 requests with the first prompt made 1600 tokens long
    through ``ServeEngine(slots=4, max_len=2048)`` and run the parity
-   phase, then the window check on layer 0, with flash's general variant
+   phase, then the window check on layer 0, with flash's wgmma variant
    (head dim 64) held against ``chunked_attention`` on the long prompt;
 11. microbench — ``microbench_kernels`` on the card, its samples written
    as JSONL under ``build/`` and read back;
@@ -113,15 +118,14 @@ after it: on each served path from prune to the end of serving (every
 kernel's count is kept per path), ``bitserial_zero_profile`` over the
 profile call.
 After each served path its compressed projections must have run only
-through the ``decode`` and ``prefill`` variants where their width N is a
-multiple of 128 (one launch per projection, layer and decode step or
-prompt) and only through ``general`` where it is not (one launch per
-projection, layer and decode step or prompt: mamba2-130m's w_in,
-hymba-1.5b's wq/wk/wv/w_down/w_in/w_out), never ``f32``
-(qwen3-moe-30b-a3b: wq/wk/wv only); its prefill attention only through
-the flash ``wgmma`` variant (one launch per layer and prompt; gemma-7b:
-``general``, head dim 256; hymba-1.5b: ``general``, head dim 64;
-gemma2-9b and mamba2-130m: no flash launch at all), the
+through the ``decode`` and ``prefill`` variants, whatever their width N
+(one launch per projection, layer and decode step or prompt; the
+gather-matmul's last 128-column tile is ragged, and hymba-1.5b's w_in (N
+6482) is read through rows padded to 16 bytes), never ``general`` or
+``f32`` (qwen3-moe-30b-a3b: wq/wk/wv only); its prefill attention only
+through the flash ``wgmma`` variant (one launch per layer and prompt, at
+head dim 128, gemma-7b's 256 and hymba-1.5b's 64; gemma2-9b and
+mamba2-130m: no flash launch at all), the
 llama3-8b, gemma2-9b and qwen3-moe-30b-a3b prunes only through the
 block-importance ``strip`` variant (one launch per projection and
 layer), and the profile only through the bit-serial ``fused`` variant.
@@ -274,32 +278,59 @@ def cluster_sweep(op: str, variant: str, sets) -> dict:
                                                          L, c, stream)
             else:
                 Kc, N = wc.shape
+                ldw = wc.stride(0)
                 y = torch.empty(B, N, dtype=a.dtype, device=a.device)
                 if variant == "decode":
                     rc = lib.igm_bf16_decode(a.data_ptr(), wc.data_ptr(), ix.data_ptr(),
-                                             y.data_ptr(), B, K, Kc, N, c, stream)
+                                             y.data_ptr(), B, K, Kc, N, ldw, c, stream)
                 else:
                     Kp = -(-Kc // 8) * 8
                     xg = torch.empty(B, Kp, dtype=a.dtype, device=a.device)
                     rc = lib.igm_bf16_prefill(a.data_ptr(), wc.data_ptr(), ix.data_ptr(),
-                                              xg.data_ptr(), y.data_ptr(), B, K, Kc, Kp, N, c,
-                                              stream)
+                                              xg.data_ptr(), y.data_ptr(), B, K, Kc, Kp, N, ldw,
+                                              c, stream)
             _build.check(rc, f"{op} {variant} cluster {c}")
         out[c] = graph_ms(call, sets)
     return out
 
 
-FA_LEVERS = [(rows, keys, pack) for rows in (128, 64) for keys in (128, 64) for pack in (1, 4)]
+def ptxas_phase() -> None:
+    """Registers and spills of every flash wgmma setting built, as ptxas
+    reported them at this run's build (``-Xptxas -v``).  Each setting of
+    ``plans.FA_BUILT`` must have been compiled; no setting at hd 256 and
+    no setting the plan picks (``plans.FA_LEVERS``) may spill."""
+    import re
+    from repro_torch.kernels import _build, plans
+    got = {}
+    for fn, info in _build.ptxas_info("flash_attention").items():
+        m = re.search(r"fa_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        if m:
+            hd, nwg, keys, pack = map(int, m.groups())
+            got[hd, 64 * nwg, keys, pack] = info
+    for hd, built in plans.FA_BUILT.items():
+        line = {f"{r}/{k}/{p}": (f"{got[hd, r, k, p]['registers']} regs, spill "
+                                 f"{got[hd, r, k, p]['spill_stores']}/"
+                                 f"{got[hd, r, k, p]['spill_loads']} B")
+                for r, k, p in built if (hd, r, k, p) in got}
+        print(f"[ptxas] flash wgmma hd {hd} (rows/keys/pack: registers a thread, spill stores/"
+              f"loads bytes): {json.dumps(line)}", flush=True)
+        for r, k, p in built:
+            check((hd, r, k, p) in got, f"flash wgmma hd {hd} {r}/{k}/{p}: not compiled")
+            spill = got[hd, r, k, p]["spill_stores"] + got[hd, r, k, p]["spill_loads"]
+            if hd == 256 or (r, k) == plans.FA_LEVERS[hd][:2]:
+                check(spill == 0, f"flash wgmma hd {hd} {r}/{k}/{p} spills {spill} bytes")
 
 
 def flash_sweep(sets, window) -> dict:
     """Card ms of the flash wgmma variant at every lever setting it was
-    built with (rows per CTA / keys per tile / q heads packed per CTA),
+    built with for the inputs' head dim and head group (rows per CTA /
+    keys per tile / q heads packed per CTA: ``plans.fa_settings``),
     calling the C entry point directly."""
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, plans
     lib = _build.load("flash_attention")
+    q, k, _ = sets[0]
     out = {}
-    for rows, keys, pack in FA_LEVERS:
+    for rows, keys, pack in plans.fa_settings(q.shape[3], q.shape[2] // k.shape[2]):
         def call(q, k, v, rows=rows, keys=keys, pack=pack):
             B, S, Hq, hd = q.shape
             o = torch.empty_like(q)
@@ -310,6 +341,38 @@ def flash_sweep(sets, window) -> dict:
             _build.check(rc, f"flash_attention wgmma {rows}/{keys}/{pack}")
         out[f"{rows}/{keys}/{pack}"] = graph_ms(call, sets)
     return out
+
+
+def flash_general_ms(sets, window) -> float:
+    """Card ms of the flash general variant (the first kernel) on the
+    same inputs, calling its C entry point directly."""
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention")
+
+    def call(q, k, v):
+        B, S, Hq, hd = q.shape
+        o = torch.empty_like(q)
+        _build.check(lib.fa_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                                     S, S, Hq, k.shape[2], hd, 1, int(window or 0),
+                                     1.0 / math.sqrt(hd), _build.stream_ptr(q.device)),
+                     "flash_attention general")
+    return graph_ms(call, sets)
+
+
+def igm_general_ms(sets) -> float:
+    """Card ms of the gather-matmul general variant (the first kernel) on
+    the same inputs (the weight read in place through its row stride)."""
+    from repro_torch.kernels import _build
+    lib = _build.load("intrablock_matmul")
+
+    def call(a, wc, ix, d):
+        (B, K), (Kc, N) = a.shape, wc.shape
+        y = torch.empty(B, N, dtype=a.dtype, device=a.device)
+        _build.check(lib.igm_bf16_general(a.data_ptr(), wc.data_ptr(), ix.data_ptr(),
+                                          y.data_ptr(), B, K, Kc, N, wc.stride(0),
+                                          _build.stream_ptr(a.device)),
+                     "intrablock_gather_matmul general")
+    return graph_ms(call, sets)
 
 
 def kernel_phase() -> dict:
@@ -335,10 +398,11 @@ def kernel_phase() -> dict:
     # (B, S, Hq, Hkv, hd, window): llama3-8b prefill of the longest prompt
     # (512 tokens) and the same heads at S = 2048, where the tensor cores
     # bound it; gemma-7b's prefill of the longest prompt (16 heads of 256,
-    # MHA: the general variant); qwen3-moe-30b-a3b's (8 q heads per kv head);
-    # head dims 64/256 and a window for coverage; hymba-1.5b's prefill of its
-    # 1600-token prompt (padded to 1664; 25 q / 5 kv heads of 64, window
-    # 1024: the general variant).
+    # MHA); qwen3-moe-30b-a3b's (8 q heads per kv head); head dims 64/256
+    # and a window for coverage; hymba-1.5b's prefill of its 1600-token
+    # prompt (padded to 1664; 25 q / 5 kv heads of 64, window 1024).  Every
+    # one runs the wgmma variant; gemma-7b's and hymba-1.5b's rows add the
+    # general variant's card time on the same inputs (general_ms).
     fa_cases = [(1, 512, 32, 8, 128, None), (1, 2048, 32, 8, 128, None),
                 (1, 512, 16, 16, 256, None), (1, 512, 32, 4, 128, None),
                 (1, 256, 8, 2, 64, 64), (1, 256, 8, 2, 256, None),
@@ -383,24 +447,25 @@ def kernel_phase() -> dict:
                     "eager_ms": cuda_ms(kern, sets), "eager_library_ms": cuda_ms(lib, lib_sets),
                     **bound(nbytes, 4 * hd * pairs, peak[dt])}
             line.update(ratios(line))
-            if variant == "wgmma":
+            served = {(512, 16, 256, None): "gemma-7b", (1664, 25, 64, 1024): "hymba-1.5b"}
+            if dt == torch.bfloat16:
+                check(variant == "wgmma", f"{name}: ran the {variant} variant")
                 p = plans.fa_plan(B, S, S, Hq, Hkv, hd, dt, True, window, 256)
                 line["levers"] = f"{p.rows}/{p.keys}/{p.pack}"
                 line["ms_by_levers"] = flash_sweep(sets, window)
+                if (S, Hq, hd, window) in served:
+                    line["general_ms"] = flash_general_ms(sets, window)
             report(name, line)
             if (S, Hkv, hd, dt) == (512, 8, 128, torch.bfloat16):
                 rows["flash_attention"] = dict(
                     line, shape=f"q ({B},{S},{Hq},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal",
                     library="F.scaled_dot_product_attention (kv heads repeated)")
-            if (S, Hq, hd, dt) == (512, 16, 256, torch.bfloat16):
-                check(variant == "general", f"{name}: ran the {variant} variant")
-                fa_variants["general"] = dict(
-                    line, shape=f"q/k/v ({B},{S},{Hq},{hd}) bf16 causal (gemma-7b prefill)")
-            if (S, Hq, hd, window) == (1664, 25, 64, 1024):
-                check(variant == "general", f"{name}: ran the {variant} variant")
-                fa_variants["general/hymba-1.5b"] = dict(
-                    line, shape=f"q ({B},{S},{Hq},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal, "
-                                f"window {window} (hymba-1.5b prefill of 1600 tokens)")
+            if dt == torch.bfloat16 and (S, Hq, hd, window) in served:
+                model = served[(S, Hq, hd, window)]
+                fa_variants[f"wgmma hd {hd}/{model}"] = dict(
+                    line, shape=f"q ({B},{S},{Hq},{hd}) k/v ({B},{S},{Hkv},{hd}) bf16 causal"
+                                + (f", window {window}" if window else "")
+                                + f" ({model} prefill)")
             del sets, lib_sets, q, k, v, out, plain
     rows["flash_attention"]["variants"] = fa_variants
 
@@ -534,11 +599,13 @@ def kernel_phase() -> dict:
 
     # -- IntraBlock gather-matmul: qwen3-4b's pruned projections ------------
     # (K, N) at row-aligned 2:4 (Kc = K/2), decode (B = 4) and prefill (B = 512);
-    # then the SSM paths' w_in at decode in bf16, whose N % 128 != 0 runs the
-    # general variant (mamba2-130m (768, 3352), hymba-1.5b (1600, 6482)).
-    # The library yardstick is torch.matmul on the decompressed masked-dense
-    # weight: one call computing the same function, reading twice the
-    # weight bytes.
+    # then the SSM paths' w_in in bf16 (mamba2-130m (768, 3352), hymba-1.5b
+    # (1600, 6482)): N % 128 != 0 runs the main variants with a ragged last
+    # tile, hymba's N % 8 != 0 through the padded row stride compress_params
+    # stores (ops.aligned_rows); their rows add the general variant's card
+    # time on the same inputs (general_ms).  The library yardstick is
+    # torch.matmul on the decompressed masked-dense weight: one call
+    # computing the same function, reading twice the weight bytes.
     from repro_torch.kernels import intrablock_matmul as igm_mod
     iproj = {"wq": (2560, 4096), "wk": (2560, 1024), "w_gate": (2560, 9728),
              "w_down": (9728, 2560), "mamba2-130m w_in": (768, 3352),
@@ -552,7 +619,7 @@ def kernel_phase() -> dict:
         mask = kept.reshape(K, 1).expand(K, N)
         w = randn(K, N, dtype=torch.float32).mul_(1.0 / math.sqrt(K)).to(dt)
         w_comp, row_idx = ops.compress_intrablock_torch(w, mask, INTRA_M)
-        return w_comp, row_idx, w * mask
+        return ops.aligned_rows(w_comp), row_idx, w * mask
 
     igm_variants = {}
     for key, (K, N) in iproj.items():
@@ -560,7 +627,7 @@ def kernel_phase() -> dict:
         Kc = K // 2
         for dt in (torch.bfloat16,) if ssm else dtypes:
             esize = torch.empty((), dtype=dt).element_size()
-            for B in (4,) if ssm else (4, 512):
+            for B in (4, 512):
                 nbytes = B * K * esize + Kc * N * esize + Kc * 4 + B * N * esize
                 sets = [(randn(B, K, dtype=dt),) + intra_layout(K, N, dt)
                         for _ in range(n_copies(nbytes))]
@@ -574,7 +641,9 @@ def kernel_phase() -> dict:
                 scale = plain.float().abs().max().item()
                 name = f"intrablock_gather_matmul {key} B={B} K={K} Kc={Kc} N={N} {str(dt)[6:]}"
                 check(err <= tol[dt] * scale, f"{name}: max_abs_err {err} > {tol[dt]}*{scale}")
-                check(not ssm or variant == "general", f"{name}: ran the {variant} variant")
+                if dt == torch.bfloat16:
+                    want = "decode" if B <= plans.DECODE_MAX_B else "prefill"
+                    check(variant == want, f"{name}: ran the {variant} variant, want {want}")
                 kern = lambda a, wc, ix, d: igm_mod.intrablock_gather_matmul_cuda(
                     a, wc, ix, check_range=False)
                 lib = lambda a, wc, ix, d: torch.matmul(a, d)
@@ -587,20 +656,32 @@ def kernel_phase() -> dict:
                         "eager_ms": cuda_ms(kern, sets), "eager_library_ms": cuda_ms(lib, sets),
                         **bound(nbytes, 2 * B * Kc * N, peak[dt])}
                 line.update(ratios(line))
-                if dt == torch.bfloat16 and variant != "general":
+                if dt == torch.bfloat16:
                     line["cluster"] = plans.igm_plan(B, Kc, N, dt,
-                                                     _build.alignment(w_comp.data_ptr())).cluster
+                                                     _build.alignment(w_comp.data_ptr()),
+                                                     w_comp.stride(0)).cluster
                     line["ms_by_cluster"] = cluster_sweep("intrablock_gather_matmul", variant,
                                                           sets)
+                if ssm:
+                    line["row_stride"] = w_comp.stride(0)
+                    line["general_ms"] = igm_general_ms(sets)
+                    if w_comp.stride(0) != N:
+                        # what ran before rows were padded: general on the
+                        # contiguous weight, whose rows take scalar loads
+                        line["general_contiguous_ms"] = igm_general_ms(
+                            [(a, wc.contiguous(), ix, d) for a, wc, ix, d in sets])
                 report(name, line)
-                shape = (f"decode x ({B},{K}) gathered by row_idx ({Kc},) @ w_comp ({Kc},{N})"
-                         f"{f' ({key})' if ssm else ''}, row-aligned IntraBlock(4,1,0.5), bf16")
+                stride = (f" (row stride {w_comp.stride(0)})"
+                          if w_comp.stride(0) != N else "")
+                shape = (f"{'decode' if B <= 4 else 'prefill'} x ({B},{K}) gathered by row_idx "
+                         f"({Kc},) @ w_comp ({Kc},{N}){stride}{f' ({key})' if ssm else ''}, "
+                         f"row-aligned IntraBlock(4,1,0.5), bf16")
                 if key == "w_gate" and B == 4 and dt == torch.bfloat16:
                     rows["intrablock_gather_matmul"] = dict(
                         line, shape=shape,
                         library="torch.matmul on the decompressed masked-dense weight")
                 if ssm:
-                    igm_variants[f"general/{key}"] = dict(line, shape=shape)
+                    igm_variants[f"{variant}/{key}"] = dict(line, shape=shape)
                 del sets, x, w_comp, row_idx, dense
     rows["intrablock_gather_matmul"]["variants"] = igm_variants
 
@@ -942,23 +1023,44 @@ def cost_inputs(model: dict) -> dict:
 
 def check_main_variants(cfg, op: str, counts: dict, prefills: int, cparams, keys) -> None:
     """The path's compressed projections ``keys`` ran only through the
-    variants their widths call for: a projection whose N is a multiple of
-    128 one decode launch per layer and decode step (4 slots) and one
-    prefill launch per layer and prompt; any other one general launch per
-    layer and decode step or prompt (the main variants tile N by 128); no
-    f32 launch."""
+    main variants, whatever their width N: each one decode launch per
+    layer and decode step (4 slots) and one prefill launch per layer and
+    prompt; no general or f32 launch.  The gather-matmul tiles N by 128
+    with a ragged last tile and reads a weight through its row stride
+    (rows padded to 16 bytes where N % 8 != 0), so the plan of each
+    layer-0 leaf must name a main variant too, and the wrapper's count
+    per (variant, Kc, N) must give each weight shape its leaves' share."""
+    from repro_torch.kernels import _build, plans
     v = counts["variants"][op]
     n = {k: math.prod(cparams["layers"][k].out_shape) for k in keys}
-    ragged = [k for k in keys if n[k] % BLOCK]
-    main = len(keys) - len(ragged)
     steps = counts["steps"]
-    want = {"decode": main * cfg.n_layers * steps, "prefill": main * cfg.n_layers * prefills,
-            "general": len(ragged) * cfg.n_layers * (steps + prefills), "f32": 0}
+    want = {"decode": len(keys) * cfg.n_layers * steps,
+            "prefill": len(keys) * cfg.n_layers * prefills, "general": 0, "f32": 0}
+    stride = {}
+    if op == "intrablock_gather_matmul":
+        for k in keys:
+            w = cparams["layers"][k].w_comp[0]
+            stride[k] = w.stride(0)
+            plan = plans.igm_plan(4, w.shape[0], w.shape[1], w.dtype,
+                                  _build.alignment(w.data_ptr()), w.stride(0))
+            check(plan.variant == "decode", f"{cfg.name} {k}: plan {plan} at decode")
     print(f"[serve] {cfg.name}: {op} launches by variant {json.dumps(v)}; want "
-          f"{json.dumps(want)} ({counts[op]} in all; N by projection {json.dumps(n)}, general "
-          f"for {ragged})", flush=True)
+          f"{json.dumps(want)} ({counts[op]} in all; N by projection {json.dumps(n)}"
+          + (f", row stride {json.dumps(stride)}" if stride else "") + ")", flush=True)
     check(v == want and counts[op] == sum(want.values()),
           f"{op}: launches by variant {v}, want {want}")
+    if op == "intrablock_gather_matmul":
+        by_shape = {}
+        for k in keys:
+            Kc, N = cparams["layers"][k].w_comp.shape[1:]
+            for variant, per in (("decode", steps), ("prefill", prefills)):
+                key = (variant, Kc, N)
+                by_shape[key] = by_shape.get(key, 0) + cfg.n_layers * per
+        got = {" ".join(map(str, k)): c for k, c in sorted(counts["shapes"].items())}
+        print(f"[serve] {cfg.name}: {op} launches by (variant, Kc, N) {json.dumps(got)}",
+              flush=True)
+        check(counts["shapes"] == by_shape,
+              f"{op}: launches by (variant, Kc, N) {counts['shapes']}, want {by_shape}")
 
 
 def check_single_variant(cfg, op: str, variant: str, counts: dict, want: int) -> None:
@@ -995,6 +1097,7 @@ def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     counts["variants"] = ops.variant_counts()
+    shapes = ops.gather_matmul_shape_counts()      # keyed (variant, Kc, N): not JSON
     snap = engine.stats_snapshot()
     for i, r in enumerate(reqs):
         check(r.done and len(r.output) == 32 and r.reject_reason is None,
@@ -1006,7 +1109,7 @@ def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None):
           f"{snap['tokens_per_s']:.1f} tokens/s (engine busy time, prefill included); "
           f"{decode_tokens} decode tokens", flush=True)
     print(f"[serve] {cfg.name}: launches on the path: {json.dumps(counts)}", flush=True)
-    counts["steps"] = snap["steps"]
+    counts["steps"], counts["prompts"], counts["shapes"] = snap["steps"], len(reqs), shapes
 
     # Host or device: time the host's issue of one 4-slot decode step (the
     # path has no synchronisation inside decode_step) against the time to
@@ -1452,14 +1555,14 @@ LONG_PROMPT = 4600      # gemma2-9b's long request: past its 4096-token local wi
 
 def gemma7b_path(cfg, rows: dict) -> dict:
     """Prune (row-aligned IntraBlock), compress, serve and check gemma-7b,
-    whose prefill attention runs flash's general variant (head dim 256);
+    whose prefill attention runs flash's wgmma variant at head dim 256;
     then that variant's card time per prefill of the 8 prompts."""
     from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
     from repro_torch.kernels import ops
 
     model = served_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)),
-                        flash="general")
-    rows["flash_attention"]["variants"]["general"]["launches"] = \
+                        flash="wgmma")
+    rows["flash_attention"]["variants"][f"wgmma hd 256/{cfg.name}"]["launches"] = \
         model["counts"]["flash_attention"]
     # one launch per layer at each prompt's padded length, on random bf16
     # q/k/v of the layer's shape, replayed from CUDA graphs
@@ -1477,7 +1580,7 @@ def gemma7b_path(cfg, rows: dict) -> dict:
         per_len[S] = graph_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True), sets)
         del sets
     per_prefill = [cfg.n_layers * per_len[padded(p)] for p in model["prompts"]]
-    print(f"[serve] {cfg.name}: flash general (hd {hd}) card ms per launch by padded prompt "
+    print(f"[serve] {cfg.name}: flash wgmma (hd {hd}) card ms per launch by padded prompt "
           f"length {json.dumps({str(k): round(v, 4) for k, v in per_len.items()})}; per prefill "
           f"({cfg.n_layers} launches) {[round(t, 3) for t in per_prefill]} ms, "
           f"{sum(per_prefill):.3f} ms over the 8 prompts", flush=True)
@@ -1549,7 +1652,7 @@ def window_check(cfg, cparams, prompt) -> None:
               f"({variant} variant, q ({S} padded to {-(-S // 128) * 128}) x {qb.shape[2]} heads "
               f"of {qb.shape[3]}, {kb.shape[2]} kv heads, window {W}) vs chunked_attention with "
               f"window {W}, both on the bf16 q/k/v: max |d| {err:.3e} (tol 3e-2)", flush=True)
-        check(variant == "general", f"{cfg.name}: flash ran the {variant} variant")
+        check(variant == "wgmma", f"{cfg.name}: flash ran the {variant} variant")
         check(err <= 3e-2, f"{cfg.name}: flash differs from chunked_attention by {err}")
         return
 
@@ -1753,10 +1856,27 @@ def mamba2_path(cfg, rows: dict) -> dict:
     from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
 
     model = served_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)), flash=None)
-    rows["intrablock_gather_matmul"]["variants"][f"general/{cfg.name} w_in"]["launches"] = \
-        model["counts"]["variants"]["intrablock_gather_matmul"]["general"]
+    ssm_launches(cfg, rows, model)
     recurrence_check(cfg, model["cparams"], model["prompts"][0])
     return cost_inputs(model)
+
+
+def ssm_launches(cfg, rows: dict, model: dict) -> None:
+    """Give the kernel rows of an SSM path's w_in (decode and prefill)
+    their launches on the path, as the wrapper counted them by weight
+    shape: w_in's (Kc, N) is no other compressed leaf's on these paths,
+    so the count at its shape is w_in's own."""
+    from repro_torch.models.layers import COMPRESSED
+    leaves = model["cparams"]["layers"]
+    shape = lambda k: tuple(leaves[k].w_comp.shape[1:])
+    Kc, N = shape("w_in")
+    others = [k for k in leaves if k != "w_in" and isinstance(leaves[k], COMPRESSED)
+              and shape(k) == (Kc, N)]
+    check(not others, f"{cfg.name}: {others} share w_in's shape ({Kc}, {N})")
+    variants = rows["intrablock_gather_matmul"]["variants"]
+    for variant in ("decode", "prefill"):
+        variants[f"{variant}/{cfg.name} w_in"]["launches"] = \
+            model["counts"]["shapes"].get((variant, Kc, N), 0)
 
 
 def hymba_path(cfg, rows: dict) -> dict:
@@ -1766,12 +1886,10 @@ def hymba_path(cfg, rows: dict) -> dict:
     from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
 
     model = served_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)),
-                        flash="general", max_len=2048, long_prompt=HYMBA_PROMPT)
-    variants = model["counts"]["variants"]
-    rows["intrablock_gather_matmul"]["variants"][f"general/{cfg.name} w_in"]["launches"] = \
-        variants["intrablock_gather_matmul"]["general"]
-    rows["flash_attention"]["variants"][f"general/{cfg.name}"]["launches"] = \
-        variants["flash_attention"]["general"]
+                        flash="wgmma", max_len=2048, long_prompt=HYMBA_PROMPT)
+    ssm_launches(cfg, rows, model)
+    rows["flash_attention"]["variants"][f"wgmma hd 64/{cfg.name}"]["launches"] = \
+        model["counts"]["variants"]["flash_attention"]["wgmma"]
     t0 = time.perf_counter()
     window_check(cfg, model["cparams"], model["prompts"][0])
     print(f"[time] {cfg.name} window check {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1947,7 +2065,8 @@ def cost_phase(samples: list, served: list) -> None:
 
 # what the kernels line gives of each further variant of a kernel (None
 # where a row has no such number)
-VARIANT_KEYS = ("shape", "launches", "ms", "eager_ms", "general_ms", "plain_ms", "bound_ms",
+VARIANT_KEYS = ("shape", "launches", "ms", "eager_ms", "general_ms", "general_contiguous_ms",
+                "levers", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "share_of_bound", "x_library")
 
 
@@ -1986,6 +2105,7 @@ def main() -> int:
                "bitserial_zero_profile": ("cuda", f"{csrc}/bitserial_profile.cu",
                                           f"{kdir}/bitserial_profile.py:41")}
     try:
+        ptxas_phase()
         t0 = time.perf_counter()
         rows = kernel_phase()
         print(f"[time] kernels phase {time.perf_counter() - t0:.1f}s", flush=True)

@@ -6,11 +6,14 @@ and is not built on its own) and is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own
 shared library under ``build/repro_torch_kernels/`` at the root of the
 checkout (``REPRO_TORCH_BUILD_DIR`` overrides it), then loaded with
-``ctypes``.  The library name carries a hash of its source and of the
-files it includes, so an edited source is rebuilt.  Nothing is linked
-beyond the CUDA runtime: the tensor maps of the TMA loads come
-from libcuda's ``cuTensorMapEncodeTiled``, looked up with ``dlsym``.
-:func:`build` starts one ``nvcc`` per source at once.
+``ctypes``.  The library name carries a hash of its source, of the
+files it includes and of the compiler flags (:data:`NVCC_FLAGS`), so an
+edited source is rebuilt.  Nothing is linked beyond the CUDA runtime:
+the tensor maps of the TMA loads come from libcuda's
+``cuTensorMapEncodeTiled``, looked up with ``dlsym``.  :func:`build`
+starts one ``nvcc`` per source at once.  ``-Xptxas -v`` reports each
+kernel's registers and spills; the report is kept beside the library,
+and :func:`ptxas_info` reads it.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code.  A failed build raises: nothing
@@ -29,7 +32,8 @@ from typing import Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["SOURCES", "build", "load", "check", "stream_ptr", "alignment"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "ptxas_info", "check", "stream_ptr",
+           "alignment"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -62,13 +66,13 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "bi_f32_strip": [P, P, I, I, I, P],
     },
     "intrablock_matmul": {
-        # x, w_comp, row_idx, y, B, K, Kc, N, cluster, stream
-        "igm_bf16_decode": [P, P, P, P, I, I, I, I, I, P],
-        # x, w_comp, row_idx, x-gather scratch, y, B, K, Kc, Kp, N, cluster, stream
-        "igm_bf16_prefill": [P, P, P, P, P, I, I, I, I, I, I, P],
-        # x, w_comp, row_idx, y, B, K, Kc, N, stream
-        "igm_bf16_general": [P, P, P, P, I, I, I, I, P],
-        "igm_f32": [P, P, P, P, I, I, I, I, P],
+        # x, w_comp, row_idx, y, B, K, Kc, N, ldw (w_comp's row stride), cluster, stream
+        "igm_bf16_decode": [P, P, P, P, I, I, I, I, I, I, P],
+        # x, w_comp, row_idx, x-gather scratch, y, B, K, Kc, Kp, N, ldw, cluster, stream
+        "igm_bf16_prefill": [P, P, P, P, P, I, I, I, I, I, I, I, P],
+        # x, w_comp, row_idx, y, B, K, Kc, N, ldw, stream
+        "igm_bf16_general": [P, P, P, P, I, I, I, I, I, P],
+        "igm_f32": [P, P, P, P, I, I, I, I, I, P],
     },
     "bitserial_profile": {
         # q, counter (8 bytes scratch), out (int32[2]), V, K, group_rows, n_bits, stream
@@ -82,6 +86,9 @@ SOURCES: Dict[str, Dict[str, List]] = {
         "bsp_fused_f32": [P, P, P, F, P, P, I, I, I, I, I, P],
     },
 }
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.PyDLL] = {}
 
@@ -111,7 +118,8 @@ def _source_bytes(path: Path) -> bytes:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(_source_bytes(_CSRC / f"{name}.cu")).hexdigest()[:12]
+    src = _source_bytes(_CSRC / f"{name}.cu") + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(src).hexdigest()[:12]
     return _build_dir() / f"lib{name}-{digest}.so"
 
 
@@ -130,9 +138,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     procs = {}
     for n in todo:
         tmp = out[n].with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-               str(_CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     errors = []
@@ -142,6 +148,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc failed for {n}.cu (rc {p.returncode}):\n{log}")
         else:
+            out[n].with_suffix(".ptxas.txt").write_text(log)
             os.replace(tmp, out[n])
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -161,6 +168,32 @@ def load(name: str) -> ctypes.PyDLL:
             f.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_info(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of library ``name``, as ptxas reported it
+    when the library was built: ``registers`` a thread, ``stack`` frame,
+    ``spill_stores`` and ``spill_loads`` bytes.  Builds the library first
+    if needed."""
+    log = build([name])[name].with_suffix(".ptxas.txt").read_text()
+    info: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            info.setdefault(fn, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                           spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            info.setdefault(fn, {})["registers"] = int(m.group(1))
+            fn = None
+    return info
 
 
 def check(rc: int, what: str) -> None:

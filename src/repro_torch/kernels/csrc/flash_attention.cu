@@ -13,52 +13,64 @@
 // The wrapper (flash_attention.py, through plans.fa_plan) picks one
 // variant before the launch, from dtype, head dim, shape and alignment:
 //
-// wgmma (bf16, hd 128, causal with or without a window, Sq = Skv = S a
-//   multiple of 128, 16-byte aligned).  Bound: at S = 512 the causal work
-//   is about 128 flops per byte (about 205 when 4 q heads share a kv head),
-//   under the card's ridge (989 TFLOP/s / 3.35 TB/s, about 295), so bytes
-//   bound it; at S = 2048 operations do.  Either way the first kernel below
-//   spent its time in shared-memory traffic, which this design removes:
+// wgmma (bf16, hd 64, 128 or 256, causal with or without a window, Sq =
+//   Skv = S a multiple of 128, 16-byte aligned).  Bound: at S = 512 the
+//   causal work is about hd flops per byte (about 205 at hd 128 when 4 q
+//   heads share a kv head), under the card's ridge (989 TFLOP/s / 3.35
+//   TB/s, about 295), so bytes bound it; at S = 2048 operations do.  Either
+//   way the first kernel below spent its time in shared-memory traffic,
+//   which this design removes:
 //   * Loads: one producer warp issues TMA tensor-map loads with the
 //     128-byte swizzle.  Q is viewed as (hd, Hq, B*S) and its tile loaded
-//     once as two 64-column boxes of PACK heads x P positions; K and V as
-//     (Hkv*hd, B*S) in boxes of 64 columns x BK keys at column kv_head*hd,
-//     into a 2-stage ring on mbarriers (sm90::tma_2d/tma_3d; the K/V maps
-//     from sm90::cached_map, copied out of the table, Q's encoded per call).
-//   * S = Q K^T: each consumer warpgroup owns 64 rows and issues wgmma
-//     m64nBKk16 with both operands K-major in shared memory; the f32
-//     scores stay in registers.
+//     once as hd/64 boxes of 64 columns x PACK heads x P positions; K and V
+//     as (Hkv*hd, B*S) in hd/64 boxes of 64 columns x BK keys from column
+//     kv_head*hd, into a ring on mbarriers: 2 stages, 3 at hd 256, where a
+//     stage is 64 KB and a third one ran faster on an H100
+//     (sm90::tma_2d/tma_3d; the K/V maps from sm90::cached_map, copied out
+//     of the table, Q's encoded per call).
+//   * S = Q K^T: each consumer warpgroup owns 64 rows and issues hd/16
+//     wgmma m64nBKk16, walking the boxes, with both operands K-major in
+//     shared memory; the f32 scores stay in registers.
 //   * Softmax in registers, in the log2 domain (scores times
 //     log2(e)/sqrt(hd), exp2): the mask (finite -1e30) is applied only on
 //     tiles that hold a masked pair (the diagonal and the window edge); a
 //     row's max comes from shuffles among the 4 threads that hold it; each
 //     thread keeps its share of the row sum l, summed across the 4 at the
 //     end.  No score reaches shared memory.
-//   * O += P V: P is rounded to bf16 in registers and fed to wgmma
-//     m64n128k16 as the A operand from registers; V is the MN-major B
-//     operand (leading offset one 64-column half, stride 1 KB per 8 keys).
-//     O (64 x 128 f32 per warpgroup) stays in registers.  The next tile's
-//     Q K^T group is issued right behind the P V group, so the tensor cores
-//     run both back to back while other warpgroups do their softmax.
+//   * O += P V: P is rounded to bf16 in registers and fed to wgmma as the
+//     A operand from registers; V is the MN-major B operand (leading
+//     offset one 64-column box, stride 1 KB per 8 keys): m64n64k16 at hd
+//     64, m64n128k16 at hd 128, two m64n128k16 over the two halves of V at
+//     hd 256.  O (64 x hd f32 per warpgroup: 32, 64 or 128 floats a
+//     thread) stays in registers.  The next tile's Q K^T group is issued
+//     right behind the P V group, so the tensor cores run both back to
+//     back while other warpgroups do their softmax.
 //   * Epilogue: O / max(l, 1e-20) rounded once to bf16, written through the
 //     warpgroup's own Q rows (XOR-swizzled, conflict-free) and stored with
 //     16-byte writes.
 //   * Grid: one CTA per (query tile, batch, head group), query tiles with
 //     the most live kv tiles first, so the last wave is not the longest.
-//   Levers, template parameters chosen by plans.fa_plan from a sweep on
-//   the card (chip_smoke.py prints it): rows per CTA (64 or 128: one or
-//   two consumer warpgroups), keys per tile BK (64 or 128), PACK, the q
-//   heads of one kv head that share a CTA and its K/V ring (1 or 4).  A
+//   Levers, template parameters chosen per head dim by plans.fa_plan from
+//   a sweep on the card (chip_smoke.py prints it): rows per CTA (64 or
+//   128: one or two consumer warpgroups), keys per tile BK (64 or 128),
+//   PACK, the q heads of one kv head that share a CTA and its K/V ring (1
+//   or 4).  At hd 256 only 64 rows and 64 keys are built: a ring of
+//   128-key stages would take 256 KB, and 128 rows neither fit beside the
+//   3-stage ring (257 KB) nor kept O's 128 floats, S and P in registers
+//   (ptxas gives a CTA of 288 threads 168 registers a thread; with two
+//   stages they spilled and ran slower than 64 rows on an H100), where
+//   one consumer warpgroup (160 threads) holds them without spilling.  A
 //   warpgroup visits only its own live kv tiles and only releases the
 //   others of its CTA.  Not kept: the next tile's Q K^T in flight during
 //   the softmax (a second set of P registers, O rescaled after P V): it
 //   compiled without spills but ran slower than the order below on an
 //   H100 at S = 512 and 2048.
 //
-// general (bf16, any other shape: hd 64 or 256, non-causal, Sq != Skv,
-//   unaligned): the first kernel.  One CTA (4 warps) per (b*Hq + h, 64-row
-//   query tile); Q and each 64-key K/V tile are staged in shared memory
-//   with plain loads; S = QK^T and O += PV run through WMMA 16x16x16 with
+// general (bf16, any other shape: non-causal, Sq != Skv, S not a multiple
+//   of 128, unaligned): the first kernel.  One CTA (4 warps) per (b*Hq +
+//   h, 64-row query tile); Q and each 64-key K/V tile are staged in shared
+//   memory with 16-byte loads (element by element where q, k or v is not
+//   16-byte aligned); S = QK^T and O += PV run through WMMA 16x16x16 with
 //   f32 accumulation, S, P and O kept in shared memory; each warp owns 16
 //   query rows for the softmax update.
 //
@@ -97,11 +109,24 @@ constexpr size_t bf16_smem_bytes() {
        + (size_t)(BQ * BK + BQ * HD + 3 * BQ) * sizeof(float);
 }
 
+// Eight bf16 values from p: one 16-byte load, or eight 2-byte loads where
+// q, k or v is not 16-byte aligned.
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = static_cast<uint32_t>(h[2 * i]) | (static_cast<uint32_t>(h[2 * i + 1]) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 template <int HD>
 __global__ void __launch_bounds__(NWARP * 32)
 fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale) {
+               int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale,
+               bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);   // BQ x HD
   __nv_bfloat16* sK = sQ + BQ * HD;                              // BK x HD
@@ -128,7 +153,7 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   for (int i = tid; i < BQ * CH; i += blockDim.x) {
     const int r = i / CH, c = (i % CH) * VEC;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (q_lo + r < Sq) val = *reinterpret_cast<const uint4*>(qb + (size_t)(q_lo + r) * qs + c);
+    if (q_lo + r < Sq) val = load8(qb + (size_t)(q_lo + r) * qs + c, vec);
     *reinterpret_cast<uint4*>(sQ + r * HD + c) = val;
   }
   for (int i = tid; i < BQ * HD; i += blockDim.x) sO[i] = 0.f;
@@ -145,8 +170,8 @@ fa_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       const int r = i / CH, c = (i % CH) * VEC;
       uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
       if (k0 + r < Skv) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * kvs + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * kvs + c);
+        kv = load8(kb + (size_t)(k0 + r) * kvs + c, vec);
+        vv = load8(vb + (size_t)(k0 + r) * kvs + c, vec);
       }
       *reinterpret_cast<uint4*>(sK + r * HD + c) = kv;
       *reinterpret_cast<uint4*>(sV + r * HD + c) = vv;
@@ -292,10 +317,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
+  const bool vec = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                     reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   fa_bf16_kernel<HD><<<grid, NWARP * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv,
-      causal, window, scale);
+      causal, window, scale, vec);
   return cudaGetLastError();
 }
 
@@ -313,7 +340,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// wgmma variant (bf16, hd 128, causal, Sq = Skv a multiple of 128)
+// wgmma variant (bf16, hd 64 / 128 / 256, causal, Sq = Skv a multiple of 128)
 // ---------------------------------------------------------------------------
 
 namespace fa3 {
@@ -354,21 +381,50 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 64] += A[64 x 16] (bf16 pairs in registers) * B[16 x 64] (MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x hd] += P V_t for one 16-key step: O is NG groups of OD floats a
+// thread (the accumulator of an m64n(2*OD) wgmma each), V's boxes start
+// box_bytes apart.
+template <int NG, int OD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[NG][OD], const uint32_t (&a)[4],
+                                         const unsigned char* v, int box_bytes) {
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    const uint64_t db = desc_sw128(v + g * (2 * OD / 64) * box_bytes, box_bytes, 1024);
+    if constexpr (OD == 32) wgmma_rs_n64(o[g], a, db);
+    else wgmma_rs_n128(o[g], a, db);
+  }
+}
+
 // One CTA: NWG consumer warpgroups of 64 rows each, plus one producer warp.
 // A row is one (query position, q head) pair; PACK q heads of one kv head
 // share the CTA (rows ordered position-major, head-minor), so the CTA
 // covers P = 64 * NWG / PACK positions and loads each K/V tile once for
 // all PACK heads.
-template <int NWG, int BK, int PACK>
+template <int HD, int NWG, int BK, int PACK>
 struct Cfg {
   static constexpr int BQ = 64 * NWG;          // rows per CTA
   static constexpr int P = BQ / PACK;          // query positions per CTA
-  static constexpr int STAGES = 2;             // K/V ring depth
-  static constexpr int Q_HALF = BQ * 128;      // one 64-column half of the Q tile, bytes
-  static constexpr int KV_HALF = BK * 128;     // one 64-column half of a K or V tile
-  static constexpr int STAGE = 4 * KV_HALF;    // K and V tiles, two halves each
+  static constexpr int STAGES = HD == 256 ? 3 : 2;   // K/V ring depth
+  static constexpr int BOXES = HD / 64;        // 64-column (128-byte) boxes of a row
+  static constexpr int Q_BOX = BQ * 128;       // one box of the Q tile, bytes
+  static constexpr int KV_BOX = BK * 128;      // one box of a K or V tile
+  static constexpr int STAGE = 2 * BOXES * KV_BOX;   // K and V tiles
   static constexpr int THREADS = 128 * NWG + 32;
-  static constexpr size_t SMEM = 1024 + 2 * Q_HALF + STAGES * STAGE + (2 * STAGES + 1) * 8;
+  static constexpr int NG = HD > 128 ? HD / 128 : 1;   // O accumulator groups
+  static constexpr int OD = (HD > 128 ? 128 : HD) / 2; // floats a thread per group
+  static constexpr size_t SMEM = 1024 + BOXES * Q_BOX + STAGES * STAGE + (2 * STAGES + 1) * 8;
+  static_assert(SMEM <= 232448, "the tile does not fit an SM's shared memory");
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -396,17 +452,18 @@ __device__ __forceinline__ bool needs_mask(int t, int p_lo, int p_hi, int window
   return t * BK + BK - 1 > p_lo || (window > 0 && t * BK <= p_hi - window);
 }
 
-template <int NWG, int BK, int PACK>
-__global__ void __launch_bounds__(Cfg<NWG, BK, PACK>::THREADS, 1)
+template <int HD, int NWG, int BK, int PACK>
+__global__ void __launch_bounds__(Cfg<HD, NWG, BK, PACK>::THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ, const __grid_constant__ CUtensorMap tmK,
                 const __grid_constant__ CUtensorMap tmV, bf16* __restrict__ o, int B, int S,
                 int Hq, int Hkv, int window, float scale_log2) {
-  using C = Cfg<NWG, BK, PACK>;
+  using C = Cfg<HD, NWG, BK, PACK>;
   constexpr int SN = BK / 2;                    // S accumulator floats per thread
+  constexpr int NG = C::NG, OD = C::OD;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* ring = qs + 2 * C::Q_HALF;
+  unsigned char* ring = qs + C::BOXES * C::Q_BOX;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE);
   uint64_t* empty = full + C::STAGES;
   uint64_t* qbar = empty + C::STAGES;
@@ -435,19 +492,20 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ, const __grid_constant__
     // ---- producer: one lane issues every TMA load -------------------------
     if (lane == 0) {
       const int qrow = b * S + q_lo;
-      mbar_arrive_expect_tx(qbar, 2 * C::Q_HALF);
-      tma_3d(qs, &tmQ, 0, hq0, qrow, qbar);
-      tma_3d(qs + C::Q_HALF, &tmQ, 64, hq0, qrow, qbar);
+      mbar_arrive_expect_tx(qbar, C::BOXES * C::Q_BOX);
+#pragma unroll
+      for (int j = 0; j < C::BOXES; ++j) tma_3d(qs + j * C::Q_BOX, &tmQ, 64 * j, hq0, qrow, qbar);
       for (int s = 0; s <= hi - lo; ++s) {
         const int st = s % C::STAGES;
         if (s >= C::STAGES) mbar_wait(&empty[st], ((s / C::STAGES) - 1) & 1);
         unsigned char* base = ring + st * C::STAGE;
-        const int row = b * S + (lo + s) * BK, col = hk * 128;
+        const int row = b * S + (lo + s) * BK, col = hk * HD;
         mbar_arrive_expect_tx(&full[st], C::STAGE);
-        tma_2d(base, &tmK, col, row, &full[st]);
-        tma_2d(base + C::KV_HALF, &tmK, col + 64, row, &full[st]);
-        tma_2d(base + 2 * C::KV_HALF, &tmV, col, row, &full[st]);
-        tma_2d(base + 3 * C::KV_HALF, &tmV, col + 64, row, &full[st]);
+#pragma unroll
+        for (int j = 0; j < C::BOXES; ++j) {
+          tma_2d(base + j * C::KV_BOX, &tmK, col + 64 * j, row, &full[st]);
+          tma_2d(base + (C::BOXES + j) * C::KV_BOX, &tmV, col + 64 * j, row, &full[st]);
+        }
       }
     }
   } else {
@@ -459,13 +517,19 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ, const __grid_constant__
     const int wlo = live_lo(wp_lo, window, BK), whi = wp_hi / BK;
     const unsigned char* qa = qs + wg * 64 * 128;
 
-    float acc[64], sa[SN];
+    float acc[NG][OD], sa[SN];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int i = 0; i < OD; ++i) acc[j][i] = 0.f;
 #pragma unroll
     for (int i = 0; i < SN; ++i) sa[i] = 0.f;
     float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;       // l: this thread's share
 
+    auto fence_acc = [&]() {
+#pragma unroll
+      for (int j = 0; j < NG; ++j) fence_regs(acc[j]);
+    };
     auto stage_of = [&](int t) { return (t - lo) % C::STAGES; };
     auto parity_of = [&](int t) { return static_cast<uint32_t>(((t - lo) / C::STAGES) & 1); };
     auto issue_qk = [&](int t, float (&s)[SN]) {         // S = Q K_t^T, one group
@@ -474,9 +538,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ, const __grid_constant__
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t da = desc_sw128(qa + (kk >> 2) * C::Q_HALF + (kk & 3) * 32, 16, 1024);
-        const uint64_t db = desc_sw128(kt + (kk >> 2) * C::KV_HALF + (kk & 3) * 32, 16, 1024);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint64_t da = desc_sw128(qa + (kk >> 2) * C::Q_BOX + (kk & 3) * 32, 16, 1024);
+        const uint64_t db = desc_sw128(kt + (kk >> 2) * C::KV_BOX + (kk & 3) * 32, 16, 1024);
         if constexpr (BK == 128) wgmma_ss_n128(s, da, db, kk > 0);
         else wgmma_ss_n64(s, da, db, kk > 0);
       }
@@ -529,21 +593,22 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ, const __grid_constant__
     };
     auto rescale = [&](float c0, float c1) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        acc[4 * i] *= c0;
-        acc[4 * i + 1] *= c0;
-        acc[4 * i + 2] *= c1;
-        acc[4 * i + 3] *= c1;
-      }
+      for (int j = 0; j < NG; ++j)
+#pragma unroll
+        for (int i = 0; i < OD / 4; ++i) {
+          acc[j][4 * i] *= c0;
+          acc[j][4 * i + 1] *= c0;
+          acc[j][4 * i + 2] *= c1;
+          acc[j][4 * i + 3] *= c1;
+        }
     };
     auto issue_pv = [&](int t, uint32_t (&pa)[BK / 16][4]) {     // O += P V_t, one group
-      const unsigned char* vt = ring + stage_of(t) * C::STAGE + 2 * C::KV_HALF;
-      fence_regs(acc);
+      const unsigned char* vt = ring + stage_of(t) * C::STAGE + C::BOXES * C::KV_BOX;
+      fence_acc();
       fence_u32(pa);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs_n128(acc, pa[kk], desc_sw128(vt + kk * 16 * 128, C::KV_HALF, 1024));
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_pv(acc, pa[kk], vt + kk * 16 * 128, C::KV_BOX);
       wgmma_commit();
     };
 
@@ -566,7 +631,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ, const __grid_constant__
       issue_pv(t, pa);
       if (t < whi) issue_qk(t + 1, sa);
       wgmma_wait<0>();
-      fence_regs(acc);
+      fence_acc();
       fence_regs(sa);
       fence_u32(pa);
       mbar_arrive(&empty[stage_of(t)]);
@@ -583,44 +648,42 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tmQ, const __grid_constant__
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float d0 = fmaxf(l0, 1e-20f), d1 = fmaxf(l1, 1e-20f);
-    unsigned char* os = qs + wg * 64 * 128;             // rows r of both halves
+    unsigned char* os = qs + wg * 64 * 128;             // rows r of every box
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int half = i >> 3, ch = i & 7;
-      unsigned char* p = os + half * C::Q_HALF + tq * 4;
+    for (int i = 0; i < HD / 8; ++i) {                  // columns 8i .. 8i+7
+      const int box = i >> 3, ch = i & 7, gi = i / (OD / 4), e = 4 * (i % (OD / 4));
+      unsigned char* p = os + box * C::Q_BOX + tq * 4;
       *reinterpret_cast<uint32_t*>(p + r0 * 128 + ((ch ^ (r0 & 7)) << 4)) =
-          pack_bf16(acc[4 * i] / d0, acc[4 * i + 1] / d0);
+          pack_bf16(acc[gi][e] / d0, acc[gi][e + 1] / d0);
       *reinterpret_cast<uint32_t*>(p + (r0 + 8) * 128 + ((ch ^ ((r0 + 8) & 7)) << 4)) =
-          pack_bf16(acc[4 * i + 2] / d1, acc[4 * i + 3] / d1);
+          pack_bf16(acc[gi][e + 2] / d1, acc[gi][e + 3] / d1);
     }
     asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
     const int wt = tid & 127;
+    constexpr int CPR = HD / 8;                         // 16-byte chunks of a row
 #pragma unroll
-    for (int it = 0; it < 8; ++it) {
-      const int e = it * 128 + wt, r = e >> 4, c = e & 15;
+    for (int it = 0; it < 64 * CPR / 128; ++it) {
+      const int e = it * 128 + wt, r = e / CPR, c = e % CPR;
       const uint4 val = *reinterpret_cast<const uint4*>(
-          os + (c >> 3) * C::Q_HALF + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+          os + (c >> 3) * C::Q_BOX + r * 128 + (((c & 7) ^ (r & 7)) << 4));
       const int R = wg * 64 + r;
       const size_t row = (static_cast<size_t>(b) * S + q_lo + R / PACK) * Hq + hq0 + R % PACK;
-      *reinterpret_cast<uint4*>(o + row * 128 + c * 8) = val;
+      *reinterpret_cast<uint4*>(o + row * HD + c * 8) = val;
     }
   }
 }
 
-template <int NWG, int BK, int PACK>
+template <int HD, int NWG, int BK, int PACK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
                    int Hkv, int window, float scale, cudaStream_t st) {
-  using C = Cfg<NWG, BK, PACK>;
+  using C = Cfg<HD, NWG, BK, PACK>;
   CUtensorMap mq, mk, mv;
-  const uint64_t rows = static_cast<uint64_t>(B) * S;
+  const uint64_t rows = static_cast<uint64_t>(B) * S, kv_w = static_cast<uint64_t>(Hkv) * HD;
   // K and V maps come from the table; Q's is encoded anew (once per call)
-  if (!encode_bf16_3d(&mq, q, 128, Hq, rows, 128, static_cast<uint64_t>(Hq) * 128, PACK, C::P) ||
-      !cached_map(&mk, k, static_cast<uint64_t>(Hkv) * 128, rows,
-                  static_cast<uint64_t>(Hkv) * 128, BK) ||
-      !cached_map(&mv, v, static_cast<uint64_t>(Hkv) * 128, rows,
-                  static_cast<uint64_t>(Hkv) * 128, BK))
+  if (!encode_bf16_3d(&mq, q, HD, Hq, rows, HD, static_cast<uint64_t>(Hq) * HD, PACK, C::P) ||
+      !cached_map(&mk, k, kv_w, rows, kv_w, BK) || !cached_map(&mv, v, kv_w, rows, kv_w, BK))
     return cudaErrorInvalidValue;
-  auto kernel = fa_wgmma_kernel<NWG, BK, PACK>;
+  auto kernel = fa_wgmma_kernel<HD, NWG, BK, PACK>;
   cudaError_t e = set_smem_once(reinterpret_cast<const void*>(kernel), C::SMEM);
   if (e != cudaSuccess) return e;
   const int grid = (S / C::P) * B * (Hq / PACK);
@@ -657,27 +720,39 @@ extern "C" int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, 
   }
 }
 
-// The wgmma variant: bf16, hd 128, causal, Sq = Skv = S a multiple of 128;
-// rows (query rows per CTA) 64 or 128, keys (per kv tile) 64 or 128, pack
-// (q heads per CTA) 1 or 4 with (Hq / Hkv) % pack == 0; q, k, v and o
-// 16-byte aligned.  window <= 0 means no window.
+// The wgmma variant: bf16, hd 64, 128 or 256, causal, Sq = Skv = S a
+// multiple of 128; rows (query rows per CTA) 64 or 128 (64 only at hd 256),
+// keys (per kv tile) 64 or 128 (64 only at hd 256), pack (q heads per CTA) 1 or 4 with
+// (Hq / Hkv) % pack == 0; q, k, v and o 16-byte aligned.  window <= 0 means
+// no window.  Any other setting returns cudaErrorInvalidValue
+// (plans.FA_BUILT lists the ones built).
 extern "C" int fa_fwd_bf16_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                                  int S, int Hq, int Hkv, int hd, int window, float scale,
                                  int rows, int keys, int pack, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != 128 || S <= 0 || S % 128 || Hkv <= 0 || Hq % Hkv || pack <= 0 || (Hq / Hkv) % pack)
+  if (S <= 0 || S % 128 || Hkv <= 0 || Hq % Hkv || pack <= 0 || (Hq / Hkv) % pack)
     return cudaErrorInvalidValue;
-#define FA_CASE(R, K, P)                                                                  \
-  if (rows == R && keys == K && pack == P)                                                \
-    return fa3::launch<R / 64, K, P>(q, k, v, o, B, S, Hq, Hkv, window, scale, st);
-  FA_CASE(128, 128, 1)
-  FA_CASE(128, 128, 4)
-  FA_CASE(128, 64, 1)
-  FA_CASE(128, 64, 4)
-  FA_CASE(64, 128, 1)
-  FA_CASE(64, 128, 4)
-  FA_CASE(64, 64, 1)
-  FA_CASE(64, 64, 4)
+#define FA_CASE(H, R, K, P)                                                               \
+  if (hd == H && rows == R && keys == K && pack == P)                                     \
+    return fa3::launch<H, R / 64, K, P>(q, k, v, o, B, S, Hq, Hkv, window, scale, st);
+#define FA_CASES(H)                                                                       \
+  FA_CASE(H, 128, 64, 1)                                                                  \
+  FA_CASE(H, 128, 64, 4)                                                                  \
+  FA_CASE(H, 64, 64, 1)                                                                   \
+  FA_CASE(H, 64, 64, 4)
+#define FA_CASES_BK128(H)                                                                 \
+  FA_CASE(H, 128, 128, 1)                                                                 \
+  FA_CASE(H, 128, 128, 4)                                                                 \
+  FA_CASE(H, 64, 128, 1)                                                                  \
+  FA_CASE(H, 64, 128, 4)
+  FA_CASES(64)
+  FA_CASES_BK128(64)
+  FA_CASES(128)
+  FA_CASES_BK128(128)
+  FA_CASE(256, 64, 64, 1)
+  FA_CASE(256, 64, 64, 4)
+#undef FA_CASES_BK128
+#undef FA_CASES
 #undef FA_CASE
   return cudaErrorInvalidValue;
 }

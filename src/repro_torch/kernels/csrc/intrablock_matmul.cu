@@ -7,15 +7,21 @@
 // row gather stands in for the CIM mux that routes each compressed weight
 // row its original input element.
 //
-// Layout: x (B, K), w_comp (Kc, N), row_idx (Kc,) int32 with
-// 0 <= row_idx < K (the wrapper checks), y (B, N), all contiguous.
+// Layout: x (B, K), w_comp (Kc, N) with row stride ldw >= N elements,
+// row_idx (Kc,) int32 with 0 <= row_idx < K (the wrapper checks), y (B, N);
+// x, row_idx and y contiguous.  A weight whose rows a tensor map cannot
+// describe (N % 8 != 0: rows of 2N bytes) is stored by sparsity/apply.py
+// with its rows padded to a multiple of 8 elements, so ldw = N rounded up.
 //
 // The wrapper (intrablock_matmul.py, through plans.igm_plan) picks one
-// variant before the launch, by dtype, B, N and the alignment of w_comp:
+// variant before the launch, by dtype, B, the row stride and the
+// alignment of w_comp:
 //
-// decode (bf16, B <= 16, N % 128 == 0, w_comp 16-byte aligned).
-//   Bound: bytes (2*B flops per weight read).  Design: grid (c, N/128) in
-//   clusters of c CTAs, one cluster per 128-column tile; CTA rank r takes
+// decode (bf16, B <= 16, 2*ldw % 16 == 0, w_comp 16-byte aligned; any N).
+//   Bound: bytes (2*B flops per weight read).  Design: grid (c,
+//   ceil(N/128)) in clusters of c CTAs, one cluster per 128-column tile
+//   (the last one ragged: its columns past N arrive as zeros from the
+//   tensor map and are not stored); CTA rank r takes
 //   the 64-row chunks [r*n/c, (r+1)*n/c) of the n = ceil(Kc/64) chunks of
 //   Kc (plans.split_range).  A producer warp fills a 4-stage ring: a
 //   chunk's 64 x 128 weights arrive by two TMA loads of 64 x 64 boxes with
@@ -42,7 +48,7 @@
 //   chunk: qwen3-4b wq 8 (256 CTAs), wk/wv 8 (64), w_gate/w_up 4 (304),
 //   w_down 8 (160).
 //
-// prefill (bf16, B > 16, N % 128 == 0, w_comp aligned).  Two launches: a
+// prefill (bf16, B > 16, the same weights as decode).  Two launches: a
 //   gather kernel writes x[:, row_idx] once into a (B, Kp) scratch buffer
 //   (Kp = Kc rounded up to 8, the wrapper allocates it), then
 //   sm90::gemm_prefill<1> multiplies it with the dense (Kc, N) weight: two
@@ -54,12 +60,14 @@
 //   the same gathered x: at B = 512 the gathered x (up to 5 MB) is read
 //   20-76 times, and a dense TMA box cannot gather.  A second launch at
 //   prefill costs a few microseconds against the 0.02-0.07 ms of the
-//   product.
+//   product.  Its epilogue stores only the N - 128j columns of a ragged
+//   last tile.
 //
-// general (bf16, any N, any alignment): one CTA (4 warps) per (TB-row
-//   tile, 128-column tile), Kc walked in 64-row chunks with the next chunk
-//   prefetched into registers, WMMA 16x16x16; ragged N and unaligned
-//   w_comp take scalar weight loads.
+// general (bf16, any row stride, any alignment): one CTA (4 warps) per
+//   (TB-row tile, 128-column tile), Kc walked in 64-row chunks with the
+//   next chunk prefetched into registers, WMMA 16x16x16; a row stride
+//   that is no multiple of 8 or an unaligned w_comp takes scalar weight
+//   loads.
 //
 // f32 (igm_f32): plain FMA in f32 (no TF32), one thread per output column
 //   and 8 rows of x per CTA.  It is the precision reference on the card.
@@ -81,7 +89,7 @@ template <int TB>
 __global__ void __launch_bounds__(NWARP * 32)
 igm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                 const int* __restrict__ ridx, __nv_bfloat16* __restrict__ y,
-                int B, int K, int Kc, int N, bool wvec) {
+                int B, int K, int Kc, int N, int ldw, bool wvec) {
   constexpr int NFN = TN / 16;                   // column fragments of a tile
   constexpr int NF = (TB / 16) * NFN;            // fragments of the CTA
   constexpr int FPW = NF / NWARP;                // fragments of a warp
@@ -120,12 +128,12 @@ igm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
       const int r = row0 + xr0 + j * XSTEP;
       xreg[j] = (r < B && k >= 0) ? x[(size_t)r * K + k] : __float2bfloat16(0.f);
     }
-    if (wvec) {   // N % 8 == 0 and w 16-byte aligned: 16-byte loads
+    if (wvec) {   // ldw % 8 == 0 and w 16-byte aligned: 16-byte loads
 #pragma unroll
       for (int j = 0; j < WV; ++j) {
         const int r = wr0 + j * WSTEP;
         wreg[j] = (r < kn && n0 + wc0 < N)
-                      ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * N + n0 + wc0))
+                      ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * ldw + n0 + wc0))
                       : make_uint4(0, 0, 0, 0);
       }
     }
@@ -143,7 +151,7 @@ igm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __rest
       const int kn = min(KC, Kc - k0);
       for (int i = tid; i < KC * TN; i += NT) {
         const int r = i / TN, c = i % TN;
-        sW[i] = (r < kn && n0 + c < N) ? w[(size_t)(k0 + r) * N + n0 + c]
+        sW[i] = (r < kn && n0 + c < N) ? w[(size_t)(k0 + r) * ldw + n0 + c]
                                        : __float2bfloat16(0.f);
       }
     }
@@ -185,7 +193,7 @@ constexpr int F32_THREADS = 256;
 __global__ void __launch_bounds__(F32_THREADS)
 igm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const int* __restrict__ ridx, float* __restrict__ y,
-               int B, int K, int Kc, int N) {
+               int B, int K, int Kc, int N, int ldw) {
   const int row0 = blockIdx.x * F32_ROWS;
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
   if (c >= N) return;
@@ -196,7 +204,7 @@ igm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll 8
   for (int k = 0; k < Kc; ++k) {
     const int xk = __ldg(ridx + k);
-    const float wv = w[(size_t)k * N + c];
+    const float wv = w[(size_t)k * ldw + c];
 #pragma unroll
     for (int r = 0; r < F32_ROWS; ++r)
       if (r < nr) acc[r] = fmaf(__ldg(x + (size_t)(row0 + r) * K + xk), wv, acc[r]);
@@ -208,35 +216,37 @@ igm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace
 
-// General variant: any N, any alignment of w, any B.
+// General variant: any N, any row stride ldw >= N, any alignment of w, any B.
 extern "C" int igm_bf16_general(const void* x, const void* w, const void* ridx, void* y, int B,
-                                int K, int Kc, int N, void* stream) {
+                                int K, int Kc, int N, int ldw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ldw < N) return cudaErrorInvalidValue;
   if (B <= 0 || N <= 0) return cudaSuccess;
-  const bool wvec = N % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool wvec = ldw % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const __nv_bfloat16*>(w);
   const auto* ib = static_cast<const int*>(ridx);
   auto* yb = static_cast<__nv_bfloat16*>(y);
   if (B > 16) {
     dim3 grid((B + 63) / 64, (N + TN - 1) / TN);
-    igm_bf16_kernel<64><<<grid, NWARP * 32, 0, st>>>(xb, wb, ib, yb, B, K, Kc, N, wvec);
+    igm_bf16_kernel<64><<<grid, NWARP * 32, 0, st>>>(xb, wb, ib, yb, B, K, Kc, N, ldw, wvec);
   } else {
     dim3 grid(1, (N + TN - 1) / TN);
-    igm_bf16_kernel<16><<<grid, NWARP * 32, 0, st>>>(xb, wb, ib, yb, B, K, Kc, N, wvec);
+    igm_bf16_kernel<16><<<grid, NWARP * 32, 0, st>>>(xb, wb, ib, yb, B, K, Kc, N, ldw, wvec);
   }
   return cudaGetLastError();
 }
 
 extern "C" int igm_f32(const void* x, const void* w, const void* ridx, void* y, int B, int K,
-                       int Kc, int N, void* stream) {
+                       int Kc, int N, int ldw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ldw < N) return cudaErrorInvalidValue;
   if (B <= 0 || N <= 0) return cudaSuccess;
   dim3 grid((B + F32_ROWS - 1) / F32_ROWS, (N + F32_THREADS - 1) / F32_THREADS);
   igm_f32_kernel<<<grid, F32_THREADS, 0, st>>>(static_cast<const float*>(x),
                                                static_cast<const float*>(w),
                                                static_cast<const int*>(ridx),
-                                               static_cast<float*>(y), B, K, Kc, N);
+                                               static_cast<float*>(y), B, K, Kc, N, ldw);
   return cudaGetLastError();
 }
 
@@ -334,7 +344,8 @@ igm_decode_kernel(const __grid_constant__ CUtensorMap tmW, const bf16* __restric
     asm volatile("bar.sync 1, 128;" ::: "memory");
     sm90::store_warp_tile_16x32(acc, reinterpret_cast<float*>(xt), I_LDR, warp * 32);
   }
-  sm90::cluster_reduce_store<I_THREADS>(reinterpret_cast<float*>(xt), I_LDR, B, 128, y + n0, N);
+  sm90::cluster_reduce_store<I_THREADS>(reinterpret_cast<float*>(xt), I_LDR, B, min(128, N - n0),
+                                        y + n0, N);
 }
 
 // xg[b, k] = x[b, row_idx[k]] for k < Kc, 0 for Kc <= k < Kp.
@@ -348,26 +359,33 @@ __global__ void gather_cols_kernel(const bf16* __restrict__ x, const int* __rest
 
 }  // namespace
 
-// Decode variant: B <= 16, N % 128 == 0, w 16-byte aligned (the wrapper
-// checks), 1 <= cluster <= 8.
+// Whether a tensor map can describe the rows of w: row stride ldw >= N a
+// multiple of 16 bytes, base 16-byte aligned (plans.igm_plan checks the same).
+static bool tma_rows(const void* w, int N, int ldw) {
+  return N >= 1 && ldw >= N && (2L * ldw) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+}
+
+// Decode variant: 1 <= B <= 16, any N, w's rows as tma_rows takes them (the
+// wrapper checks), 1 <= cluster <= 8.
 extern "C" int igm_bf16_decode(const void* x, const void* w, const void* ridx, void* y, int B,
-                               int K, int Kc, int N, int cluster, void* stream) {
-  if (B < 1 || B > 16 || N % 128 || Kc < 1 || cluster < 1 || cluster > 8)
+                               int K, int Kc, int N, int ldw, int cluster, void* stream) {
+  if (B < 1 || B > 16 || !tma_rows(w, N, ldw) || Kc < 1 || cluster < 1 || cluster > 8)
     return cudaErrorInvalidValue;
   CUtensorMap mw;
-  if (!sm90::cached_map(&mw, w, N, Kc, N, I_KC)) return cudaErrorInvalidValue;
-  return sm90::launch_cluster(igm_decode_kernel, dim3(cluster, N / 128), I_THREADS, I_SMEM,
+  if (!sm90::cached_map(&mw, w, N, Kc, ldw, I_KC)) return cudaErrorInvalidValue;
+  return sm90::launch_cluster(igm_decode_kernel, dim3(cluster, (N + 127) / 128), I_THREADS, I_SMEM,
                               static_cast<cudaStream_t>(stream), mw,
                               static_cast<const bf16*>(x), static_cast<const int*>(ridx),
                               static_cast<bf16*>(y), B, K, Kc, N);
 }
 
-// Prefill variant: N % 128 == 0, w 16-byte aligned, xg a (B, Kp) scratch
-// buffer with Kp = Kc rounded up to 8, 1 <= cluster <= 8.
+// Prefill variant: any N, w's rows as tma_rows takes them, xg a (B, Kp)
+// scratch buffer with Kp = Kc rounded up to 8, 1 <= cluster <= 8.
 extern "C" int igm_bf16_prefill(const void* x, const void* w, const void* ridx, void* xg,
-                                void* y, int B, int K, int Kc, int Kp, int N, int cluster,
-                                void* stream) {
-  if (B < 1 || N % 128 || Kc < 1 || Kp < Kc || Kp % 8 || cluster < 1 || cluster > 8)
+                                void* y, int B, int K, int Kc, int Kp, int N, int ldw,
+                                int cluster, void* stream) {
+  if (B < 1 || !tma_rows(w, N, ldw) || Kc < 1 || Kp < Kc || Kp % 8 || cluster < 1 ||
+      cluster > 8)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   gather_cols_kernel<<<dim3((Kp + 255) / 256, B), 256, 0, st>>>(
@@ -377,8 +395,8 @@ extern "C" int igm_bf16_prefill(const void* x, const void* w, const void* ridx, 
   if (e != cudaSuccess) return e;
   CUtensorMap ma, mb;
   if (!sm90::cached_map(&ma, xg, Kp, B, Kp, sm90::PM) ||
-      !sm90::cached_map(&mb, w, N, Kc, N, sm90::PK))
+      !sm90::cached_map(&mb, w, N, Kc, ldw, sm90::PK))
     return cudaErrorInvalidValue;
   return sm90::launch_prefill<1>(ma, mb, nullptr, static_cast<bf16*>(y), B, N,
-                                 (Kc + sm90::PK - 1) / sm90::PK, cluster, N / 128, st);
+                                 (Kc + sm90::PK - 1) / sm90::PK, cluster, (N + 127) / 128, st);
 }

@@ -10,7 +10,9 @@
 Shapes, layouts and errors follow ``repro/kernels/ops.py``.  Each CUDA
 wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them, :func:`variant_counts` reads the per-variant counts of the
-five kernels, and :func:`reset_launch_counts` sets them all to 0.
+five kernels, :func:`gather_matmul_shape_counts` the gather-matmul's per
+variant and weight shape, and :func:`reset_launch_counts` sets them all
+to 0.
 """
 from __future__ import annotations
 
@@ -27,10 +29,12 @@ from . import intrablock_matmul as _igm
 from . import ref as _ref
 
 __all__ = ["IMPLS", "compress_fullblock", "compress_fullblock_torch",
-           "compress_intrablock", "compress_intrablock_torch", "decompress_intrablock",
+           "compress_intrablock", "compress_intrablock_torch", "aligned_rows",
+           "decompress_intrablock",
            "block_sparse_matmul", "intrablock_gather_matmul", "block_importance",
            "bitserial_zero_profile", "quantized_zero_profile", "flash_attention",
-           "launch_counts", "variant_counts", "reset_launch_counts"]
+           "launch_counts", "variant_counts", "gather_matmul_shape_counts",
+           "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "ref")
 _KERNELS = {"flash_attention": _fa, "block_sparse_matmul": _bsm,
@@ -57,7 +61,14 @@ def variant_counts() -> Dict[str, Dict[str, int]]:
     return {name: dict(mod.variant_launches) for name, mod in _KERNELS.items()}
 
 
+def gather_matmul_shape_counts() -> Dict[Tuple[str, int, int], int]:
+    """Launches of the gather-matmul per (variant, Kc, N) of its weight,
+    since the last reset."""
+    return dict(_igm.shape_launches)
+
+
 def reset_launch_counts() -> None:
+    _igm.shape_launches.clear()
     for mod in _KERNELS.values():
         mod.launches = 0
         for v in mod.variant_launches:
@@ -182,6 +193,23 @@ def compress_intrablock_torch(w: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"non-uniform survivors per block: {set(counts.tolist())}")
     row_idx = torch.nonzero(pattern.reshape(-1)).reshape(-1).to(torch.int32)
     return w[row_idx.long()].contiguous(), row_idx
+
+
+def aligned_rows(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (..., N) as it is where its rows are a multiple of 16 bytes
+    long, else a view of its first N columns in a zero-filled buffer whose
+    rows are rounded up to 16 bytes (N to a multiple of 8 in bf16).  The
+    gather-matmul's main variants read a weight through a TMA tensor map,
+    whose row stride must be a multiple of 16 bytes; hymba-1.5b's w_in (N
+    6482) has rows of 12,964 bytes.  The view keeps the (..., N) contract
+    and the kernels read it in place."""
+    per = 16 // w.element_size()
+    N = w.shape[-1]
+    if N % per == 0:
+        return w
+    buf = w.new_zeros(*w.shape[:-1], -(-N // per) * per)
+    buf[..., :N] = w
+    return buf[..., :N]
 
 
 # ---------------------------------------------------------------------------

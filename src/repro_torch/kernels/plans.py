@@ -6,10 +6,13 @@ pointer alignment alone (it never reads a tensor back from the card).
 Block-sparse matmul and IntraBlock gather-matmul (``bsm_plan``,
 ``igm_plan``):
 
-* the **variant** — ``"decode"`` (bf16, B <= 16: bulk-copy ring +
-  mma.sync + cluster split-K), ``"prefill"`` (bf16, B > 16: TMA ring +
-  wgmma), ``"general"`` (bf16 shapes or alignments the two do not take:
-  the first kernel, kept) or ``"f32"`` (the precision reference);
+* the **variant** — ``"decode"`` (bf16, B <= 16: TMA ring + mma.sync +
+  cluster split-K), ``"prefill"`` (bf16, B > 16: TMA ring + wgmma),
+  ``"general"`` (bf16 shapes or alignments the two do not take: the first
+  kernel, kept) or ``"f32"`` (the precision reference).  The gather-matmul
+  tiles N by 128 with a ragged last tile, so its main variants take any N
+  whose weight rows a tensor map can describe (row stride a multiple of
+  16 bytes, base 16-byte aligned);
 * the **cluster** size ``c``: how many CTAs split one output tile's
   reduction;
 * the **partition** of that reduction over the cluster's ranks: rank r
@@ -19,10 +22,12 @@ Block-sparse matmul and IntraBlock gather-matmul (``bsm_plan``,
   way (``csrc/block_sparse_matmul.cu``, ``csrc/intrablock_matmul.cu``) and
   sum the ranks' f32 partials in rank order.
 
-Flash attention (``fa_plan``): ``"wgmma"`` (bf16, hd 128, causal, Sq =
-Skv a multiple of 128, aligned: TMA ring + wgmma, softmax in registers)
-with its rows per CTA, keys per kv tile and q heads packed per CTA;
-``"general"`` (the first kernel) or ``"f32"``.  ``fa_live_tiles``,
+Flash attention (``fa_plan``): ``"wgmma"`` (bf16, hd 64, 128 or 256,
+causal, Sq = Skv a multiple of 128, aligned: TMA ring + wgmma, softmax in
+registers) with its rows per CTA, keys per kv tile and q heads packed per
+CTA, chosen per head dim (``FA_LEVERS``; ``FA_BUILT`` lists the ones
+the kernel is built with); ``"general"`` (the first kernel) or ``"f32"``.
+``fa_live_tiles``,
 ``fa_tile_needs_mask`` and ``fa_tile_order`` mirror the kernel's live kv
 range, its masked tiles and its launch order.
 
@@ -48,9 +53,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 __all__ = ["Plan", "DECODE_MAX_B", "CHUNK", "TILE_N", "SMS", "BSM_DECODE_CTAS",
-           "IGM_DECODE_CTAS", "PREFILL_CTAS", "split_range", "choose_cluster", "bsm_plan",
-           "igm_plan", "live_partition", "chunk_partition", "FaPlan", "FA_ROWS", "FA_KEYS",
-           "FA_PACK", "fa_plan", "fa_live_tiles", "fa_tile_needs_mask", "fa_tile_order",
+           "IGM_DECODE_CTAS", "IGM_DECODE_CAP", "PREFILL_CTAS", "split_range",
+           "choose_cluster", "bsm_plan", "igm_plan", "live_partition", "chunk_partition",
+           "FaPlan", "FA_BUILT", "FA_HEAD_DIMS", "FA_LEVERS", "fa_settings", "fa_plan", "fa_live_tiles", "fa_tile_needs_mask", "fa_tile_order",
            "bi_plan", "BspPlan", "BSP_THREADS", "BSP_UNROLL", "BSP_CTAS_PER_SM", "bsp_plan"]
 
 DECODE_MAX_B = 16      # rows of x one mma.sync tile holds
@@ -80,9 +85,10 @@ def split_range(n: int, c: int, r: int) -> Tuple[int, int]:
 # keeps enough bytes in flight; the gather-matmul decode CTA streams 16 KB
 # chunks and wants two or three per SM; at prefill each further split
 # costs a 64 KB partial through distributed shared memory, worth it only
-# on small grids.
+# on small grids.  IGM_DECODE_CAP: see igm_plan.
 BSM_DECODE_CTAS = 128
 IGM_DECODE_CTAS = 2 * SMS
+IGM_DECODE_CAP = 330
 PREFILL_CTAS = 128
 
 
@@ -116,20 +122,38 @@ def bsm_plan(B: int, K: int, Gn: int, L: int, bm: int, bn: int, dtype: torch.dty
 
 
 @lru_cache(maxsize=1024)
-def igm_plan(B: int, Kc: int, N: int, dtype: torch.dtype, align: int) -> Plan:
-    """Plan of ``intrablock_gather_matmul`` for x (B, K), w_comp (Kc, N).
+def igm_plan(B: int, Kc: int, N: int, dtype: torch.dtype, align: int,
+             ldw: Optional[int] = None) -> Plan:
+    """Plan of ``intrablock_gather_matmul`` for x (B, K), w_comp (Kc, N)
+    with row stride ``ldw`` elements (default N: contiguous).
 
     ``align`` is the largest power of two dividing the address of w_comp
     (x is gathered element by element, so its address does not matter).
+    The main variants read w_comp through a TMA tensor map, whose row
+    stride must be a multiple of 16 bytes: a bf16 weight whose row stride
+    is not a multiple of 8 elements (``sparsity.apply`` pads such rows
+    when it compresses) or whose base is not 16-byte aligned takes
+    ``general``.  N need not be a multiple of 128: the last 128-column
+    tile is ragged.
     """
     if dtype == torch.float32:
         return Plan("f32", 1)
-    if N % TILE_N or align % ALIGN:
+    ldw = N if ldw is None else ldw
+    if (2 * ldw) % ALIGN or align % ALIGN:
         return Plan("general", 1)
     chunks = -(-Kc // CHUNK)
+    col_tiles = -(-N // TILE_N)
     if B <= DECODE_MAX_B:
-        return Plan("decode", choose_cluster(N // TILE_N, chunks, IGM_DECODE_CTAS))
-    tiles = (N // TILE_N) * -(-B // PREFILL_ROWS)
+        # A cap on the decode grid, fitted to the one served shape where it
+        # binds: hymba-1.5b's w_in (51 column tiles, 13 chunks) ran
+        # 0.0100 ms at c = 4 (204 CTAs) and 0.0126 ms at c = 8 (408) in the
+        # cluster sweep chip_smoke.py prints (H100 80GB HBM3, 700 W).  The
+        # other served grids stay under it, so their clusters are unchanged.
+        c = choose_cluster(col_tiles, chunks, IGM_DECODE_CTAS)
+        while c > 1 and col_tiles * c > IGM_DECODE_CAP:
+            c //= 2
+        return Plan("decode", c)
+    tiles = col_tiles * -(-B // PREFILL_ROWS)
     return Plan("prefill", choose_cluster(tiles, chunks, PREFILL_CTAS, min_units=2))
 
 
@@ -158,17 +182,35 @@ class FaPlan:
     pack: int = 1      # q heads of one kv head that share a CTA: 1 or 4
 
 
-# wgmma levers, read off the sweep of rows x keys x pack that chip_smoke.py
-# prints beside the flash-attention rows (q (1, S, 32, 128), k/v (1, S, 8,
-# 128), S = 512 and 2048, on an H100): two warpgroups of 64 rows per CTA
-# and tiles of 64 keys were the fastest setting, or within 2% of it, in
-# every sweep (one warpgroup per CTA varied by 1.4x between builds);
-# packing the 4 q heads of a kv head into one CTA saved nothing (the K/V
-# tiles come from L2 either way).
-FA_ROWS = 128
-FA_KEYS = 64
-FA_PACK = 1
-FA_HEAD_DIM = 128      # the head dim the wgmma variant takes (64 and 256: general)
+# (rows, keys, pack) settings the wgmma kernel is built with, per head dim:
+# the FA_CASE lines of fa_fwd_bf16_wgmma in csrc/flash_attention.cu.  At hd
+# 256 only 64 rows and 64 keys: a 128-key stage does not fit beside the
+# 3-stage ring of 64 KB stages, and 128 rows neither fit nor kept O, S and P
+# in registers without spilling.
+_BUILT_64_128 = [(128, 128, 1), (128, 128, 4), (128, 64, 1), (128, 64, 4),
+                 (64, 128, 1), (64, 128, 4), (64, 64, 1), (64, 64, 4)]
+FA_BUILT = {64: _BUILT_64_128, 128: _BUILT_64_128, 256: [(64, 64, 1), (64, 64, 4)]}
+FA_HEAD_DIMS = tuple(FA_BUILT)   # head dims the wgmma variant is built for
+
+# wgmma levers (rows, keys, pack) per head dim, read off the sweep of rows
+# x keys x pack that chip_smoke.py prints beside the flash-attention rows
+# on an H100.  hd 128 (q (1, S, 32, 128), k/v (1, S, 8, 128), S = 512 and
+# 2048): two warpgroups of 64 rows per CTA and tiles of 64 keys were the
+# fastest setting, or within 2% of it, in every sweep (one warpgroup per
+# CTA varied by 1.4x between builds); packing the 4 q heads of a kv head
+# into one CTA saved nothing (the K/V tiles come from L2 either way).
+# hd 64 (q (1, 1664, 25, 64), k/v 5 heads, window 1024: hymba-1.5b's
+# prefill) and hd 256 (q/k/v (1, 512, 16, 256): gemma-7b's): one
+# warpgroup of 64 rows and 64-key tiles, the fastest or within 3% of it
+# at both and at S = 256 (PERF.md §6); at hd 256 the only rows built.
+FA_LEVERS = {64: (64, 64, 1), 128: (128, 64, 1), 256: (64, 64, 1)}
+
+
+def fa_settings(hd: int, group: int) -> List[Tuple[int, int, int]]:
+    """The (rows, keys, pack) settings of ``FA_BUILT`` at head dim ``hd``
+    that a group of ``group`` q heads per kv head can take (pack divides
+    the group)."""
+    return [s for s in FA_BUILT.get(hd, []) if group % s[2] == 0]
 
 
 @lru_cache(maxsize=1024)
@@ -177,17 +219,20 @@ def fa_plan(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, hd: int, dtype: torch.
     """Plan of ``flash_attention`` for q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd).
 
     ``align`` is the largest power of two dividing the addresses of q, k,
-    v and the output.  The wgmma variant takes bf16, hd 128, causal
-    attention with or without a window, Sq = Skv a multiple of 128 and
-    16-byte aligned tensors; every other shape runs the first kernel.
+    v and the output.  The wgmma variant takes bf16, hd 64, 128 or 256,
+    causal attention with or without a window, Sq = Skv a multiple of 128
+    and 16-byte aligned tensors, at its head dim's levers (``FA_LEVERS``;
+    pack 1 where the head group does not divide); every other shape runs
+    the first kernel.
     """
     if dtype == torch.float32:
         return FaPlan("f32")
-    if (hd != FA_HEAD_DIM or not causal or Sq != Skv or Sq % 128 or Hq % Hkv
+    if (hd not in FA_HEAD_DIMS or not causal or Sq != Skv or Sq % 128 or Hq % Hkv
             or align % ALIGN):
         return FaPlan("general")
-    pack = FA_PACK if (Hq // Hkv) % FA_PACK == 0 else 1
-    return FaPlan("wgmma", FA_ROWS, FA_KEYS, pack)
+    rows, keys, pack = FA_LEVERS[hd]
+    pack = pack if (Hq // Hkv) % pack == 0 else 1
+    return FaPlan("wgmma", rows, keys, pack)
 
 
 def fa_live_tiles(p_lo: int, p_hi: int, keys: int, window: Optional[int]) -> Tuple[int, int]:

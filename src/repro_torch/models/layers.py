@@ -67,7 +67,9 @@ class IntraBlockLinear(nn.Module):
     of layers.
 
     Holds ``w_comp`` (L, Kc, N), the surviving rows of each layer's (K, N)
-    matrix, and ``row_idx`` (L, Kc) int32, their rows in that matrix, plus
+    matrix (rows contiguous; their stride may exceed N, as
+    ``compress_params`` pads rows to 16 bytes, and :meth:`layer` keeps
+    it), and ``row_idx`` (L, Kc) int32, their rows in that matrix, plus
     ``in_features`` (K) and the output shape of one token.  The indices
     are checked to lie in [0, K) once, when the module is built, so the
     per-call op skips that check (it would synchronise with the card on

@@ -35,7 +35,7 @@ from ..core.flexblock import FlexBlockSpec
 from ..core.mapping import default_mapping
 from ..core.pruning import flexblock_mask
 from ..core.workload import lm_workload
-from ..kernels.ops import compress_fullblock_torch, compress_intrablock_torch
+from ..kernels.ops import aligned_rows, compress_fullblock_torch, compress_intrablock_torch
 from ..models.layers import BlockSparseLinear, IntraBlockLinear
 
 __all__ = ["PRUNABLE_KEYS", "prune_params", "sparsity_report", "compress_params",
@@ -140,6 +140,8 @@ def compress_params(params: Dict[str, Any], masks: Dict[str, Any], bm: Optional[
     * IntraBlock: each layer's mask must be row-aligned with the same
       survivor count in every m-row block, as ``compress_intrablock``
       requires; the layers of one key must keep the same row count Kc.
+      Where a row of w_comp is not a multiple of 16 bytes long, w_comp is
+      a (L, Kc, N) view of a zero-padded buffer (``ops.aligned_rows``).
     * Only ``wq``/``wk``/``wv`` (L, d, H, hd) and the 3-D (L, K, N) leaves
       (a dense MLP's, the SSM mixer's ``w_in``/``w_out``) are compressed.
       ``wo`` and the MoE expert leaves (L, E, K, N), which the reference
@@ -198,7 +200,8 @@ def _compress_intra(name, mats, mask, m, out_shape) -> IntraBlockLinear:
     if len({c.shape[0] for c in comps}) != 1:
         raise ValueError(f"{name}: layers keep different row counts "
                          f"{sorted({c.shape[0] for c in comps})}")
-    return IntraBlockLinear(torch.stack(comps), torch.stack(idxs), K, out_shape)
+    return IntraBlockLinear(aligned_rows(torch.stack(comps)), torch.stack(idxs), K, out_shape)
+
 
 
 def cim_cost_of_model(

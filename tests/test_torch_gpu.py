@@ -73,13 +73,95 @@ def test_flash_attention_wgmma_variant_matches_plain(gen, S, Hq, Hkv, window):
 
 @pytest.mark.parametrize("hd", [64, 256])
 def test_flash_attention_other_head_dims_take_the_general_variant(gen, hd):
-    q = _randn(gen, 1, 256, 8, hd, dtype=torch.bfloat16)
+    """Off the wgmma variant's contract at hd 64 and 256, a q whose storage
+    starts 2 bytes off a 16-byte boundary takes the general variant, which
+    loads such rows element by element, within 3e-2 of plain."""
+    buf = _randn(gen, 256 * 8 * hd + 1, dtype=torch.bfloat16)
+    q = buf[1:].view(1, 256, 8, hd)
     k, v = (_randn(gen, 1, 256, 2, hd, dtype=torch.bfloat16) for _ in range(2))
     before = ops.variant_counts()
     out = ops.flash_attention(q, k, v)
     assert _variant_delta(before) == {"flash_attention": {"general": 1}}
     torch.testing.assert_close(out.float(), ops.flash_attention(q, k, v, impl="ref").float(),
                                atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("S", [128, 512, 1664, 2048])
+@pytest.mark.parametrize("Hq,Hkv", [(25, 5), (16, 16)])
+@pytest.mark.parametrize("window", [None, 1024])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_attention_wgmma_at_hd_64_and_256_matches_plain(gen, hd, window, Hq, Hkv, S):
+    """The wgmma variant at hd 64 (hymba-1.5b) and 256 (gemma-7b), GQA
+    25 / 5 and MHA 16 / 16, with and without a 1024-token window: within
+    3e-2 of plain, two calls bitwise equal, only its counter moving."""
+    q = _randn(gen, 1, S, Hq, hd, dtype=torch.bfloat16)
+    k = _randn(gen, 1, S, Hkv, hd, dtype=torch.bfloat16)
+    v = _randn(gen, 1, S, Hkv, hd, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    out = ops.flash_attention(q, k, v, window=window)
+    again = ops.flash_attention(q, k, v, window=window)
+    assert _variant_delta(before) == {"flash_attention": {"wgmma": 2}}
+    assert torch.equal(out, again)
+    want = ops.flash_attention(q, k, v, window=window, impl="ref")
+    torch.testing.assert_close(out.float(), want.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_attention_wgmma_every_built_setting_matches_plain(gen, hd):
+    """Every (rows, keys, pack) setting built at the head dim, through the
+    C entry point, within 3e-2 of plain (window 100 on a 384-token input,
+    4 q heads per kv head so that pack 4 runs too)."""
+    import math
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention")
+    q = _randn(gen, 2, 384, 8, hd, dtype=torch.bfloat16)
+    k, v = (_randn(gen, 2, 384, 2, hd, dtype=torch.bfloat16) for _ in range(2))
+    want = ops.flash_attention(q, k, v, window=100, impl="ref")
+    settings = plans.fa_settings(hd, 4)
+    assert len(settings) == (2 if hd == 256 else 8)
+    for rows, keys, pack in settings:
+        o = torch.empty_like(q)
+        _build.check(lib.fa_fwd_bf16_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           o.data_ptr(), 2, 384, 8, 2, hd, 100,
+                                           1.0 / math.sqrt(hd), rows, keys, pack,
+                                           _build.stream_ptr(q.device)), "wgmma")
+        torch.testing.assert_close(o.float(), want.float(), atol=3e-2, rtol=0)
+    o = torch.empty_like(q)
+    assert lib.fa_fwd_bf16_wgmma(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 2, 384,
+                                 8, 2, hd, 100, 1.0, 128, 128 if hd == 256 else 96, 1,
+                                 _build.stream_ptr(q.device)) != 0
+
+
+def test_flash_attention_wgmma_launch_failure_raises(gen, monkeypatch):
+    """No fallback: a plan the kernel was not built for (128-key tiles at
+    hd 256) makes the C entry refuse the launch, and the wrapper raises
+    instead of running general or the plain version."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    monkeypatch.setattr(fa_mod, "fa_plan", lambda *a: plans.FaPlan("wgmma", 128, 128, 1))
+    q, k, v = (_randn(gen, 1, 256, 4, 256, dtype=torch.bfloat16) for _ in range(3))
+    before = ops.variant_counts()
+    with pytest.raises(RuntimeError, match="fa_fwd_bf16_wgmma"):
+        ops.flash_attention(q, k, v)
+    assert _variant_delta(before) == {}
+
+
+def test_kernel_build_failure_raises(gen, monkeypatch, tmp_path):
+    """No fallback: a kernel library that fails to build raises from the
+    wrapper's first call, for flash attention and the gather-matmul."""
+    from repro_torch.kernels import _build
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")
+    for name in ("flash_attention", "intrablock_matmul"):
+        monkeypatch.delitem(_build._LIBS, name, raising=False)
+    q, k, v = (_randn(gen, 1, 128, 2, 64, dtype=torch.bfloat16) for _ in range(3))
+    before = ops.variant_counts()
+    with pytest.raises(RuntimeError, match="nvcc failed for flash_attention"):
+        ops.flash_attention(q, k, v)
+    x, w = _randn(gen, 4, 64, dtype=torch.bfloat16), _randn(gen, 32, 6482, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc failed for intrablock_matmul"):
+        ops.intrablock_gather_matmul(x, ops.aligned_rows(w[None])[0],
+                                     torch.arange(32, dtype=torch.int32, device="cuda"))
+    assert _variant_delta(before) == {}
 
 
 @pytest.mark.parametrize("M,N", [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)])
@@ -238,7 +320,8 @@ def test_pruned_model_kernel_path_matches_plain_path(gen):
                                      (129, 96, 64, 2), (1, 64, 8, 2), (16, 328, 136, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_intrablock_gather_matmul_kernel_matches_plain(gen, B, K, N, m, dtype):
-    """Ragged B (row tiles of 16/64), N (tiles of 128; N % 8 != 0 takes the
+    """Ragged B (row tiles of 16/64), N (tiles of 128, the last one ragged
+    in decode and prefill; N 130, rows of 260 bytes, takes general and its
     scalar weight loads) and Kc (chunks of 64)."""
     w = _randn(gen, K, N, dtype=dtype)
     mask = intrablock_mask(w.float(), IntraBlock(m, 1, 0.5), align_cols=True)
@@ -269,6 +352,36 @@ def test_intrablock_gather_matmul_any_indices_and_unaligned_weights(gen, dtype):
     torch.testing.assert_close(ops.intrablock_gather_matmul(x, w_comp, row_idx).float() / scale,
                                want.float() / scale,
                                atol=1e-2 if dtype == torch.bfloat16 else 1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B", [4, 40])
+def test_intrablock_gather_matmul_odd_row_stride_takes_general_in_place(gen, B):
+    """A row-strided view whose stride (130 elements, 260 bytes) no tensor
+    map can describe: the general variant reads it through its stride,
+    within 1e-2 of max |plain| on the same view."""
+    K, Kc, N = 300, 150, 129
+    row_idx = torch.randint(0, K, (Kc,), generator=gen, device="cuda", dtype=torch.int32)
+    w_comp = _randn(gen, Kc, 130, dtype=torch.bfloat16)[:, :N]
+    x = _randn(gen, B, K, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    out = ops.intrablock_gather_matmul(x, w_comp, row_idx)
+    assert _variant_delta(before) == {"intrablock_gather_matmul": {"general": 1}}
+    want = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
+    scale = max(want.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
+
+
+def test_intrablock_gather_matmul_launch_failure_raises(gen, monkeypatch):
+    """No fallback: a decode plan forced onto hymba's w_in stored
+    contiguously (N 6482: rows of 12,964 bytes, no tensor map) makes the C
+    entry refuse the launch, and the wrapper raises."""
+    from repro_torch.kernels import intrablock_matmul as igm_mod
+    monkeypatch.setattr(igm_mod, "igm_plan", lambda *a: plans.Plan("decode", 1))
+    x, w = _randn(gen, 4, 1600, dtype=torch.bfloat16), _randn(gen, 800, 6482, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    with pytest.raises(RuntimeError, match="igm_bf16_decode"):
+        ops.intrablock_gather_matmul(x, w, torch.arange(800, dtype=torch.int32, device="cuda"))
+    assert _variant_delta(before) == {}
 
 
 def test_intrablock_gather_matmul_rejects_bad_indices(gen):
@@ -499,13 +612,13 @@ def test_default_key_prune_runs_wo_masked_dense_and_the_six_through_kernels(gen,
 # The gemma family
 # ---------------------------------------------------------------------------
 
-def test_flash_attention_at_gemma7b_prefill_shape_takes_the_general_variant(gen):
+def test_flash_attention_at_gemma7b_prefill_shape_takes_the_wgmma_variant(gen):
     """gemma-7b's prefill attention: q/k/v (1, 512, 16, 256) bf16, MHA,
-    causal: head dim 256 runs the general variant, within 3e-2 of plain."""
+    causal: head dim 256 runs the wgmma variant, within 3e-2 of plain."""
     q, k, v = (_randn(gen, 1, 512, 16, 256, dtype=torch.bfloat16) for _ in range(3))
     before = ops.variant_counts()
     out = ops.flash_attention(q, k, v)
-    assert _variant_delta(before) == {"flash_attention": {"general": 1}}
+    assert _variant_delta(before) == {"flash_attention": {"wgmma": 1}}
     torch.testing.assert_close(out.float(), ops.flash_attention(q, k, v, impl="ref").float(),
                                atol=3e-2, rtol=0)
 
@@ -560,10 +673,11 @@ def test_gemma2_model_on_the_card_takes_no_flash_launch(gen):
     assert ops.launch_counts()["flash_attention"] == 0
 
 
-def test_gemma7b_model_on_the_card_runs_flash_general(gen):
+def test_gemma7b_model_on_the_card_runs_flash_wgmma(gen):
     """A small gemma-7b (MHA, head dim 256) pruned with row-aligned
-    IntraBlock(4, 1, 0.5): prefill attention runs flash's general variant,
-    one launch per layer, logits within 0.1 of the plain path."""
+    IntraBlock(4, 1, 0.5): prefill attention (130 tokens, padded to 256)
+    runs flash's wgmma variant, one launch per layer, logits within 0.1 of
+    the plain path."""
     cfg = dataclasses.replace(get_config("gemma-7b").reduced(), d_model=256, head_dim=256,
                               n_heads=4, n_kv_heads=4, d_ff=512)
     params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
@@ -574,7 +688,7 @@ def test_gemma7b_model_on_the_card_runs_flash_general(gen):
     before = ops.variant_counts()
     la = TT.forward(cp, toks, cfg)
     delta = _variant_delta(before)
-    assert delta["flash_attention"] == {"general": cfg.n_layers}
+    assert delta["flash_attention"] == {"wgmma": cfg.n_layers}
     assert sum(delta["intrablock_gather_matmul"].values()) == 6 * cfg.n_layers
     lr = TT.forward(cp, toks, cfg, impl="ref")
     assert (la - lr).abs().max().item() < 0.1
@@ -699,34 +813,46 @@ def test_moe_model_on_the_card_matches_the_cpu_with_drops(gen):
 
 @pytest.mark.parametrize("K,N", [(768, 3352), (1600, 6482), (1600, 1600), (3200, 1600),
                                  (1600, 320)])
-@pytest.mark.parametrize("B", [4, 451])
-def test_intrablock_gather_matmul_general_at_ssm_shapes(gen, B, K, N):
+@pytest.mark.parametrize("B", [1, 4, 16, 17, 451, 512])
+def test_intrablock_gather_matmul_main_variants_at_ssm_shapes(gen, B, K, N):
     """The projections of mamba2-130m (w_in (768, 3352)) and hymba-1.5b
     (w_in (1600, 6482), wq and w_down/w_out to 1600, wk/wv (1600, 320))
-    at row-aligned 2:4: N % 128 != 0 takes the general variant at decode
-    (4 rows) and prefill (451) row counts, within 1e-2 of max |plain|."""
+    at row-aligned 2:4, stored as compress_params stores them (hymba's
+    w_in in rows padded to 6488): N % 128 != 0 takes the decode variant at
+    B <= 16 and prefill above, the last 128-column tile ragged, within
+    1e-2 of max |plain| (tighter than tests/test_kernels.py's 3e-2 for
+    bf16); two calls bitwise equal."""
     w = _randn(gen, K, N, dtype=torch.bfloat16) * (K ** -0.5)
     mask = intrablock_mask(w.float(), IntraBlock(4, 1, 0.5), align_cols=True)
     w_comp, row_idx = ops.compress_intrablock_torch(w, mask, 4)
+    w_comp = ops.aligned_rows(w_comp)
+    assert w_comp.stride(0) == -(-N // 8) * 8
     x = _randn(gen, B, K, dtype=torch.bfloat16)
     before = ops.variant_counts()
+    shapes = ops.gather_matmul_shape_counts()
     out = ops.intrablock_gather_matmul(x, w_comp, row_idx)
-    assert _variant_delta(before) == {"intrablock_gather_matmul": {"general": 1}}
+    again = ops.intrablock_gather_matmul(x, w_comp, row_idx)
+    variant = "decode" if B <= 16 else "prefill"
+    assert _variant_delta(before) == {"intrablock_gather_matmul": {variant: 2}}
+    Kc = w_comp.shape[0]
+    assert ops.gather_matmul_shape_counts()[variant, Kc, N] == \
+        shapes.get((variant, Kc, N), 0) + 2
+    assert torch.equal(out, again) and out.shape == (B, N) and out.is_contiguous()
     want = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
     scale = want.float().abs().max().item()
     torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
 
 
-def test_flash_attention_general_at_hymba_prefill_shape(gen):
+def test_flash_attention_wgmma_at_hymba_prefill_shape(gen):
     """hymba-1.5b's long prefill: q (1, 1664, 25, 64), k/v (1, 1664, 5, 64)
     (a 1600-token prompt padded to tiles of 128), causal with window 1024:
-    head dim 64 runs the general variant, within 3e-2 of plain; the window
+    head dim 64 runs the wgmma variant, within 3e-2 of plain; the window
     changes every row from 1024 on."""
     q = _randn(gen, 1, 1664, 25, 64, dtype=torch.bfloat16)
     k, v = (_randn(gen, 1, 1664, 5, 64, dtype=torch.bfloat16) for _ in range(2))
     before = ops.variant_counts()
     out = ops.flash_attention(q, k, v, window=1024)
-    assert _variant_delta(before) == {"flash_attention": {"general": 1}}
+    assert _variant_delta(before) == {"flash_attention": {"wgmma": 1}}
     want = ops.flash_attention(q, k, v, window=1024, impl="ref")
     torch.testing.assert_close(out.float(), want.float(), atol=3e-2, rtol=0)
     glob = ops.flash_attention(q, k, v)
@@ -738,11 +864,11 @@ def test_flash_attention_general_at_hymba_prefill_shape(gen):
 def test_ssm_layer_at_published_width_kernel_path_matches_plain(gen, arch):
     """One layer at the published widths (vocab cut to 4096), pruned with
     row-aligned IntraBlock(4, 1, 0.5) on its projections and compressed:
-    a 300-token forward runs each compressed projection once, through
-    general where N % 128 != 0 and prefill elsewhere (hymba: flash general
-    once), logits within 0.1 of the plain path; served through the engine
-    on two slots (prompts longer than 16 rows, so every prefill takes the
-    prefill variant), decode runs the decode variant where N % 128 == 0."""
+    a 300-token forward runs each compressed projection once through the
+    prefill variant, whatever its N (hymba: flash wgmma at hd 64 once),
+    logits within 0.1 of the plain path; served through the engine on two
+    slots (prompts longer than 16 rows, so every prefill takes the prefill
+    variant), decode runs the decode variant, and nothing runs general."""
     cfg = dataclasses.replace(get_config(arch), n_layers=1, vocab_size=4096)
     keys = tuple(k for k in ("wq", "wk", "wv", "w_gate", "w_up", "w_down", "w_in", "w_out")
                  if k in TT._layer_shapes(cfg))
@@ -757,9 +883,8 @@ def test_ssm_layer_at_published_width_kernel_path_matches_plain(gen, arch):
     before = ops.variant_counts()
     la = TT.forward(cp, toks, cfg)
     delta = _variant_delta(before)
-    assert delta["intrablock_gather_matmul"] == {
-        "general": ragged, **({"prefill": len(keys) - ragged} if len(keys) > ragged else {})}
-    assert delta.get("flash_attention", {}) == ({"general": 1} if cfg.attention != "none" else {})
+    assert delta["intrablock_gather_matmul"] == {"prefill": len(keys)}
+    assert delta.get("flash_attention", {}) == ({"wgmma": 1} if cfg.attention != "none" else {})
     lr = TT.forward(cp, toks, cfg, impl="ref")
     assert (la - lr).abs().max().item() < 0.1
     engine = ServeEngine(cfg, cp, slots=2, max_len=512, dtype=torch.bfloat16)
@@ -771,6 +896,5 @@ def test_ssm_layer_at_published_width_kernel_path_matches_plain(gen, arch):
     assert all(r.done and len(r.output) == 4 for r in reqs)
     steps = engine.last_stats["steps"]
     delta = _variant_delta(before)["intrablock_gather_matmul"]
-    assert delta["general"] == ragged * (steps + len(reqs))
-    assert delta.get("decode", 0) == (len(keys) - ragged) * steps
+    assert delta == {"decode": len(keys) * steps, "prefill": len(keys) * len(reqs)}
     assert engine.cache["ssm"].dtype == torch.float32 and engine.cache["ssm"].is_cuda

@@ -170,7 +170,18 @@ def test_bsm_plan_general_variant(bm, bn, align, B):
 @pytest.mark.parametrize("N,align,B", [(130, 256, 4), (1000, 256, 70), (64, 256, 4),
                                        (1024, 8, 4), (1024, 2, 512), (136, 256, 16)])
 def test_igm_plan_general_variant(N, align, B):
-    assert plans.igm_plan(B, 500, N, BF16, align).variant == "general"
+    """general only where a tensor map cannot read the weight's rows: a row
+    stride that is no multiple of 16 bytes (N 130 contiguous) or a base
+    off 16 bytes.  N % 128 != 0 alone (1000, 64, 136) no longer sends a
+    weight there: the main variants' last 128-column tile is ragged.  With
+    its rows padded to 8 elements, as compress_params stores them, a
+    16-byte aligned weight of any N takes the main variant."""
+    main = "decode" if B <= 16 else "prefill"
+    want = "general" if (2 * N) % 16 or align % 16 else main
+    assert plans.igm_plan(B, 500, N, BF16, align).variant == want
+    padded = -(-N // 8) * 8
+    assert plans.igm_plan(B, 500, N, BF16, align, padded).variant == (
+        "general" if align % 16 else main)
 
 
 def test_plans_send_f32_to_the_reference_kernel():
@@ -182,6 +193,88 @@ def test_decode_and_prefill_meet_at_sixteen_rows():
     for B, want in [(1, "decode"), (16, "decode"), (17, "prefill")]:
         assert plans.bsm_plan(B, 1024, 8, 8, 128, 128, BF16, 16).variant == want
         assert plans.igm_plan(B, 500, 1024, BF16, 16).variant == want
+
+
+# the SSM paths' projections (Kc, N) at row-aligned 2:4: mamba2-130m's w_in,
+# hymba-1.5b's wq / w_down / w_out, wk / wv and w_in
+SSM_PROJ = {"mamba2 w_in": (384, 3352), "hymba wq": (800, 1600), "hymba w_down": (2752, 1600),
+            "hymba wk": (800, 320), "hymba w_in": (800, 6482)}
+
+
+@pytest.mark.parametrize("key", sorted(SSM_PROJ))
+@pytest.mark.parametrize("B", [1, 4, 16, 17, 512])
+def test_igm_plan_takes_the_main_variants_at_ssm_shapes(key, B):
+    """N % 128 != 0: ceil(N/128) column tiles, the cluster sized from them,
+    and every rank keeps a chunk.  hymba's w_in (N 6482, rows of 12,964
+    bytes) reaches the main variants only through its padded stride."""
+    Kc, N = SSM_PROJ[key]
+    ldw = -(-N // 8) * 8
+    plan = plans.igm_plan(B, Kc, N, BF16, 256, ldw)
+    assert plan.variant == ("decode" if B <= 16 else "prefill")
+    chunks = -(-Kc // plans.CHUNK)
+    assert chunks // plan.cluster >= 1
+    tiles = -(-N // 128) * (1 if B <= 16 else -(-B // plans.PREFILL_ROWS))
+    target = plans.IGM_DECODE_CTAS if B <= 16 else plans.PREFILL_CTAS
+    if B <= 16:
+        c = plans.choose_cluster(tiles, chunks, target)
+        while c > 1 and tiles * c > plans.IGM_DECODE_CAP:
+            c //= 2
+        assert plan.cluster == c
+        assert tiles * plan.cluster <= plans.IGM_DECODE_CAP
+    else:
+        assert plan.cluster == plans.choose_cluster(tiles, chunks, target, min_units=2)
+    assert plans.igm_plan(B, Kc, N, BF16, 256).variant == ("general" if N % 8 else plan.variant)
+
+
+def test_igm_plan_cluster_sizes_at_ssm_decode():
+    got = {k: plans.igm_plan(4, Kc, N, BF16, 256, -(-N // 8) * 8).cluster
+           for k, (Kc, N) in SSM_PROJ.items()}
+    assert got == {"mamba2 w_in": 4, "hymba wq": 8, "hymba w_down": 8, "hymba wk": 8,
+                   "hymba w_in": 4}
+
+
+@pytest.mark.parametrize("N,ldw,align,want", [
+    (6482, 6482, 256, "general"),      # hymba w_in as a contiguous tensor: 12,964-byte rows
+    (6482, 6488, 256, "decode"),       # the same, rows padded to 8 elements
+    (6482, 6486, 256, "general"),      # padded, but to 12,972 bytes
+    (6482, 6488, 8, "general"),        # padded, base off 16 bytes
+    (3352, 3352, 256, "decode"), (320, 320, 256, "decode"), (320, 328, 16, "decode"),
+    (1600, 1601, 256, "general"), (4, 8, 256, "decode"), (4, 4, 256, "general")])
+def test_igm_plan_reads_the_row_stride_and_base(N, ldw, align, want):
+    assert plans.igm_plan(4, 800, N, BF16, align, ldw).variant == want
+    assert plans.igm_plan(4, 800, N, F32, align, ldw).variant == "f32"
+
+
+def test_row_stride_of_views():
+    from repro_torch.kernels.intrablock_matmul import row_stride
+    buf = torch.zeros(6, 16)
+    assert row_stride(buf) == 16
+    assert row_stride(buf[:, :13]) == 16
+    assert row_stride(buf[1:4, 2:9]) == 16
+    assert row_stride(buf.t()) is None                    # columns not contiguous
+    assert row_stride(buf.reshape(12, 8)[::2]) == 16
+    assert row_stride(torch.zeros(1, 5)[:, :3]) == 3      # one row: its own width
+    assert row_stride(torch.zeros(4, 5).as_strided((4, 5), (3, 1))) is None   # rows overlap
+
+
+@pytest.mark.parametrize("N,dtype,ldw", [(6482, BF16, 6488), (3352, BF16, 3352),
+                                         (298, BF16, 304), (298, F32, 300), (300, F32, 300)])
+def test_aligned_rows_pads_only_rows_off_16_bytes(N, dtype, ldw):
+    """The layout compress_params stores: a (L, Kc, N) view whose rows are
+    16-byte multiples apart, zero beyond N, equal to the input, and read
+    by the plain gather-matmul as the contiguous weight."""
+    from repro_torch.kernels.intrablock_matmul import row_stride
+    g = torch.Generator().manual_seed(N)
+    w = torch.randn(2, 5, N, generator=g).to(dtype)
+    out = ops.aligned_rows(w)
+    assert out.shape == w.shape and torch.equal(out, w)
+    assert out.stride() == (5 * ldw, ldw, 1) and (out is w) == (ldw == N)
+    assert not out.as_strided((2, 5, ldw), (5 * ldw, ldw, 1))[..., N:].any()
+    assert row_stride(out[1]) == ldw
+    x, idx = torch.randn(3, 9, generator=g).to(dtype), torch.tensor([8, 0, 3, 3, 1],
+                                                                   dtype=torch.int32)
+    assert torch.equal(ref.intrablock_gather_matmul_ref(x, out[1], idx),
+                       ref.intrablock_gather_matmul_ref(x, w[1].contiguous(), idx))
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -242,7 +335,7 @@ def test_fa_plan_takes_wgmma_for_bf16_hd128_causal(Hq, Hkv, window, S):
 
 
 @pytest.mark.parametrize("kw,want", [
-    (dict(hd=64), "general"), (dict(hd=256), "general"),          # head dims off the variant
+    (dict(hd=64), "wgmma"), (dict(hd=256), "wgmma"),              # every built head dim
     (dict(causal=False), "general"), (dict(Skv=1024), "general"),
     (dict(S=200), "general"), (dict(align=8), "general"), (dict(align=2), "general"),
     (dict(dtype=F32), "f32"), (dict(dtype=F32, hd=64), "f32"),
@@ -250,6 +343,59 @@ def test_fa_plan_takes_wgmma_for_bf16_hd128_causal(Hq, Hkv, window, S):
 ])
 def test_fa_plan_variant_by_dtype_head_dim_shape_and_alignment(kw, want):
     assert _fa(**kw).variant == want
+
+
+@pytest.mark.parametrize("hd", plans.FA_HEAD_DIMS)
+@pytest.mark.parametrize("Hq,Hkv", [(25, 5), (16, 16), (32, 8), (8, 2)])
+@pytest.mark.parametrize("window", [None, 1024])
+@pytest.mark.parametrize("S", [128, 512, 1664, 2048])
+def test_fa_plan_takes_wgmma_at_every_built_head_dim(hd, Hq, Hkv, window, S):
+    """hd 64, 128 and 256, MHA and GQA (hymba's 25 / 5, gemma-7b's 16 / 16),
+    a window or none: the wgmma variant at the head dim's levers, a setting
+    the kernel is built with for the group."""
+    plan = _fa(S, Hq, Hkv, hd=hd, window=window)
+    assert plan.variant == "wgmma"
+    rows, keys, pack = plans.FA_LEVERS[hd]
+    assert (plan.rows, plan.keys) == (rows, keys)
+    assert plan.pack == (pack if (Hq // Hkv) % pack == 0 else 1)
+    assert (plan.rows, plan.keys, plan.pack) in plans.fa_settings(hd, Hq // Hkv)
+
+
+def test_fa_levers_per_head_dim():
+    """Each head dim has its own levers, each a built setting; hd 256 has
+    no 128-key tile and no 128-row CTA."""
+    assert set(plans.FA_LEVERS) == set(plans.FA_HEAD_DIMS)
+    for hd, (rows, keys, pack) in plans.FA_LEVERS.items():
+        assert (rows, keys, pack) in plans.fa_settings(hd, 4)
+        assert (rows, keys, pack) in plans.FA_BUILT[hd]
+    assert plans.FA_LEVERS[128] == (128, 64, 1)
+    assert plans.FA_LEVERS[256][1] == 64
+
+
+@pytest.mark.parametrize("group", [1, 4, 5, 8])
+def test_fa_settings_leave_out_128_key_tiles_at_hd_256(group):
+    at256 = plans.fa_settings(256, group)
+    assert at256 and all(keys == 64 and rows == 64 for rows, keys, _ in at256)
+    assert all(group % pack == 0 for _, _, pack in at256)
+    for hd in (64, 128):
+        got = plans.fa_settings(hd, group)
+        assert {keys for _, keys, _ in got} == {64, 128}
+        assert all(group % pack == 0 for _, _, pack in got)
+    assert plans.fa_settings(96, group) == []
+
+
+def test_fa_built_settings_per_head_dim():
+    """hd 64 and 128 build rows 64/128 x keys 64/128 x pack 1/4; hd 256
+    builds 64 rows and 64 keys at pack 1 and 4; fa_settings at a group of
+    4 is the whole list, at a group of 1 the pack-1 settings."""
+    full = {(r, k, p) for r in (64, 128) for k in (64, 128) for p in (1, 4)}
+    assert set(plans.FA_BUILT[64]) == set(plans.FA_BUILT[128]) == full
+    assert plans.FA_BUILT[256] == [(64, 64, 1), (64, 64, 4)]
+    assert plans.FA_HEAD_DIMS == (64, 128, 256)
+    for hd, built in plans.FA_BUILT.items():
+        assert len(set(built)) == len(built)
+        assert plans.fa_settings(hd, 4) == built
+        assert plans.fa_settings(hd, 1) == [s for s in built if s[2] == 1]
 
 
 def test_fa_plan_packs_only_whole_groups():
@@ -369,6 +515,22 @@ def test_flash_wgmma_emulation_equals_plain(rows, keys, pack, window):
     k = torch.randn(2, 256, 2, 128, generator=g).to(BF16)
     v = torch.randn(2, 256, 2, 128, generator=g).to(BF16)
     got = emulate_flash_wgmma(q, k, v, window, rows, keys, pack)
+    want = ops.flash_attention(q, k, v, window=window, impl="ref")
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("hd,Hq,Hkv", [(64, 25, 5), (256, 4, 4)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_wgmma_emulation_equals_plain_at_hd_64_and_256(hd, Hq, Hkv, window):
+    """The same emulation at the other built head dims and their levers
+    (hymba-1.5b's 25 q / 5 kv heads of 64, gemma-7b's MHA at 256)."""
+    g = torch.Generator().manual_seed(hd + Hq)
+    S = 256
+    q = torch.randn(1, S, Hq, hd, generator=g).to(BF16)
+    k = torch.randn(1, S, Hkv, hd, generator=g).to(BF16)
+    v = torch.randn(1, S, Hkv, hd, generator=g).to(BF16)
+    plan = _fa(S, Hq, Hkv, hd=hd, window=window)
+    got = emulate_flash_wgmma(q, k, v, window, plan.rows, plan.keys, plan.pack)
     want = ops.flash_attention(q, k, v, window=window, impl="ref")
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=0)
 

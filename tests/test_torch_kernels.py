@@ -306,6 +306,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     variants = ops.variant_counts()
     assert variants["bitserial_zero_profile"] == {"strip": 0, "fused": 0, "general": 0}
     assert all(n == 0 for v in variants.values() for n in v.values())
+    assert ops.gather_matmul_shape_counts() == {}
 
 
 def test_cuda_impl_refuses_cpu_tensors():

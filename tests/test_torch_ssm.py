@@ -528,3 +528,37 @@ def test_published_ssm_projections_prune_and_compress(R, arch):
                                device="cpu")
     with pytest.raises(ValueError, match="does not tile"):
         TA.compress_params(pt, mfull, 128, 128)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_padded_row_stride_w_in_matches_contiguous_layout_and_reference(R, dtype):
+    """hymba-1.5b reduced with state 17: w_in (64, 298), N % 8 = 2, so a
+    row of its w_comp is no multiple of 16 bytes and compress_params
+    stores it as a (L, Kc, 298) view of zero-padded rows (stride 304 in
+    bf16, 300 in f32).  The forward through that view equals the same
+    weights stored contiguously (bitwise: the plain gather-matmul reads
+    the same values); in f32 also the reference's masked forward, to
+    LOGIT_TOL (in bf16 the two models drift apart over the layers' SSM
+    roundings whatever the layout, so a layer-wide bound says nothing of
+    the stride)."""
+    jcfg, cfg = reduced(R, "hymba-1.5b", ssm_state=17)
+    pj, pt = both(np_params(R, jcfg, 13), dtype)
+    ppj, _, cp, _ = _prune_intra_both(R, pj, pt, TA.PRUNABLE_KEYS)
+    w = cp["layers"]["w_in"]
+    L, Kc, N = w.w_comp.shape
+    per = 16 // w.w_comp.element_size()
+    ldw = -(-N // per) * per
+    assert N % 8 and ldw > N and w.w_comp.stride() == (Kc * ldw, ldw, 1)
+    padded = w.w_comp.as_strided((L, Kc, ldw), (Kc * ldw, ldw, 1))
+    assert not padded[..., N:].any()
+    assert w.layer(1).w_comp.stride() == (ldw, 1)
+    flat = dict(cp, layers=dict(cp["layers"], w_in=IntraBlockLinear(
+        w.w_comp.contiguous(), w.row_idx, w.in_features, w.out_shape)))
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, size=(2, 40)).astype(np.int32)).long()
+    got = TT.forward(cp, toks, cfg)
+    assert torch.equal(got, TT.forward(flat, toks, cfg))
+    if dtype == "f32":
+        with R.active():
+            want = jitted(R.transformer.forward, jcfg)(ppj, jnp.asarray(toks.numpy()))
+        close(got, want, LOGIT_TOL)
