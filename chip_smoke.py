@@ -13,10 +13,12 @@ Phases, each reported on its own line(s):
    shapes of the main paths, in bf16 and f32 (int8 for the bit-serial
    profile), and time kernel, plain version and the nearest single
    PyTorch call; flash attention also at gemma-7b's prefill shape (head
-   dim 256) and hymba-1.5b's (head dim 64, window 1024), the gather-matmul
-   also at the SSM paths' w_in (N % 128 != 0; hymba's N % 8 != 0 through
-   its padded row stride), each beside the general variant's card time on
-   the same inputs (``general_ms``).  Every row names the variant that ran
+   dim 256), hymba-1.5b's (head dim 64, window 1024) and whisper-medium's
+   (4 prompts, head dim 64, MHA), the block-sparse matmul also at
+   whisper-medium's w_up, the gather-matmul also at the SSM paths' w_in
+   (N % 128 != 0; hymba's N % 8 != 0 through its padded row stride) and at
+   paligemma-3b's w_gate, the flash and w_in rows each beside the general
+   variant's card time on the same inputs (``general_ms``).  Every row names the variant that ran
    and is timed from CUDA graphs (card time alone), with the eager times
    beside them (what back-to-back calls from Python cost, host included);
    each row gives ``share_of_bound`` (bound / ms) and ``x_library`` (ms /
@@ -94,29 +96,53 @@ Phases, each reported on its own line(s):
    through ``ServeEngine(slots=4, max_len=2048)`` and run the parity
    phase, then the window check on layer 0, with flash's wgmma variant
    (head dim 64) held against ``chunked_attention`` on the long prompt;
-11. microbench — ``microbench_kernels`` on the card, its samples written
+11. whisper-medium FullBlock path: init at full width and depth (24
+   decoder and 24 encoder layers, d_model 1024, 16 heads of 64, MHA,
+   plain GELU MLP, cross-attention in every decoder layer), prune the
+   decoder's wq/wk/wv/w_up/w_down with FullBlock(128, 128, 0.5) (the
+   encoder and the cross weights stay dense, as the reference prunes
+   them), compress, then serve through the entry points (no engine takes
+   an encoder input): 4 prompts of 416 tokens from numpy seed 0 with stub
+   1500-frame embeddings (std 1/sqrt(d)), one batched ``prefill`` merged
+   into ``init_cache(max_len=448, enc_seq=1500)``, 31 ``decode_step``s;
+   the encoder's time apart from the decoder's prefill; the parity phase
+   over 12 steps, with the middle layer's w_down left out and the cross
+   k/v swapped in the cache as planted faults; then the reach check:
+   negating the last frame moves encoder layer 0's output at frame 0;
+12. paligemma-3b IntraBlock path: init at full width and depth (18
+   layers, d_model 2048, 8 q heads and 1 kv head of 256, gated MLP, vocab
+   257216 tied), prune its six projections with row-aligned
+   IntraBlock(4, 1, 0.5), compress, serve 4 prompts of 128 tokens after
+   stub 256-patch prefixes through the entry points to ``max_len=512``,
+   the parity phase, then the prefix check: layer 0's attention with the
+   prefix of 256 against none differs on exactly rows 0..254.  Its
+   prefill takes no flash launch: the prefix-LM mask is outside the flash
+   kernel's contract;
+13. microbench — ``microbench_kernels`` on the card, its samples written
    as JSONL under ``build/`` and read back;
-12. cost    — on the host, from what the card produced in this run: a
+14. cost    — on the host, from what the card produced in this run: a
    calibration profile fitted to the microbench samples (saved under
    ``build/profiles/``), the profile's 108 skippable-bit ratios mapped
-   onto ``lm_workload``'s op names, and CIMinus cost reports of the five
+   onto ``lm_workload``'s op names, and CIMinus cost reports of the nine
    served models with the FlexBlock specs they were pruned with, on
    ``usecase_arch(4, input_sparsity=True)`` at 512 tokens: qwen3-4b (a)
    without input sparsity, (b) with the measured ratios, (c) with the
    ratios and the fitted profile; llama3-8b, gemma-7b, gemma2-9b,
-   qwen3-moe-30b-a3b, mamba2-130m and hymba-1.5b (a) and (c); the last
-   two's (a) must equal the cycles and speedup the port's
+   qwen3-moe-30b-a3b, mamba2-130m, hymba-1.5b, whisper-medium and
+   paligemma-3b (a) and (c); mamba2-130m's and hymba-1.5b's (a) must equal
+   the cycles and speedup the port's
    ``cim_cost_of_model`` gives on a CPU.  Each report must be finite and
    round-trip through JSON, (b) may not be slower than (a), a profile with
    unit efficiencies must give (b) bit for bit, (c) must be (b) (or (a))
    with each op's latency divided by its class's efficiency, and the
    density of every mask the card produced must be the spec's;
-13. the ``{"kernels": [...]}`` line; 14. the card's name and power limit.
+15. the ``{"kernels": [...]}`` line; 16. the card's name and power limit.
 
 The launch counts are set to 0 just before each path and read just
 after it: on each served path from prune to the end of serving (every
-kernel's count is kept per path), ``bitserial_zero_profile`` over the
-profile call.
+kernel's count is kept per path; whisper-medium and paligemma-3b: one
+batched prefill and 31 decode steps), ``bitserial_zero_profile`` over
+the profile call.
 After each served path its compressed projections must have run only
 through the ``decode`` and ``prefill`` variants, whatever their width N
 (one launch per projection, layer and decode step or prompt; the
@@ -124,9 +150,10 @@ gather-matmul's last 128-column tile is ragged, and hymba-1.5b's w_in (N
 6482) is read through rows padded to 16 bytes), never ``general`` or
 ``f32`` (qwen3-moe-30b-a3b: wq/wk/wv only); its prefill attention only
 through the flash ``wgmma`` variant (one launch per layer and prompt, at
-head dim 128, gemma-7b's 256 and hymba-1.5b's 64; gemma2-9b and
-mamba2-130m: no flash launch at all), the
-llama3-8b, gemma2-9b and qwen3-moe-30b-a3b prunes only through the
+head dim 128, gemma-7b's 256, hymba-1.5b's and whisper-medium's 64;
+gemma2-9b, mamba2-130m and paligemma-3b: no flash launch at all), the
+llama3-8b, gemma2-9b, qwen3-moe-30b-a3b and whisper-medium prunes only
+through the
 block-importance ``strip`` variant (one launch per projection and
 layer), and the profile only through the bit-serial ``fused`` variant.
 Any failed check exits nonzero.  Without a CUDA device, or without the
@@ -400,13 +427,15 @@ def kernel_phase() -> dict:
     # bound it; gemma-7b's prefill of the longest prompt (16 heads of 256,
     # MHA); qwen3-moe-30b-a3b's (8 q heads per kv head); head dims 64/256
     # and a window for coverage; hymba-1.5b's prefill of its 1600-token
-    # prompt (padded to 1664; 25 q / 5 kv heads of 64, window 1024).  Every
-    # one runs the wgmma variant; gemma-7b's and hymba-1.5b's rows add the
-    # general variant's card time on the same inputs (general_ms).
+    # prompt (padded to 1664; 25 q / 5 kv heads of 64, window 1024);
+    # whisper-medium's decoder prefill of its 4 prompts of 416 tokens
+    # (padded to 512; 16 heads of 64, MHA).  Every one runs the wgmma
+    # variant; the served models' rows add the general variant's card time
+    # on the same inputs (general_ms).
     fa_cases = [(1, 512, 32, 8, 128, None), (1, 2048, 32, 8, 128, None),
                 (1, 512, 16, 16, 256, None), (1, 512, 32, 4, 128, None),
                 (1, 256, 8, 2, 64, 64), (1, 256, 8, 2, 256, None),
-                (1, 1664, 25, 5, 64, 1024)]
+                (1, 1664, 25, 5, 64, 1024), (4, 512, 16, 16, 64, None)]
     fa_variants = {}
     tol = {torch.bfloat16: 3e-2, torch.float32: 3e-5}
     for (B, S, Hq, Hkv, hd, window) in fa_cases:
@@ -447,7 +476,8 @@ def kernel_phase() -> dict:
                     "eager_ms": cuda_ms(kern, sets), "eager_library_ms": cuda_ms(lib, lib_sets),
                     **bound(nbytes, 4 * hd * pairs, peak[dt])}
             line.update(ratios(line))
-            served = {(512, 16, 256, None): "gemma-7b", (1664, 25, 64, 1024): "hymba-1.5b"}
+            served = {(512, 16, 256, None): "gemma-7b", (1664, 25, 64, 1024): "hymba-1.5b",
+                      (512, 16, 64, None): "whisper-medium"}
             if dt == torch.bfloat16:
                 check(variant == "wgmma", f"{name}: ran the {variant} variant")
                 p = plans.fa_plan(B, S, S, Hq, Hkv, hd, dt, True, window, 256)
@@ -470,11 +500,13 @@ def kernel_phase() -> dict:
     rows["flash_attention"]["variants"] = fa_variants
 
     # -- block-sparse matmul: the six pruned projections ---------------------
-    # (K, N) of llama3-8b's projections, and of qwen3-moe-30b-a3b's wq and
-    # wk/wv, at 50% FullBlock(128,128) density, at decode (B = 4 slots) and
-    # at prefill (B = 512).
+    # (K, N) of llama3-8b's projections, of qwen3-moe-30b-a3b's wq and
+    # wk/wv and of whisper-medium's w_up, at 50% FullBlock(128,128) density,
+    # at decode (B = 4 slots) and at prefill (B = 512).
     proj = {"wq": (4096, 4096), "wk": (4096, 1024), "w_gate": (4096, 14336),
-            "w_down": (14336, 4096), "moe wq": (2048, 4096), "moe wk/wv": (2048, 512)}
+            "w_down": (14336, 4096), "moe wq": (2048, 4096), "moe wk/wv": (2048, 512),
+            "whisper-medium w_up": (1024, 4096)}
+    bsm_variants = {}
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}   # of max |plain|
 
     def layout(K, N, dt):
@@ -530,7 +562,13 @@ def kernel_phase() -> dict:
                         line, shape=f"decode x ({B},{K}) @ w_gate ({K},{N}) at 50% "
                                     f"FullBlock(128,128), {live} live blocks, bf16",
                         library="torch.matmul on the decompressed dense weight")
+                if key.startswith("whisper") and dt == torch.bfloat16:
+                    variant_name = "decode" if B == 4 else "prefill"
+                    bsm_variants[f"{variant_name}/{key}"] = dict(
+                        line, shape=f"{variant_name} x ({B},{K}) @ ({K},{N}) ({key}) at 50% "
+                                    f"FullBlock(128,128), {live} live blocks, bf16")
                 del sets, x, w_comp, idx, dense
+    rows["block_sparse_matmul"]["variants"] = bsm_variants
 
     # -- block importance: Eq. 1 losses of every pruned projection -------------
     # The l1 losses are one library call: the f32 L1 norm over the two
@@ -603,13 +641,14 @@ def kernel_phase() -> dict:
     # (1600, 6482)): N % 128 != 0 runs the main variants with a ragged last
     # tile, hymba's N % 8 != 0 through the padded row stride compress_params
     # stores (ops.aligned_rows); their rows add the general variant's card
-    # time on the same inputs (general_ms).  The library yardstick is
+    # time on the same inputs (general_ms); and paligemma-3b's w_gate
+    # (2048, 16384) in bf16, whose shape it shares with w_up.  The library yardstick is
     # torch.matmul on the decompressed masked-dense weight: one call
     # computing the same function, reading twice the weight bytes.
     from repro_torch.kernels import intrablock_matmul as igm_mod
     iproj = {"wq": (2560, 4096), "wk": (2560, 1024), "w_gate": (2560, 9728),
              "w_down": (9728, 2560), "mamba2-130m w_in": (768, 3352),
-             "hymba-1.5b w_in": (1600, 6482)}
+             "hymba-1.5b w_in": (1600, 6482), "paligemma-3b w_gate": (2048, 16384)}
     tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}   # of max |plain|
 
     def intra_layout(K, N, dt):
@@ -624,8 +663,9 @@ def kernel_phase() -> dict:
     igm_variants = {}
     for key, (K, N) in iproj.items():
         ssm = key.endswith("w_in")
+        model_row = " " in key          # a served model's own shape: bf16, kept as a variant
         Kc = K // 2
-        for dt in (torch.bfloat16,) if ssm else dtypes:
+        for dt in (torch.bfloat16,) if model_row else dtypes:
             esize = torch.empty((), dtype=dt).element_size()
             for B in (4, 512):
                 nbytes = B * K * esize + Kc * N * esize + Kc * 4 + B * N * esize
@@ -674,13 +714,13 @@ def kernel_phase() -> dict:
                 stride = (f" (row stride {w_comp.stride(0)})"
                           if w_comp.stride(0) != N else "")
                 shape = (f"{'decode' if B <= 4 else 'prefill'} x ({B},{K}) gathered by row_idx "
-                         f"({Kc},) @ w_comp ({Kc},{N}){stride}{f' ({key})' if ssm else ''}, "
+                         f"({Kc},) @ w_comp ({Kc},{N}){stride}{f' ({key})' if model_row else ''}, "
                          f"row-aligned IntraBlock(4,1,0.5), bf16")
                 if key == "w_gate" and B == 4 and dt == torch.bfloat16:
                     rows["intrablock_gather_matmul"] = dict(
                         line, shape=shape,
                         library="torch.matmul on the decompressed masked-dense weight")
-                if ssm:
+                if model_row:
                     igm_variants[f"{variant}/{key}"] = dict(line, shape=shape)
                 del sets, x, w_comp, row_idx, dense
     rows["intrablock_gather_matmul"]["variants"] = igm_variants
@@ -801,16 +841,26 @@ def kernel_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 3-8: the served paths at full width
+# Phases 3-12: the served paths at full width
 # ---------------------------------------------------------------------------
 
 def pruned_keys(cfg) -> tuple:
     """The projections a served path prunes: wq/wk/wv where the config
-    attends, w_gate/w_up/w_down where it has an MLP, w_in/w_out where it
-    has the SSM mixer.  ``wo`` is never pruned here."""
+    attends, w_gate/w_up/w_down where it has a gated MLP (w_up/w_down where
+    the MLP is plain), w_in/w_out where it has the SSM mixer.  ``wo`` is
+    never pruned here, nor an encoder's or the cross-attention's weights
+    (the reference's ``prune_params`` walks the decoder layers only)."""
     keys = KEYS[:3] if cfg.attention != "none" else ()
-    keys += KEYS[3:] if cfg.d_ff > 0 else ()
+    if cfg.d_ff > 0:
+        keys += KEYS[3:] if cfg.gated_mlp else KEYS[4:]
     return keys + (SSM_KEYS if cfg.ssm_state else ())
+
+
+def leaves(tree) -> list:
+    """The tensors of a nested params dict."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    return [tree] if torch.is_tensor(tree) else []
 
 
 def matrix_shapes(cfg, params) -> dict:
@@ -851,24 +901,57 @@ def block_loss_check(cfg, params) -> None:
 
 def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 1024,
                 long_prompt=None) -> dict:
+    """Drive a served path with the launch counts set to 0 just before it:
+    prune and compress (:func:`prune_phase`), serve the 8 requests
+    (:func:`serve_phase`), read the counts and check them
+    (:func:`check_path_launches`), print the peak device memory of
+    serving; then run the parity phase.  Returns what the later phases
+    need: config, spec, densities, matrix shapes, compressed params,
+    prompts and the path's launch counts."""
+    intra, moe = spec.patterns[0].kind == "intra", cfg.n_experts > 1
+    model = prune_phase(cfg, spec, pre_check=pre_check)
+    cparams = model["cparams"]
+    torch.cuda.reset_peak_memory_stats()
+    prompts, reqs, counts = serve_phase(cfg, cparams, max_len=max_len, long_prompt=long_prompt)
+    print(f"[serve] {cfg.name}: peak device memory while serving "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (max_memory_allocated; card "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB)", flush=True)
+    # ---- end of the path ---------------------------------------------------------
+    check_path_launches(cfg, rows, model, counts, len(reqs), flash)
+    # Logits have std ~1 at this init.  On an H100 (700 W) the kernel paths
+    # stay within 0.06-0.07 of the plain one for llama3-8b, qwen3-4b and
+    # gemma-7b and within 0.114 for gemma2-9b (bf16 over 28-42 layers),
+    # while leaving out the middle layer's w_down moves them by 0.38-0.86:
+    # 0.15 sits between the two.  An SSM path's faults are planted in the
+    # mixer's w_out (and hymba's w_down).
+    if moe:
+        faults = moe_faults(cfg, cparams)
+    elif cfg.ssm_state:
+        faults = intrablock_faults(cfg, cparams, "w_out")
+        if cfg.d_ff:
+            faults.update(intrablock_faults(cfg, cparams, "w_down"))
+    else:
+        faults = intrablock_faults(cfg, cparams) if intra else fullblock_faults(cfg, cparams)
+    t0 = time.perf_counter()
+    parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15, faults=faults)
+    print(f"[time] {cfg.name} parity phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return dict(model, prompts=prompts, counts=counts)
+
+
+def prune_phase(cfg, spec, *, pre_check=None) -> dict:
     """Init ``cfg`` at full width (random bf16 weights from SEED), run
-    ``pre_check(cfg, params)`` if given, then drive the path with the launch
-    counts set to 0 just before it: prune the config's projections
-    (:func:`pruned_keys`) with ``spec`` (IntraBlock row-aligned), compress,
-    serve the 8 requests (:func:`serve_phase`), read the counts.  An MoE's expert leaves are
+    ``pre_check(cfg, params)`` if given, then set the launch counts to 0
+    and prune the config's projections (:func:`pruned_keys`) with ``spec``
+    (IntraBlock row-aligned) and compress them.  An MoE's expert leaves are
     each moved to the host and pruned on their own (``prune_params``
     builds the pruned copy on the card one layer at a time and keeps its
     mask on the host), so that no leaf stands twice on the card; a mask is
-    dropped once its density is read.  Checks the densities, that only the
-    projections with a compressed layout were compressed (an MoE's expert
-    leaves stay masked-dense), that those ran only through the variants
-    their widths call for (:func:`check_main_variants`), the block losses
-    (FullBlock) only through ``strip``, the prefill attention only through
-    flash's ``flash`` variant (or, for ``flash=None``, no flash launch), and no
-    launch of the other compressed op; prints the peak device memory of
-    the prune step and of serving; then runs the parity phase.  Returns
-    what the later phases need: config, spec, densities, matrix shapes,
-    compressed params, prompts and the path's launch counts."""
+    dropped once its density is read.  Checks the densities and that only
+    the projections with a compressed layout were compressed (an MoE's
+    expert leaves stay masked-dense); prints the peak device memory of the
+    prune step.  The counts run on: the caller reads them at the end of
+    its path.  Returns config, spec, densities, matrix shapes, the
+    compressed params and the compressed keys."""
     from repro_torch.kernels import ops
     from repro_torch.models.layers import COMPRESSED
     from repro_torch.models.transformer import init_params
@@ -877,21 +960,20 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
     intra = spec.patterns[0].kind == "intra"
     moe = cfg.n_experts > 1
     host_keys = EXPERT_KEYS if moe else ()
-    op, other = (("intrablock_gather_matmul", "block_sparse_matmul") if intra
-                 else ("block_sparse_matmul", "intrablock_gather_matmul"))
     t0 = time.perf_counter()
     params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     keys = pruned_keys(cfg)
     shapes = matrix_shapes(cfg, params)
-    n_all = sum(t.numel() for t in params["layers"].values()) + params["embed"].numel()
-    print(f"[prune] init {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_all / 1e9:.3f} G params (embedding included) in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    n_all = sum(t.numel() for t in leaves(params))
+    print(f"[prune] init {cfg.name}: {cfg.n_layers} layers"
+          + (f" (and {cfg.enc_layers} encoder layers)" if cfg.enc_dec else "")
+          + f", d_model {cfg.d_model}, {n_all / 1e9:.3f} G params (every weight, the "
+            f"embedding included) in {time.perf_counter() - t0:.1f}s", flush=True)
     if pre_check is not None:
         pre_check(cfg, params)
 
-    # ---- the path: counts from here to the end of serving --------------------
+    # ---- the path: counts from here to the end of the caller's serving ----------
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -956,18 +1038,29 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
           + f"; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak of the "
             f"prune step {prune_peak / 2**30:.2f} GiB", flush=True)
 
-    torch.cuda.reset_peak_memory_stats()
-    prompts, reqs, counts = serve_phase(cfg, cparams, max_len=max_len, long_prompt=long_prompt)
-    print(f"[serve] {cfg.name}: peak device memory while serving "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (max_memory_allocated; card "
-          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB)", flush=True)
-    # ---- end of the path ---------------------------------------------------------
+    return {"cfg": cfg, "spec": spec, "density": rep, "shapes": shapes, "cparams": cparams,
+            "comp_keys": comp_keys}
+
+
+def check_path_launches(cfg, rows: dict, model: dict, counts: dict, prefills: int,
+                        flash) -> None:
+    """Record the path's launches per kernel in ``rows`` and check them: the
+    compressed projections ran only through the variants their widths call
+    for (:func:`check_main_variants`), the block losses (FullBlock) only
+    through ``strip``, the prefill attention only through flash's ``flash``
+    variant, one launch per layer and prefill (or, for ``flash=None``, no
+    flash launch), and the other compressed op not at all."""
+    intra = model["spec"].patterns[0].kind == "intra"
+    op, other = (("intrablock_gather_matmul", "block_sparse_matmul") if intra
+                 else ("block_sparse_matmul", "intrablock_gather_matmul"))
+    cparams, keys = model["cparams"], pruned_keys(cfg)
+    comp_keys = model["comp_keys"]
     for name in ("flash_attention", "block_sparse_matmul", "block_importance",
                  "intrablock_gather_matmul"):
         rows[name].setdefault("launches_by_path", {})[cfg.name] = counts[name]
     check(counts[op] > 0, f"{op} was not launched on the {cfg.name} path")
     check(counts[other] == 0, f"{other} ran on the {cfg.name} path")
-    check_main_variants(cfg, op, counts, len(reqs), cparams, comp_keys)
+    check_main_variants(cfg, op, counts, prefills, cparams, comp_keys)
     if intra:
         check(counts["block_importance"] == 0, f"block_importance ran on the {cfg.name} path")
     else:
@@ -975,33 +1068,14 @@ def served_path(cfg, rows: dict, spec, *, flash, pre_check=None, max_len: int = 
     if flash is None:
         v = counts["variants"]["flash_attention"]
         why = ("no attention" if cfg.attention == "none"
+               else "prefix-LM: chunked_attention" if cfg.prefix_len
                else f"attention softcap {cfg.attn_softcap}: chunked_attention")
         print(f"[serve] {cfg.name}: flash_attention launches by variant {json.dumps(v)}; want "
               f"none ({why})", flush=True)
         check(counts["flash_attention"] == 0 and not any(v.values()),
               f"{cfg.name}: flash_attention ran {v} on a path without flash ({why})")
     else:
-        check_single_variant(cfg, "flash_attention", flash, counts, cfg.n_layers * len(reqs))
-
-    # Logits have std ~1 at this init.  On an H100 (700 W) the kernel paths
-    # stay within 0.06-0.07 of the plain one for llama3-8b, qwen3-4b and
-    # gemma-7b and within 0.114 for gemma2-9b (bf16 over 28-42 layers),
-    # while leaving out the middle layer's w_down moves them by 0.38-0.86:
-    # 0.15 sits between the two.  An SSM path's faults are planted in the
-    # mixer's w_out (and hymba's w_down).
-    if moe:
-        faults = moe_faults(cfg, cparams)
-    elif cfg.ssm_state:
-        faults = intrablock_faults(cfg, cparams, "w_out")
-        if cfg.d_ff:
-            faults.update(intrablock_faults(cfg, cparams, "w_down"))
-    else:
-        faults = intrablock_faults(cfg, cparams) if intra else fullblock_faults(cfg, cparams)
-    t0 = time.perf_counter()
-    parity_phase(cfg, cparams, prompts, [r.output for r in reqs], tol=0.15, faults=faults)
-    print(f"[time] {cfg.name} parity phase {time.perf_counter() - t0:.1f}s", flush=True)
-    return {"cfg": cfg, "spec": spec, "density": rep, "shapes": shapes, "cparams": cparams,
-            "prompts": prompts, "counts": counts}
+        check_single_variant(cfg, "flash_attention", flash, counts, cfg.n_layers * prefills)
 
 
 def main_path(cfg, rows: dict) -> dict:
@@ -1111,12 +1185,17 @@ def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None):
     print(f"[serve] {cfg.name}: launches on the path: {json.dumps(counts)}", flush=True)
     counts["steps"], counts["prompts"], counts["shapes"] = snap["steps"], len(reqs), shapes
 
-    # Host or device: time the host's issue of one 4-slot decode step (the
-    # path has no synchronisation inside decode_step) against the time to
-    # its end on the card.  Issue close to the whole step means the card
-    # waits on the host.
+    host_issue(cfg, cparams, engine.cache, 600)
+    return prompts, reqs, counts
+
+
+def host_issue(cfg, cparams, cache, pos: int) -> None:
+    """Host or device: time the host's issue of one 4-slot decode step at
+    per-slot position ``pos`` (the path has no synchronisation inside
+    decode_step) against the time to its end on the card.  Issue close to
+    the whole step means the card waits on the host."""
     from repro_torch.models.transformer import decode_step
-    cache = dict(engine.cache, pos=torch.full((4,), 600, dtype=torch.int64, device="cuda"))
+    cache = dict(cache, pos=torch.full((4,), pos, dtype=torch.int64, device="cuda"))
     tokens = torch.zeros(4, dtype=torch.int64, device="cuda")
     issue, step = [], []
     for _ in range(6):
@@ -1131,15 +1210,16 @@ def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None):
     print(f"[serve] {cfg.name}: one decode step, median of 5: host issue {issue * 1e3:.2f} ms, "
           f"to its end on the card {step * 1e3:.2f} ms (issue {issue / step:.0%} of the step)",
           flush=True)
-    return prompts, reqs, counts
 
 
-def step_logits(cparams, cfg, prompt: np.ndarray, impl: str, feed=()) -> torch.Tensor:
+def step_logits(cparams, cfg, prompt: np.ndarray, impl: str, feed=(), **extra) -> torch.Tensor:
     """f32 logits of the prompt's last token, then of one decode step per
-    token of ``feed`` (teacher-forced), stacked (1 + len(feed), V)."""
+    token of ``feed`` (teacher-forced), stacked (1 + len(feed), V).
+    ``extra`` goes to ``prefill``: an encoder-decoder's ``enc_embed`` or a
+    prefix-LM's ``prefix_embed`` of this prompt (batch 1)."""
     from repro_torch.models.transformer import decode_step, prefill
     lg, cache = prefill(cparams, torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None],
-                        cfg, impl=impl)
+                        cfg, impl=impl, **extra)
     for key in ("k", "v"):
         if key in cache:
             cache[key] = F.pad(cache[key], (0, 0, 0, 0, 0, len(feed)))
@@ -1291,11 +1371,14 @@ def layer_parity(cfg, cparams, prompt, ref_params=None) -> tuple:
     return diffs, flips
 
 
-def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> None:
+def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict, extras=None,
+                 every_fault: bool = False) -> None:
     """The served path against ``impl="ref"`` on the same compressed weights.
 
-    Logits: the last prompt token of all 8 prompts, plus 4 decode steps of
-    the first request fed its served tokens, kernels vs plain.  Greedy
+    Logits over 12 steps: the last prompt token of every prompt, plus
+    12 - len(prompts) decode steps of the first request fed its served
+    tokens (4 for 8 prompts), kernels vs plain; ``extras`` gives each
+    prompt's encoder or prefix input (batch 1) where the config takes one.  Greedy
     tokens: each served token against the plain path's argmax, required
     to agree where the plain top-2 margin exceeds 2*tol (a smaller margin
     can flip within the tolerance).  ``faults`` maps a name to a copy of
@@ -1323,28 +1406,31 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
     instead, each planted fault given as a copy of the params must exceed
     ``tol`` read the same way (its largest layer), and the served tokens
     must agree where the plain margin exceeds twice the measured
-    difference.  Every planted fault must exceed the tolerance.
+    difference.  The first planted fault must exceed the tolerance, and
+    every one of them on an MoE or SSM path or with ``every_fault``.
     """
     from repro_torch.models.layers import rms_norm, softcap
     from repro_torch.models.transformer import _run
 
     routed = cfg.n_experts > 1
     layered = routed or cfg.ssm_state > 0
-    feed = served[0][:4]
+    extras = extras or [{}] * len(prompts)
+    feed = served[0][:12 - len(prompts)]
 
     def steps(params, impl):
-        return torch.cat([step_logits(params, cfg, prompts[0], impl, feed)]
-                         + [step_logits(params, cfg, p, impl) for p in prompts[1:]])
+        return torch.cat([step_logits(params, cfg, prompts[0], impl, feed, **extras[0])]
+                         + [step_logits(params, cfg, p, impl, **e)
+                            for p, e in zip(prompts[1:], extras[1:])])
 
     auto, plain = steps(cparams, "auto"), steps(cparams, "ref")
-    want = served[0][:5] + [out[0] for out in served[1:]]
+    want = served[0][:len(feed) + 1] + [out[0] for out in served[1:]]
     err = (auto - plain).abs().amax(dim=1)
     top2 = plain.topk(2, dim=1).values
     margins = (top2[:, 0] - top2[:, 1]).tolist()
     picked = plain.argmax(dim=1).tolist()
     e2e = err.max().item()
-    print(f"[parity] {cfg.name}: kernels vs impl=ref over {len(margins)} steps (8 prompts' last "
-          f"token, 4 decode steps of request 0): max |dlogit| {e2e:.4f} "
+    print(f"[parity] {cfg.name}: kernels vs impl=ref over {len(margins)} steps ({len(prompts)} "
+          f"prompts' last token, {len(feed)} decode steps of request 0): max |dlogit| {e2e:.4f} "
           f"(tol {tol}), per step {[round(e, 4) for e in err.tolist()]}", flush=True)
     layer_max = None
     if routed:
@@ -1398,8 +1484,8 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
 
     # f32 unembedding: the served prefill logits against an f32 product
     # of the final hidden state and the whole unembedding widened to f32.
-    x, _ = _run(cparams, torch.as_tensor(prompts[0], dtype=torch.long,
-                                             device="cuda")[None], cfg, "auto", False)
+    x, _ = _run(cparams, torch.as_tensor(prompts[0], dtype=torch.long, device="cuda")[None],
+                cfg, "auto", False, **extras[0])
     h = rms_norm(x[0, -1:], cparams["final_norm"], cfg.norm_eps)
     w = cparams["embed"].T if cfg.tie_embeddings else cparams["lm_head"]
     f32 = softcap((h.float() @ w.float())[0], cfg.logit_softcap)
@@ -1415,7 +1501,7 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict) -> 
     else:
         check(e2e <= tol, f"logits differ by {e2e} > {tol}")
     check(not wrong, f"served tokens differ from impl=ref at decided steps {wrong}")
-    for what in (fault_err if layered else list(fault_err)[:1]):
+    for what in (fault_err if layered or every_fault else list(fault_err)[:1]):
         check(fault_err[what] > tol, f"{what}: stays within the logit tolerance {tol}")
     check(e32 <= 1e-4, f"served logits are not f32 products: {e32} > 1e-4")
 
@@ -1896,6 +1982,269 @@ def hymba_path(cfg, rows: dict) -> dict:
     return cost_inputs(model)
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-12: the encoder-decoder and the prefix-LM, served through the
+# entry points (neither engine takes an encoder or a prefix input)
+# ---------------------------------------------------------------------------
+
+WHISPER_PROMPT, WHISPER_CTX = 416, 448     # 448: whisper's text context
+PALIGEMMA_PROMPT, PALIGEMMA_CTX = 128, 512
+DIRECT_BATCH, DIRECT_TOKENS = 4, 32
+
+
+def stub_inputs(cfg, n: int, prompt_len: int, extra_len: int) -> tuple:
+    """``n`` prompts of ``prompt_len`` tokens from numpy seed SEED, and the
+    stub frontend's output (n, extra_len, d_model) with std 1/sqrt(d): the
+    encoder's frame embeddings or the prefix's patch embeddings."""
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, size=(n, prompt_len)).astype(np.int32)
+    stub = rng.normal(size=(n, extra_len, cfg.d_model)) / math.sqrt(cfg.d_model)
+    return prompts, torch.as_tensor(stub, dtype=torch.bfloat16, device="cuda")
+
+
+def events_ms(fn, n: int = 3) -> float:
+    """Median ms of ``n`` calls of ``fn`` between CUDA events (after one
+    call to warm up)."""
+    fn()
+    times = []
+    for _ in range(n):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sorted(times)[n // 2]
+
+
+def direct_serve(cfg, cparams, prompts: np.ndarray, extra: dict, *, max_len: int):
+    """Serve the batch of equal-length prompts through the entry points:
+    one batched ``prefill`` (with ``extra``: ``enc_embed`` or
+    ``prefix_embed``), its k/v merged into an ``init_cache(max_len)`` that
+    has headroom (and its cross k/v copied), then DIRECT_TOKENS - 1
+    ``decode_step``s at the batch's scalar position, greedy.  Reads the
+    launch counts at the end.  Returns (tokens per request, counts, the
+    cache)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import decode_step, init_cache, prefill
+
+    B, S = prompts.shape
+    toks = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, pc = prefill(cparams, toks, cfg, impl="auto", **extra)
+    out = [lg[:, -1].argmax(dim=-1)]
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    enc_seq = extra["enc_embed"].shape[1] if "enc_embed" in extra else 0
+    cache = init_cache(cfg, B, max_len, torch.bfloat16, enc_seq=enc_seq, device="cuda")
+    n = pc["k"].shape[2]
+    check(n + DIRECT_TOKENS - 1 <= max_len, f"{cfg.name}: {n} + {DIRECT_TOKENS} > {max_len}")
+    for key in ("k", "v"):
+        cache[key][:, :, :n] = pc[key]
+    for key in ("cross_k", "cross_v"):
+        if key in pc:
+            cache[key].copy_(pc[key])
+    cache["pos"] = pc["pos"]
+    del pc
+    step_s = []
+    for _ in range(DIRECT_TOKENS - 1):
+        t0 = time.perf_counter()
+        lg, cache = decode_step(cparams, out[-1], cfg, cache, impl="auto")
+        out.append(lg.argmax(dim=-1))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    counts["variants"] = ops.variant_counts()
+    shapes = ops.gather_matmul_shape_counts()        # keyed (variant, Kc, N): not JSON
+    bsm_shapes = ops.block_sparse_shape_counts()     # keyed (variant, K, N)
+    tokens = torch.stack(out, dim=1).tolist()
+    check(all(len(t) == DIRECT_TOKENS for t in tokens), "a request has the wrong token count")
+    print(f"[serve] {cfg.name}: {B} prompts of {S} tokens"
+          + (f" after a prefix of {n - S}" if n > S else "")
+          + (f" with {enc_seq} encoder frames" if enc_seq else "")
+          + f", batched prefill then {DIRECT_TOKENS - 1} decode steps (scalar position, "
+            f"init_cache(max_len={max_len}) with headroom): first prefill {t_prefill * 1e3:.1f} "
+            f"ms wall; decode step p50 {sorted(step_s)[len(step_s) // 2] * 1e3:.2f} ms (each to "
+            f"its end on the card)", flush=True)
+    print(f"[serve] {cfg.name}: launches on the path: {json.dumps(counts)}", flush=True)
+    counts["steps"], counts["shapes"], counts["bsm_shapes"] = DIRECT_TOKENS - 1, shapes, bsm_shapes
+    return tokens, counts, cache
+
+
+def swapped_cross_fault(cparams):
+    """A planted fault of the cross cache: ``prefill`` hands back its cache
+    with ``cross_k`` and ``cross_v`` swapped, so every decode step reads
+    the encoder's values as keys and its keys as values.  It shows only
+    where the init drew wk and wv apart, as the port's does."""
+    from repro_torch.models import transformer
+
+    @contextlib.contextmanager
+    def swapped():
+        real = transformer.prefill
+
+        def prefill(*args, **kw):
+            lg, cache = real(*args, **kw)
+            cache["cross_k"], cache["cross_v"] = cache["cross_v"], cache["cross_k"]
+            return lg, cache
+
+        transformer.prefill = prefill
+        try:
+            yield cparams
+        finally:
+            transformer.prefill = real
+    return swapped
+
+
+def encoder_reach_check(cfg, cparams, enc: torch.Tensor) -> None:
+    """The encoder is bidirectional: changing the last frame of request 0's
+    input changes encoder layer 0's output at frame 0 (then the final norm,
+    which acts per frame).  In f32, so that one key among 1500 shows."""
+    from repro_torch.models.transformer import _encoder_stack
+
+    one = {"enc_layers": {k: w[:1].float() for k, w in cparams["enc_layers"].items()},
+           "enc_final_norm": cparams["enc_final_norm"].float()}
+    cfg1 = dataclasses.replace(cfg, enc_layers=1)
+    x = enc[:1].float()
+    moved = x.clone()
+    moved[:, -1] = -moved[:, -1]
+    a, b = _encoder_stack(one, x, cfg1), _encoder_stack(one, moved, cfg1)
+    d0 = (a[:, 0] - b[:, 0]).abs().max().item()
+    rows = int((a != b).flatten(2).any(dim=2).sum())
+    print(f"[encoder] {cfg.name}: frame {x.shape[1] - 1} of the input negated: encoder layer 0's "
+          f"output (f32) moves at frame 0 by max |d| {d0:.3e}; {rows} of {x.shape[1]} frames "
+          f"move (bidirectional attention over every frame)", flush=True)
+    check(d0 > 0, f"{cfg.name}: the last frame does not reach frame 0 of the encoder")
+
+
+def prefix_check(cfg, cparams, prompt: np.ndarray, prefix: torch.Tensor) -> None:
+    """Layer 0's attention on request 0's prefix and prompt, through
+    ``chunked_attention`` in f32 with ``prefix=P`` against ``prefix=0``:
+    row i < P - 1 sees keys up to P - 1 with the prefix and up to i
+    without, so rows 0..P-2 must differ; row P - 1 and every row after it
+    see the same keys either way and must be equal bit for bit."""
+    from repro_torch.models.layers import chunked_attention, project, rms_norm, rope
+    from repro_torch.models.transformer import _layer
+
+    P = prefix.shape[1]
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+    lp = _layer(cparams["layers"], 0)
+    x = torch.cat([prefix[:1], cparams["embed"][tokens]], dim=1)
+    S = x.shape[1]
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    pos = torch.arange(S, device="cuda")[None]
+    q, k, v = (project(h, lp[w]) for w in ("wq", "wk", "wv"))
+    if cfg.qk_norm:
+        q, k = rms_norm(q, lp["q_norm"], cfg.norm_eps), rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    q, k, v = rope(q, pos, cfg.rope_theta).float(), rope(k, pos, cfg.rope_theta).float(), v.float()
+    a = chunked_attention(q, k, v, causal=True, prefix=P)
+    b = chunked_attention(q, k, v, causal=True, prefix=0)
+    differ = (a != b).flatten(2).any(dim=2)[0]
+    n_before = int(differ[:P - 1].sum())
+    same_after = torch.equal(a[:, P - 1:], b[:, P - 1:])
+    print(f"[prefix] {cfg.name}: layer 0 on request 0 ({P} prefix + {S - P} tokens), "
+          f"chunked_attention in f32 with prefix {P} vs none: rows 0..{P - 2} that differ: "
+          f"{n_before} of {P - 1}; rows {P - 1}..{S - 1} bit-equal: {same_after}", flush=True)
+    check(n_before == P - 1, f"{cfg.name}: {P - 1 - n_before} prefix rows ignore the prefix")
+    check(same_after, f"{cfg.name}: the prefix changed a row from {P - 1} on")
+
+
+def direct_path(cfg, rows: dict, spec, *, prompt_len: int, extra_key: str, extra_len: int,
+                max_len: int, flash) -> dict:
+    """Prune and compress ``cfg`` (:func:`prune_phase`, counts set to 0 just
+    before), serve DIRECT_BATCH prompts of ``prompt_len`` tokens with stub
+    inputs ``extra_key`` of ``extra_len`` rows through the entry points
+    (:func:`direct_serve`), read and check the launch counts (one batched
+    prefill), then time the prefill (and an encoder apart from it), the
+    host's issue of a decode step and run the parity phase on the 4
+    prompts.  Returns the model with its prompts, stub inputs, counts and
+    served tokens."""
+    from repro_torch.models.transformer import prefill
+
+    model = prune_phase(cfg, spec)
+    cparams = model["cparams"]
+    prompts, stub = stub_inputs(cfg, DIRECT_BATCH, prompt_len, extra_len)
+    torch.cuda.reset_peak_memory_stats()
+    tokens, counts, cache = direct_serve(cfg, cparams, prompts, {extra_key: stub},
+                                         max_len=max_len)
+    print(f"[serve] {cfg.name}: peak device memory while serving "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    # ---- end of the path ---------------------------------------------------------
+    check_path_launches(cfg, rows, model, counts, 1, flash)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    t_all = events_ms(lambda: prefill(cparams, toks, cfg, **{extra_key: stub}))
+    if cfg.enc_dec:
+        from repro_torch.models.transformer import _cross_kv, _encoder_stack
+        t_enc = events_ms(lambda: _cross_kv(cparams, _encoder_stack(cparams, stub, cfg), cfg))
+        print(f"[serve] {cfg.name}: batched prefill on the card, median of 3: {t_all:.2f} ms, of "
+              f"which the encoder ({cfg.enc_layers} layers over {extra_len} frames, dense, "
+              f"chunked_attention) and the cross k/v {t_enc:.2f} ms timed alone, the decoder's "
+              f"prefill {t_all - t_enc:.2f} ms", flush=True)
+    else:
+        print(f"[serve] {cfg.name}: batched prefill on the card, median of 3: {t_all:.2f} ms",
+              flush=True)
+    host_issue(cfg, cparams, cache, max_len - 8)
+    del cache
+    return dict(model, prompts=list(prompts), stub=stub, counts=counts, served=tokens)
+
+
+def whisper_path(cfg, rows: dict) -> dict:
+    """whisper-medium, FullBlock(128, 128, 0.5) on wq/wk/wv/w_up/w_down of
+    its decoder (the encoder and the cross weights stay dense, as the
+    reference prunes them): 4 prompts of WHISPER_PROMPT tokens and stub
+    1500-frame embeddings, served to WHISPER_CTX; flash wgmma at hd 64 in
+    the decoder's prefill, chunked_attention in the encoder and the cross
+    step.  Planted faults: the middle layer's w_down left out, and the
+    cross k/v swapped in the cache; then the encoder's reach check."""
+    from repro_torch.core.flexblock import FlexBlockSpec, FullBlock
+
+    model = direct_path(cfg, rows, FlexBlockSpec((FullBlock(BLOCK, BLOCK, 0.5),)),
+                        prompt_len=WHISPER_PROMPT, extra_key="enc_embed",
+                        extra_len=cfg.enc_seq, max_len=WHISPER_CTX, flash="wgmma")
+    cparams, stub, counts = model["cparams"], model["stub"], model["counts"]
+    rows["flash_attention"]["variants"][f"wgmma hd 64/{cfg.name}"]["launches"] = \
+        counts["variants"]["flash_attention"]["wgmma"]
+    w_up = cparams["layers"]["w_up"]
+    for variant in ("decode", "prefill"):
+        rows["block_sparse_matmul"]["variants"][f"{variant}/{cfg.name} w_up"]["launches"] = \
+            counts["bsm_shapes"].get((variant, w_up.in_features, math.prod(w_up.out_shape)), 0)
+    faults = dict(list(fullblock_faults(cfg, cparams).items())[:1])
+    faults["cross_k and cross_v swapped in the cache"] = swapped_cross_fault(cparams)
+    t0 = time.perf_counter()
+    parity_phase(cfg, cparams, model["prompts"], model["served"], tol=0.15, faults=faults,
+                 extras=[{"enc_embed": stub[i:i + 1]} for i in range(DIRECT_BATCH)],
+                 every_fault=True)
+    print(f"[time] {cfg.name} parity phase {time.perf_counter() - t0:.1f}s", flush=True)
+    encoder_reach_check(cfg, cparams, stub)
+    return cost_inputs(model)
+
+
+def paligemma_path(cfg, rows: dict) -> dict:
+    """paligemma-3b, row-aligned IntraBlock(4, 1, 0.5) on its six
+    projections: 4 prompts of PALIGEMMA_PROMPT tokens after stub prefixes
+    of 256 patch embeddings, served to PALIGEMMA_CTX; no flash launch (the
+    prefix-LM mask takes chunked_attention).  Planted faults as
+    :func:`intrablock_faults`; then the prefix check on layer 0."""
+    from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+
+    model = direct_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)),
+                        prompt_len=PALIGEMMA_PROMPT, extra_key="prefix_embed",
+                        extra_len=cfg.prefix_len, max_len=PALIGEMMA_CTX, flash=None)
+    cparams, stub, counts = model["cparams"], model["stub"], model["counts"]
+    # w_gate and w_up share (Kc, N): the count at the shape is both leaves'
+    Kc, N = cparams["layers"]["w_gate"].w_comp.shape[1:]
+    for variant in ("decode", "prefill"):
+        rows["intrablock_gather_matmul"]["variants"][f"{variant}/{cfg.name} w_gate"][
+            "launches"] = counts["shapes"].get((variant, Kc, N), 0)
+    t0 = time.perf_counter()
+    parity_phase(cfg, cparams, model["prompts"], model["served"], tol=0.15,
+                 faults=intrablock_faults(cfg, cparams),
+                 extras=[{"prefix_embed": stub[i:i + 1]} for i in range(DIRECT_BATCH)])
+    print(f"[time] {cfg.name} parity phase {time.perf_counter() - t0:.1f}s", flush=True)
+    prefix_check(cfg, cparams, model["prompts"][0], stub)
+    return cost_inputs(model)
+
+
 def microbench_phase() -> list:
     """``microbench_kernels`` on the card; its samples go to JSONL under
     build/ and must read back unchanged.  Returns the samples."""
@@ -1919,7 +2268,7 @@ def microbench_phase() -> list:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: the CIMinus cost model, fed by this run's measurements
+# Phase 14: the CIMinus cost model, fed by this run's measurements
 # ---------------------------------------------------------------------------
 
 # the profile's three input kinds → the ops of lm_workload that read them
@@ -1982,7 +2331,7 @@ def check_scaled(label: str, scaled, base, wl, prof) -> None:
 
 def cost_phase(samples: list, served: list) -> None:
     """Fit the card's profile, then cost each served model (see the
-    module docstring, phase 10).  Runs on the host."""
+    module docstring, phase 14).  Runs on the host."""
     from repro_torch.calibrate.fit import fit_profile
     from repro_torch.core.costmodel import compare, dense_baseline, simulate
     from repro_torch.core.mapping import default_mapping
@@ -2123,7 +2472,8 @@ def main() -> int:
         later = []
         for name, path in (("gemma-7b", gemma7b_path), ("gemma2-9b", gemma2_path),
                            ("qwen3-moe-30b-a3b", moe_path), ("mamba2-130m", mamba2_path),
-                           ("hymba-1.5b", hymba_path)):
+                           ("hymba-1.5b", hymba_path), ("whisper-medium", whisper_path),
+                           ("paligemma-3b", paligemma_path)):
             t0 = time.perf_counter()
             later.append(path(get_config(name), rows))
             gc.collect()

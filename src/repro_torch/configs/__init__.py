@@ -1,4 +1,4 @@
-"""Architecture registry of the port (the archs ported so far)."""
+"""Architecture registry of the port: every arch of the reference."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +15,8 @@ _ARCH_MODULES = {
     "dbrx-132b": "dbrx_132b",
     "mamba2-130m": "mamba2_130m",
     "hymba-1.5b": "hymba_1_5b",
+    "whisper-medium": "whisper_medium",
+    "paligemma-3b": "paligemma_3b",
 }
 
 
@@ -24,7 +26,7 @@ def list_archs() -> List[str]:
 
 def get_config(name: str) -> ArchConfig:
     if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; ported: {list_archs()}")
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     return importlib.import_module(f".{_ARCH_MODULES[name]}", __package__).CONFIG
 
 

@@ -11,17 +11,20 @@ The plain version is ``ref.block_sparse_matmul_ref``.
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 
 from . import _build
 from .plans import bsm_plan
 
-__all__ = ["block_sparse_matmul_cuda", "launches", "variant_launches"]
+__all__ = ["block_sparse_matmul_cuda", "launches", "variant_launches", "shape_launches"]
 
 # launches of the CUDA kernel since the last reset (see ops.reset_launch_counts),
-# in all and per variant
+# in all, per variant and per (variant, K, N) of the weight
 launches = 0
 variant_launches = {"decode": 0, "prefill": 0, "general": 0, "f32": 0}
+shape_launches: Dict[Tuple[str, int, int], int] = {}
 
 
 def block_sparse_matmul_cuda(x: torch.Tensor, w_comp: torch.Tensor,
@@ -58,4 +61,6 @@ def block_sparse_matmul_cuda(x: torch.Tensor, w_comp: torch.Tensor,
     _build.check(rc, fn)
     launches += 1
     variant_launches[plan.variant] += 1
+    key = (plan.variant, K, Gn * bn)
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     return y

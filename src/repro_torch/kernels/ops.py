@@ -10,9 +10,9 @@
 Shapes, layouts and errors follow ``repro/kernels/ops.py``.  Each CUDA
 wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them, :func:`variant_counts` reads the per-variant counts of the
-five kernels, :func:`gather_matmul_shape_counts` the gather-matmul's per
-variant and weight shape, and :func:`reset_launch_counts` sets them all
-to 0.
+five kernels, :func:`gather_matmul_shape_counts` and
+:func:`block_sparse_shape_counts` the two compressed matmuls' per variant
+and weight shape, and :func:`reset_launch_counts` sets them all to 0.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ __all__ = ["IMPLS", "compress_fullblock", "compress_fullblock_torch",
            "block_sparse_matmul", "intrablock_gather_matmul", "block_importance",
            "bitserial_zero_profile", "quantized_zero_profile", "flash_attention",
            "launch_counts", "variant_counts", "gather_matmul_shape_counts",
-           "reset_launch_counts"]
+           "block_sparse_shape_counts", "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "ref")
 _KERNELS = {"flash_attention": _fa, "block_sparse_matmul": _bsm,
@@ -67,8 +67,15 @@ def gather_matmul_shape_counts() -> Dict[Tuple[str, int, int], int]:
     return dict(_igm.shape_launches)
 
 
+def block_sparse_shape_counts() -> Dict[Tuple[str, int, int], int]:
+    """Launches of the block-sparse matmul per (variant, K, N) of its
+    weight, since the last reset."""
+    return dict(_bsm.shape_launches)
+
+
 def reset_launch_counts() -> None:
     _igm.shape_launches.clear()
+    _bsm.shape_launches.clear()
     for mod in _KERNELS.values():
         mod.launches = 0
         for v in mod.variant_launches:

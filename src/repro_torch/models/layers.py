@@ -1,7 +1,8 @@
 """Model-layer primitives of the decoder (port of
 ``repro/models/layers.py``): RMSNorm, RoPE, softcap, chunked
-online-softmax attention with GQA, windows and an attention softcap, the
-attention sub-block, the gated MLP, the capacity-bounded top-k MoE
+online-softmax attention with GQA, windows, an attention softcap and a
+prefix-LM mask, the attention sub-block (causal or bidirectional), the
+gated or plain MLP, the capacity-bounded top-k MoE
 block (the reference's global-dispatch path) and the Mamba-2 mixer
 (chunked SSD for prefill, the single-step recurrence for decode).
 
@@ -156,17 +157,22 @@ def _as_batch(v, B: int, device) -> torch.Tensor:
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[Any] = None,
                       q_offset: Any = 0, kv_len: Optional[Any] = None,
-                      attn_cap: float = 0.0, chunk: int = 1024) -> torch.Tensor:
+                      attn_cap: float = 0.0, prefix: int = 0,
+                      chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention scanned over kv chunks (the generic path
     of the reference, ``layers.py:277-294``).
 
     q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd).  ``q_offset`` (absolute
     position of q[0]) and ``kv_len`` (valid cache length) may be scalars
     or (B,) tensors; ``window`` is a scalar: query i sees keys
-    (i - window, i].  ``attn_cap > 0`` caps the scores as the reference's
-    ``_attn_tile`` does: scores x scale, then ``cap * tanh(s / cap)``, then
-    the additive mask.  Scores and the running max/sum/accumulator are
-    f32; P is cast to the value dtype before P·V, as in the reference.
+    (i - window, i].  ``prefix > 0`` is the prefix-LM mask of the
+    reference's ``_attn_bias``: inside the causal term, a query before
+    ``prefix`` also sees every key before it (bidirectional within the
+    prefix); without ``causal`` it changes nothing.  ``attn_cap > 0`` caps
+    the scores as the reference's ``_attn_tile`` does: scores x scale,
+    then ``cap * tanh(s / cap)``, then the additive mask.  Scores and the
+    running max/sum/accumulator are f32; P is cast to the value dtype
+    before P·V, as in the reference.
     """
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -192,7 +198,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k_idx = ci * chunk + torch.arange(chunk, device=dev)
         ok = torch.ones((B, Sq, chunk), dtype=torch.bool, device=dev)
         if causal:
-            ok &= k_idx[None, None, :] <= q_idx[:, :, None]
+            seen = k_idx[None, None, :] <= q_idx[:, :, None]
+            if prefix > 0:
+                seen |= (q_idx[:, :, None] < prefix) & (k_idx[None, None, :] < prefix)
+            ok &= seen
         if win is not None:
             ok &= k_idx[None, None, :] > q_idx[:, :, None] - win[:, None, None]
         if kvl is not None:
@@ -233,25 +242,35 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
-                    window: Optional[int] = None,
+                    causal: bool = True, window: Optional[int] = None, prefix: int = 0,
                     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     cache_len: Optional[Any] = None,
                     impl: str = "auto") -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Projections + RoPE + causal attention; ``window`` (None = global)
-    bounds each query to its last ``window`` keys, in prefill and decode.
+    """Projections + RoPE + attention; ``window`` (None = global) bounds
+    each query to its last ``window`` keys, in prefill and decode.
 
     * prefill/forward (``cache_kv=None``): self-attention over ``x``;
-      returns the new (k, v).  With ``cfg.attn_softcap == 0`` it runs
-      through the flash-attention op.  With an attention softcap (gemma2)
-      it runs through :func:`chunked_attention` with ``attn_cap``: the
-      reference's Pallas flash kernel (``repro/kernels/flash_attention.py``)
-      has no softcap in its contract, and the JAX model never calls it,
-      so the port's flash kernel takes none either.  The route follows
-      from ``cfg`` alone, before any launch.
+      returns the new (k, v).  Causal attention with ``prefix == 0`` and
+      ``cfg.attn_softcap == 0`` runs through the flash-attention op.
+      Everything else runs through :func:`chunked_attention`, as the
+      reference computes it: bidirectional attention (``causal=False``,
+      the encoder of an encoder-decoder), a prefix-LM mask (``prefix``
+      keys seen by every query before them) and an attention softcap
+      (gemma2).  The reference's Pallas flash kernel
+      (``repro/kernels/flash_attention.py``) has none of these in its
+      contract, and the JAX model never calls it, so the port's flash
+      kernel takes none either; its tail padding is exact only under a
+      causal mask.  The route follows from the arguments and ``cfg``
+      alone, before any launch.
     * decode: ``cache_kv=(K, V)`` buffers (B, Smax, Hkv, hd).  The new
-      k/v are written into them **in place** at ``cache_len`` (scalar or
-      (B,)), and attention spans the whole cache through
-      :func:`chunked_attention`, whose causal mask hides the unwritten tail.
+      k/v are written into them **in place** at ``cache_len``, and
+      attention spans the whole cache through :func:`chunked_attention`,
+      whose causal mask hides the unwritten tail.  The write follows the
+      reference's: at a scalar ``cache_len`` the start is clamped to
+      [0, Smax - S], as ``dynamic_update_slice`` clamps it (a full cache
+      overwrites its last slots); at per-sequence (B,) positions a row
+      whose position is past the end is dropped, as JAX's scatter drops
+      it.  Neither reads the position back to the host.
     """
     q = project(x, p["wq"], impl)
     if cfg.qk_norm:
@@ -263,8 +282,8 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     k = rope(k, positions, cfg.rope_theta)
     if cache_kv is None:
-        if cfg.attn_softcap > 0:
-            out = chunked_attention(q, k, v, causal=True, window=window,
+        if not causal or prefix > 0 or cfg.attn_softcap > 0:
+            out = chunked_attention(q, k, v, causal=causal, window=window, prefix=prefix,
                                     attn_cap=cfg.attn_softcap)
         else:
             out = self_attention(q, k, v, window=window, impl=impl)
@@ -272,18 +291,33 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
     else:
         K, V = cache_kv
         pos = torch.as_tensor(cache_len, device=x.device)
-        if pos.dim() == 0:
-            K[:, int(pos):int(pos) + x.shape[1]] = k.to(K.dtype)
-            V[:, int(pos):int(pos) + x.shape[1]] = v.to(V.dtype)
-        else:
-            bidx = torch.arange(K.shape[0], device=x.device)
-            K[bidx, pos.long()] = k[:, 0].to(K.dtype)
-            V[bidx, pos.long()] = v[:, 0].to(V.dtype)
+        write_cache(K, k, pos)
+        write_cache(V, v, pos)
         out = chunked_attention(q, K, V, causal=True, window=window, q_offset=pos,
                                 attn_cap=cfg.attn_softcap, chunk=K.shape[1])
         new_kv = (K, V)
     y = project(out, p["wo"], impl, n_in=2)
     return y, new_kv
+
+
+def write_cache(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write ``new`` (B, S, Hkv, hd) into the cache ``buf`` (B, Smax, Hkv,
+    hd) in place at ``pos``, with the reference's semantics and no host
+    sync.  A scalar ``pos`` starts the write at ``pos`` clamped to
+    [0, Smax - S] (``jax.lax.dynamic_update_slice``).  A (B,) ``pos``
+    (one token per row) writes row b at ``pos[b]`` and drops it where
+    ``pos[b] >= Smax`` (``.at[b, pos].set``): the old slot is written back."""
+    Smax, S = buf.shape[1], new.shape[1]
+    new = new.to(buf.dtype)
+    if pos.dim() == 0:
+        start = pos.long().clamp(0, Smax - S)
+        buf.index_copy_(1, start + torch.arange(S, device=buf.device), new)
+        return
+    pos = pos.long()
+    slot = pos.clamp(max=Smax - 1)
+    bidx = torch.arange(buf.shape[0], device=buf.device)
+    keep = (pos < Smax)[:, None, None]
+    buf[bidx, slot] = torch.where(keep, new[:, 0], buf[bidx, slot])
 
 
 # ---------------------------------------------------------------------------

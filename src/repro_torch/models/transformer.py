@@ -1,28 +1,41 @@
-"""Decoder stack (port of ``repro/models/transformer.py`` for the dense,
-MoE, SSM and hybrid families): global attention (llama3, qwen3, gemma,
-qwen3-moe, dbrx), gemma2's alternation of local (sliding-window) and
-global layers with attention and final-logit softcaps and post-norms,
-the attention-free Mamba-2 stack (mamba2) and hymba's hybrid layer, in
-which sliding-window attention and the SSM mixer run side by side on the
-same normed input, each branch normed before they are summed.  A layer's
-FFN is the gated MLP, the top-k MoE block when the config has more than
-one expert, or none when ``d_ff`` is 0.
+"""Model stack (port of ``repro/models/transformer.py`` for every family
+of the reference): global attention (llama3, qwen3, gemma, qwen3-moe,
+dbrx), gemma2's alternation of local (sliding-window) and global layers
+with attention and final-logit softcaps and post-norms, the
+attention-free Mamba-2 stack (mamba2), hymba's hybrid layer, in which
+sliding-window attention and the SSM mixer run side by side on the same
+normed input, each branch normed before they are summed, the
+encoder-decoder (whisper: a bidirectional encoder over stub frame
+embeddings, and a cross-attention step in every decoder layer) and the
+prefix-LM (paligemma: stub patch embeddings joined ahead of the tokens,
+seen bidirectionally).  A layer's FFN is the gated or plain MLP, the
+top-k MoE block when the config has more than one expert, or none when
+``d_ff`` is 0.
 
 Parameters are a plain dict laid out like the reference pytree: layer
 weights stacked on a leading L axis (``wq`` (L, d, Hq, hd), ``wo``
 (L, Hq, hd, d), ``w_in`` (L, d, 2·din + 2·N + H), ...), plus ``embed``,
-``final_norm`` and ``lm_head``.  A pruned projection may be a compressed
+``final_norm`` and ``lm_head``; an encoder-decoder adds ``enc_layers``
+(stacked on ``cfg.enc_layers``), ``enc_final_norm``, ``enc_cross``
+(``wk``/``wv`` (L, d, Hkv, hd)) and ``dec_cross`` (``wq`` (L, d, Hq, hd),
+``wo`` (L, Hq, hd, d), ``ln`` (L, d)).  A pruned projection may be a compressed
 module (:class:`~.layers.BlockSparseLinear` or
 :class:`~.layers.IntraBlockLinear`) instead of a dense tensor.  The
 reference's ``lax.scan`` over layers is a Python loop here.
 
 Entry points:
 
-* ``forward``     — logits over a full sequence;
+* ``forward``     — logits over a full sequence (after the prefix,
+  where one is given);
 * ``prefill``     — forward + the per-layer cache (k/v, SSM and conv
-  states), last-token logits;
+  states, the encoder's cross k/v), last-token logits;
 * ``decode_step`` — one token per sequence against a cache, at a scalar
   or per-sequence (B,) position.  It writes the cache in place.
+
+An encoder-decoder needs ``enc_embed`` (B, Se, d) in ``forward`` and
+``prefill``, a prefix-LM takes ``prefix_embed`` (B, P, d); decode needs
+neither (the cache holds the cross k/v, and every decode query sits past
+the prefix, where the causal mask already shows all of it).
 """
 from __future__ import annotations
 
@@ -33,7 +46,8 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from .layers import COMPRESSED, attention_block, mlp_block, moe_block, rms_norm, ssm_block
+from .layers import (COMPRESSED, attention_block, chunked_attention, mlp_block, moe_block,
+                     project, rms_norm, ssm_block)
 
 __all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step", "layer_flags"]
 
@@ -44,19 +58,25 @@ _VOCAB_CHUNK = 16384      # lm_head columns widened to f32 at a time
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The port covers the dense and MoE GQA decoders with global or
-    alternating local/global attention (attention softcap allowed), the
-    pure-SSM family (no attention) and the hybrid family (sliding-window
-    attention beside the SSM mixer); encoder-decoder and prefix-LM configs
-    are not ported yet."""
-    ported = ((cfg.family in ("dense", "moe") and not cfg.ssm_state
+    """The port covers every family of the reference: the dense and MoE
+    GQA decoders with global or alternating local/global attention
+    (attention softcap allowed), the encoder-decoder (``family="audio"``,
+    ``enc_dec``) and the prefix-LM (``family="vlm"``, ``prefix_len``) on
+    global attention, the pure-SSM family (no attention) and the hybrid
+    family (sliding-window attention beside the SSM mixer).  Any other
+    combination raises, an encoder or a prefix on another family too."""
+    ported = ((cfg.family in ("dense", "moe", "audio", "vlm") and not cfg.ssm_state
                and cfg.attention in ("global", "local_global"))
               or (cfg.family == "ssm" and cfg.ssm_state and cfg.attention == "none")
               or (cfg.family == "hybrid" and cfg.ssm_state and cfg.attention == "sliding"))
-    if not ported or cfg.enc_dec or cfg.prefix_len:
+    if cfg.enc_dec:
+        ported = ported and cfg.family == "audio" and cfg.enc_layers > 0
+    if cfg.prefix_len:
+        ported = ported and cfg.family == "vlm"
+    if not ported:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE, SSM and hybrid families are ported "
-            "to repro_torch")
+            f"{cfg.name}: family {cfg.family!r} with attention {cfg.attention!r} is not "
+            "one of the families the port covers")
 
 
 def layer_flags(cfg: ArchConfig) -> Tuple[bool, ...]:
@@ -79,12 +99,23 @@ def _windows(cfg: ArchConfig) -> Tuple[Optional[int], ...]:
     return tuple(None if g else cfg.window for g in layer_flags(cfg))
 
 
-def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+def _layer_shapes(cfg: ArchConfig, *, encoder: bool = False) -> Dict[str, Tuple[int, ...]]:
     """Per-layer leaf shapes, as the reference's ``_layer_shapes``
-    (``transformer.py:67-108``) gives them for a decoder."""
+    (``transformer.py:67-108``) gives them for a decoder layer or, with
+    ``encoder``, an encoder layer: attention, ``ln2`` and the MLP, with no
+    experts, no SSM mixer and no post-norms."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     shapes: Dict[str, Tuple[int, ...]] = {"ln1": (d,)}
+    if encoder:
+        shapes.update({"wq": (d, Hq, hd), "wk": (d, Hkv, hd), "wv": (d, Hkv, hd),
+                       "wo": (Hq, hd, d), "ln2": (d,), "w_up": (d, cfg.d_ff),
+                       "w_down": (cfg.d_ff, d)})
+        if cfg.qk_norm:
+            shapes.update({"q_norm": (hd,), "k_norm": (hd,)})
+        if cfg.gated_mlp:
+            shapes["w_gate"] = (d, cfg.d_ff)
+        return shapes
     if cfg.attention != "none":
         shapes.update({"wq": (d, Hq, hd), "wk": (d, Hkv, hd), "wv": (d, Hkv, hd),
                        "wo": (Hq, hd, d)})
@@ -123,10 +154,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
     a weight of per-layer shape ``shp`` is normal with std 1/sqrt(fan_in)
     (fan_in = d_model for wq/wk/wv, else the product of all but the last
     dim: E·d for an expert leaf (E, d, ff), 4 for ``conv_w`` (4, din), as
-    the reference has it); embed and lm_head have std 1/sqrt(d).  Drawn
-    on ``device`` (default ``cuda``) from a ``torch.Generator`` seeded
-    with ``seed``, one layer at a time so the f32 draw never holds more
-    than one layer.
+    the reference has it); embed and lm_head have std 1/sqrt(d).  An
+    encoder-decoder's encoder layers follow the same rule; its cross
+    weights (``enc_cross`` wk/wv, ``dec_cross`` wq/wo) have std 1/sqrt(d)
+    and ``dec_cross["ln"]`` is zero.  Drawn on ``device`` (default
+    ``cuda``) from a ``torch.Generator`` seeded with ``seed``, one layer
+    at a time so the f32 draw never holds more than one layer.  Each
+    weight is its own draw: the reference draws ``enc_cross`` wk and wv
+    from one key, so they are equal there, and not here.
     """
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -136,20 +171,27 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
     def normal(shape, std):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    layers = {}
-    for name, shp in sorted(_layer_shapes(cfg).items()):
-        if name.startswith(("ln", "post_ln")) or name.endswith("_norm"):
-            layers[name] = torch.zeros((L,) + shp, dtype=dtype, device=dev)
-            continue
-        if name in _CONSTANT_INIT:
-            layers[name] = torch.full((L,) + shp, _CONSTANT_INIT[name], dtype=dtype, device=dev)
-            continue
-        fan_in = d if name in ("wq", "wk", "wv") else math.prod(shp[:-1])
-        std = 1.0 / math.sqrt(max(fan_in, 1))
-        w = torch.empty((L,) + shp, dtype=dtype, device=dev)
-        for l in range(L):
-            w[l] = normal(shp, std)
-        layers[name] = w
+    def stacked(shapes, n):
+        layers = {}
+        for name, shp in sorted(shapes.items()):
+            if name.startswith(("ln", "post_ln")) or name.endswith("_norm"):
+                layers[name] = torch.zeros((n,) + shp, dtype=dtype, device=dev)
+                continue
+            if name in _CONSTANT_INIT:
+                layers[name] = torch.full((n,) + shp, _CONSTANT_INIT[name], dtype=dtype,
+                                          device=dev)
+                continue
+            fan_in = d if name in ("wq", "wk", "wv") else math.prod(shp[:-1])
+            layers[name] = per_layer((n,) + shp, 1.0 / math.sqrt(max(fan_in, 1)))
+        return layers
+
+    def per_layer(shape, std):
+        w = torch.empty(shape, dtype=dtype, device=dev)
+        for l in range(shape[0]):
+            w[l] = normal(shape[1:], std)
+        return w
+
+    layers = stacked(_layer_shapes(cfg), L)
     params: Params = {
         "embed": normal((cfg.vocab_size, d), 1.0 / math.sqrt(d)),
         "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
@@ -157,6 +199,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+    if cfg.enc_dec:
+        hd, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+        std = 1.0 / math.sqrt(d)
+        params["enc_layers"] = stacked(_layer_shapes(cfg, encoder=True), cfg.enc_layers)
+        params["enc_final_norm"] = torch.zeros((d,), dtype=dtype, device=dev)
+        params["enc_cross"] = {"wk": per_layer((L, d, Hkv, hd), std),
+                               "wv": per_layer((L, d, Hkv, hd), std)}
+        params["dec_cross"] = {"wq": per_layer((L, d, Hq, hd), std),
+                               "wo": per_layer((L, Hq, hd, d), std),
+                               "ln": torch.zeros((L, d), dtype=dtype, device=dev)}
     return params
 
 
@@ -166,11 +218,14 @@ def _layer(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
 
 
 def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None,
-                   cache_len=None, impl: str = "auto", tap=None):
+                   cache_len=None, impl: str = "auto", tap=None, prefix: int = 0, cross=None):
     """One decoder layer; returns (x, new) with this layer's cache entries:
     ``k``/``v`` where it attends, ``ssm``/``conv`` where it has the SSM
     mixer.  In decode ``cache`` holds this layer's slices of the cache
-    buffers, which are written in place (the reference returns new ones)."""
+    buffers, which are written in place (the reference returns new ones).
+    ``prefix`` is the prefix-LM's bidirectional prefix length (prefill
+    only).  ``cross`` (encoder-decoder) holds this layer's cross-attention:
+    ``k``/``v`` (B, Se, Hkv, hd) from the encoder and ``wq``/``wo``/``ln``."""
     new = {}
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if tap is not None:
@@ -178,8 +233,8 @@ def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None
     if cfg.attention != "none":
         kv = None if cache is None else (cache["k"], cache["v"])
         ya, (new["k"], new["v"]) = attention_block(
-            h, lp, cfg, positions=positions, window=window, cache_kv=kv, cache_len=cache_len,
-            impl=impl)
+            h, lp, cfg, positions=positions, window=window, prefix=prefix, cache_kv=kv,
+            cache_len=cache_len, impl=impl)
     if cfg.ssm_state:
         state = conv = None
         if cache is not None:
@@ -197,6 +252,8 @@ def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None
     if cfg.post_norms:
         mix = rms_norm(mix, lp["post_ln1"], cfg.norm_eps)
     x = x + mix
+    if cross is not None:
+        x = x + _cross_attention(x, cross, cfg, impl)
     if cfg.d_ff == 0:
         return x, new
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -206,6 +263,58 @@ def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None
     if cfg.post_norms:
         ff = rms_norm(ff, lp["post_ln2"], cfg.norm_eps)
     return x + ff, new
+
+
+def _cross_attention(x, cross, cfg: ArchConfig, impl: str = "auto") -> torch.Tensor:
+    """The decoder's cross-attention step (reference ``transformer.py:
+    232-239``): norm, ``q = x·wq`` with no RoPE and no qk-norm, attention
+    over every encoder frame, ``·wo``.  It runs through
+    :func:`~.layers.chunked_attention` (``causal=False``, chunks of 512,
+    the padded tail masked) as the reference's does: the flash kernel's
+    contract is causal self-attention over tiled lengths, and 1500 frames
+    neither tile by 128 nor are causal."""
+    h = rms_norm(x, cross["ln"], cfg.norm_eps)
+    q = project(h, cross["wq"], impl)
+    out = chunked_attention(q, cross["k"], cross["v"], causal=False, chunk=512)
+    return project(out, cross["wo"], impl, n_in=2)
+
+
+def _encoder_stack(params: Params, enc_embed: torch.Tensor, cfg: ArchConfig,
+                   impl: str = "auto") -> torch.Tensor:
+    """The encoder (reference ``transformer.py:252-264``) over stub frame
+    embeddings (B, Se, d): per layer a norm, bidirectional self-attention
+    with RoPE at positions 0..Se-1 (through
+    :func:`~.layers.chunked_attention`, as :func:`~.layers.attention_block`
+    routes ``causal=False``), the residual, then the MLP; the final norm at
+    the end.  Its weights are never pruned (the reference's
+    ``prune_params`` walks ``params["layers"]`` only), so its projections
+    are dense matmuls."""
+    x = enc_embed
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    for l in range(cfg.enc_layers):
+        lp = _layer(params["enc_layers"], l)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, _ = attention_block(h, lp, cfg, positions=positions, causal=False, impl=impl)
+        x = x + y
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + mlp_block(h, lp, cfg, impl)
+    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_kv(params: Params, enc_out: torch.Tensor, cfg: ArchConfig,
+              impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross k/v from the encoder output (reference
+    ``transformer.py:267-271``): (L, B, Se, Hkv, hd) each, in the compute
+    dtype."""
+    wk, wv = params["enc_cross"]["wk"], params["enc_cross"]["wv"]
+    k = torch.stack([project(enc_out, wk[l], impl) for l in range(wk.shape[0])])
+    v = torch.stack([project(enc_out, wv[l], impl) for l in range(wv.shape[0])])
+    return k.to(enc_out.dtype), v.to(enc_out.dtype)
+
+
+def _cross_layer(params: Params, ck: torch.Tensor, cv: torch.Tensor, l: int) -> Dict[str, Any]:
+    dc = params["dec_cross"]
+    return {"k": ck[l], "v": cv[l], "wq": dc["wq"][l], "wo": dc["wo"][l], "ln": dc["ln"][l]}
 
 
 def _unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -226,10 +335,17 @@ def _unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
-         keep_cache: bool, tap: Optional[Callable[[int, str, torch.Tensor], None]] = None):
+         keep_cache: bool, tap: Optional[Callable[[int, str, torch.Tensor], None]] = None, *,
+         prefix_embed: Optional[torch.Tensor] = None, enc_embed: Optional[torch.Tensor] = None):
     """The decoder stack over full sequences; returns (x, caches), caches
     mapping each cache entry of :func:`_decoder_layer` to its per-layer
-    list (empty unless ``keep_cache``).  ``tap(l, kind, act)``, when
+    list (empty unless ``keep_cache``), and, for an encoder-decoder with
+    ``keep_cache``, ``cross_k``/``cross_v`` to the stacked cross k/v.
+    ``prefix_embed`` (B, P, d) is cast to the compute dtype and joined
+    ahead of the token embeddings, so x covers P + S positions, the first
+    P seen bidirectionally.  An encoder-decoder needs ``enc_embed``
+    (B, Se, d): it runs the encoder (:func:`_encoder_stack`) and feeds
+    every decoder layer its cross k/v.  ``tap(l, kind, act)``, when
     given, sees the inputs of layer ``l``'s pruned projections as they are
     made: ``attn_in`` (wq/wk/wv), ``mlp_in`` (w_gate/w_up, or the MoE
     block's router and experts) and ``down_in`` (w_down of a dense MLP),
@@ -241,13 +357,27 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
         raise NotImplementedError(f"{cfg.name}: the activation tap does not cover the SSM "
                                   "mixer (w_in/w_out)")
     x = params["embed"][tokens]
+    if prefix_embed is not None:
+        x = torch.cat([prefix_embed.to(device=x.device, dtype=x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
+    prefix = 0 if prefix_embed is None else prefix_embed.shape[1]
     caches: Dict[str, list] = {}
+    ck = cv = None
+    if cfg.enc_dec:
+        if enc_embed is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs enc_embed")
+        enc_out = _encoder_stack(params, enc_embed.to(device=x.device, dtype=x.dtype), cfg,
+                                 impl)
+        ck, cv = _cross_kv(params, enc_out, cfg, impl)
+        if keep_cache:
+            caches["cross_k"], caches["cross_v"] = ck, cv
     for l, window in enumerate(_windows(cfg)):
         layer_tap = None if tap is None else (lambda kind, a, l=l: tap(l, kind, a))
+        cross = None if ck is None else _cross_layer(params, ck, cv, l)
         x, new = _decoder_layer(x, _layer(params["layers"], l), cfg, positions=positions,
-                                window=window, impl=impl, tap=layer_tap)
+                                window=window, impl=impl, tap=layer_tap, prefix=prefix,
+                                cross=cross)
         if keep_cache:
             for key, t in new.items():
                 caches.setdefault(key, []).append(t)
@@ -255,17 +385,24 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
-            impl: str = "auto") -> torch.Tensor:
-    """Logits (B, S, V) in f32 for int tokens (B, S)."""
-    x, _ = _run(params, tokens, cfg, impl, keep_cache=False)
+            prefix_embed: Optional[torch.Tensor] = None,
+            enc_embed: Optional[torch.Tensor] = None, impl: str = "auto") -> torch.Tensor:
+    """Logits (B, P + S, V) in f32 for int tokens (B, S), after a prefix of
+    P embeddings where ``prefix_embed`` is given (P = 0 otherwise).  An
+    encoder-decoder needs ``enc_embed`` (B, Se, d) and raises
+    ``ValueError`` without it."""
+    x, _ = _run(params, tokens, cfg, impl, keep_cache=False, prefix_embed=prefix_embed,
+                enc_embed=enc_embed)
     return _unembed(params, x, cfg)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               device: Optional[Union[str, torch.device]] = None) -> Cache:
+               enc_seq: int = 0, device: Optional[Union[str, torch.device]] = None) -> Cache:
     """Zeroed serving cache: ``k``/``v`` (L, batch, max_len, Hkv, hd) where
     the config attends, ``ssm`` (L, batch, H, Pd, N) in f32 and ``conv``
-    (L, batch, 3, din) where it has the SSM mixer."""
+    (L, batch, 3, din) where it has the SSM mixer, ``cross_k``/``cross_v``
+    (L, batch, Se, Hkv, hd) for an encoder-decoder, Se = ``enc_seq`` or
+    else ``cfg.enc_seq``."""
     L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
     dev = resolve_device(device)
     cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -276,19 +413,30 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
         din, N, H = cfg.ssm_inner(), cfg.ssm_state, cfg.ssm_heads
         cache["ssm"] = torch.zeros((L, batch, H, din // H, N), dtype=torch.float32, device=dev)
         cache["conv"] = torch.zeros((L, batch, 3, din), dtype=dtype, device=dev)
+    if cfg.enc_dec:
+        se = enc_seq or cfg.enc_seq
+        for key in ("cross_k", "cross_v"):
+            cache[key] = torch.zeros((L, batch, se, Hkv, hd), dtype=dtype, device=dev)
     return cache
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            prefix_embed: Optional[torch.Tensor] = None,
+            enc_embed: Optional[torch.Tensor] = None,
             impl: str = "auto") -> Tuple[torch.Tensor, Cache]:
-    """Run the prompt; returns last-token logits (B, 1, V) and the cache
-    {"pos": S, "k"/"v": (L, B, S, Hkv, hd), "ssm": (L, B, H, Pd, N),
-    "conv": (L, B, 3, din)}, each entry where the config has it."""
-    x, caches = _run(params, tokens, cfg, impl, keep_cache=True)
+    """Run the prompt (after the prefix, where ``prefix_embed`` (B, P, d) is
+    given); returns last-token logits (B, 1, V) and the cache
+    {"pos": P + S, "k"/"v": (L, B, P + S, Hkv, hd), "ssm": (L, B, H, Pd,
+    N), "conv": (L, B, 3, din), "cross_k"/"cross_v": (L, B, Se, Hkv,
+    hd)}, each entry where the config has it.  An encoder-decoder needs
+    ``enc_embed`` (B, Se, d) and raises ``ValueError`` without it (the
+    reference's ``prefill`` fails there with an ``AttributeError``)."""
+    x, caches = _run(params, tokens, cfg, impl, keep_cache=True, prefix_embed=prefix_embed,
+                     enc_embed=enc_embed)
     logits = _unembed(params, x[:, -1:], cfg)
-    S = tokens.shape[1]
-    cache = {"pos": torch.full((), S, dtype=torch.int32, device=x.device)}
-    cache.update({key: torch.stack(ts) for key, ts in caches.items()})
+    cache = {"pos": torch.full((), x.shape[1], dtype=torch.int32, device=x.device)}
+    cache.update({key: ts if torch.is_tensor(ts) else torch.stack(ts)
+                  for key, ts in caches.items()})
     return logits, cache
 
 
@@ -297,7 +445,9 @@ def decode_step(params: Params, tokens: torch.Tensor, cfg: ArchConfig, cache: Ca
     """One new token per sequence against ``cache``; returns logits (B, V)
     and the cache with ``pos`` advanced.  ``cache["k"]``/``["v"]`` and
     ``["ssm"]``/``["conv"]`` are updated in place (the reference returns
-    new buffers)."""
+    new buffers); a position past the end of k/v writes as the
+    reference's does (:func:`~.layers.write_cache`).  An encoder-decoder
+    reads its cross k/v from ``cache["cross_k"]``/``["cross_v"]``."""
     _check_supported(cfg)
     if tokens.dim() == 1:
         tokens = tokens[:, None]
@@ -307,9 +457,11 @@ def decode_step(params: Params, tokens: torch.Tensor, cfg: ArchConfig, cache: Ca
     positions = (pos if pos.dim() == 0 else pos[:, None]).expand(B, 1)
     keys = [k for k in ("k", "v", "ssm", "conv") if k in cache]
     for l, window in enumerate(_windows(cfg)):
+        cross = (_cross_layer(params, cache["cross_k"], cache["cross_v"], l) if cfg.enc_dec
+                 else None)
         x, _ = _decoder_layer(x, _layer(params["layers"], l), cfg, positions=positions,
                               window=window, cache={k: cache[k][l] for k in keys},
-                              cache_len=pos, impl=impl)
+                              cache_len=pos, impl=impl, cross=cross)
     logits = _unembed(params, x, cfg)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1

@@ -121,11 +121,24 @@ def test_layer_flags_and_windows_match_reference(R, arch):
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b"])
 def test_check_supported_still_raises(R, arch):
-    cfg = port_cfg(R.configs.get_config(arch).reduced())
-    with pytest.raises(NotImplementedError):
-        TT._check_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        TT.init_params(cfg, device="cpu")
+    """The encoder-decoder and the prefix-LM, which this test once saw
+    refused, are admitted and initialise with the reference's leaf shapes
+    (every leaf, the encoder's and the cross weights included); the same
+    config under a family the port does not cover still raises."""
+    jcfg = R.configs.get_config(arch).reduced()
+    cfg = port_cfg(jcfg)
+    TT._check_supported(cfg)
+    p = TT.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    ref = jax.eval_shape(lambda: R.transformer.init_params(jcfg, jax.random.PRNGKey(0),
+                                                           dtype=jnp.float32))
+    assert jax.tree.map(lambda a: tuple(a.shape), ref) == \
+        jax.tree.map(lambda t: tuple(t.shape), p)
+    for bad in (dataclasses.replace(cfg, family="video"),
+                dataclasses.replace(cfg, attention="sliding")):
+        with pytest.raises(NotImplementedError):
+            TT._check_supported(bad)
+        with pytest.raises(NotImplementedError):
+            TT.init_params(bad, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])

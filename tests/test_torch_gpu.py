@@ -898,3 +898,124 @@ def test_ssm_layer_at_published_width_kernel_path_matches_plain(gen, arch):
     delta = _variant_delta(before)["intrablock_gather_matmul"]
     assert delta == {"decode": len(keys) * steps, "prefill": len(keys) * len(reqs)}
     assert engine.cache["ssm"].dtype == torch.float32 and engine.cache["ssm"].is_cuda
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder and the prefix-LM (whisper-medium and paligemma-3b's
+# shapes), and the cache write past the end
+# ---------------------------------------------------------------------------
+
+def test_flash_attention_wgmma_at_whisper_prefill_shape(gen):
+    """whisper-medium's decoder prefill of 4 prompts of 416 tokens: q/k/v
+    (4, 512, 16, 64) bf16, MHA, causal: the wgmma variant, within 3e-2 of
+    plain, two calls bitwise equal."""
+    q, k, v = (_randn(gen, 4, 512, 16, 64, dtype=torch.bfloat16) for _ in range(3))
+    before = ops.variant_counts()
+    out = ops.flash_attention(q, k, v)
+    again = ops.flash_attention(q, k, v)
+    assert _variant_delta(before) == {"flash_attention": {"wgmma": 2}}
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ops.flash_attention(q, k, v, impl="ref").float(),
+                               atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("N", [256, 16384])
+@pytest.mark.parametrize("B", [4, 1536])
+def test_intrablock_gather_matmul_at_paligemma_shapes(gen, B, N):
+    """paligemma-3b's wk (2048 → 256) and w_gate (2048 → 16384) at
+    row-aligned 2:4, at decode (4 rows) and at its prefill (4 × (256 + 128)
+    rows): the decode and prefill variants, within 1e-2 of max |plain|."""
+    K = 2048
+    w = _randn(gen, K, N, dtype=torch.bfloat16) * (K ** -0.5)
+    mask = intrablock_mask(w.float(), IntraBlock(4, 1, 0.5), align_cols=True)
+    w_comp, row_idx = ops.compress_intrablock_torch(w, mask, 4)
+    w_comp = ops.aligned_rows(w_comp)
+    x = _randn(gen, B, K, dtype=torch.bfloat16)
+    before = ops.variant_counts()
+    out = ops.intrablock_gather_matmul(x, w_comp, row_idx)
+    variant = "decode" if B <= 16 else "prefill"
+    assert _variant_delta(before) == {"intrablock_gather_matmul": {variant: 1}}
+    want = ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(out.float() / scale, want.float() / scale, atol=1e-2, rtol=0)
+
+
+def test_whisper_model_on_the_card_matches_plain(gen):
+    """A small whisper-medium (head dim 64, 200 frames) pruned with
+    FullBlock(128, 128, 0.5): forward runs the decoder's five projections
+    through the block-sparse kernel and its self-attention through flash
+    wgmma, one launch per layer, the encoder and the cross step through
+    neither; logits within 0.1 of the plain path, and decode after prefill
+    within 0.1 of the plain decode."""
+    cfg = dataclasses.replace(get_config("whisper-medium").reduced(), d_model=256, head_dim=64,
+                              n_heads=4, n_kv_heads=4, d_ff=512, enc_seq=200)
+    keys = ("wq", "wk", "wv", "w_up", "w_down")
+    params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    pp, masks = prune_params(params, FlexBlockSpec((FullBlock(128, 128, 0.5),)), keys=keys)
+    cp = compress_params(pp, masks, 128, 128)
+    toks = torch.randint(0, cfg.vocab_size, (2, 130), generator=gen, device="cuda")
+    enc = _randn(gen, 2, 200, 256, dtype=torch.bfloat16) / 16
+    before = ops.variant_counts()
+    la = TT.forward(cp, toks, cfg, enc_embed=enc)
+    delta = _variant_delta(before)
+    assert delta == {"flash_attention": {"wgmma": cfg.n_layers},
+                     "block_sparse_matmul": {"prefill": len(keys) * cfg.n_layers}}
+    lr = TT.forward(cp, toks, cfg, enc_embed=enc, impl="ref")
+    assert (la - lr).abs().max().item() < 0.1
+    steps = {}
+    for impl in ("auto", "ref"):
+        _, cache = TT.prefill(cp, toks[:, :129], cfg, enc_embed=enc, impl=impl)
+        for key in ("k", "v"):
+            cache[key] = torch.nn.functional.pad(cache[key], (0, 0, 0, 0, 0, 1))
+        steps[impl], _ = TT.decode_step(cp, toks[:, 129], cfg, cache, impl=impl)
+    assert (steps["auto"] - steps["ref"]).abs().max().item() < 0.1
+
+
+def test_paligemma_model_on_the_card_takes_no_flash_with_a_prefix(gen):
+    """A small paligemma-3b (MQA, head dim 256, a prefix of 16) pruned with
+    row-aligned IntraBlock(4, 1, 0.5): forward with the prefix runs the six
+    projections through the gather-matmul and attention through
+    chunked_attention (no flash launch), logits within 0.1 of the plain
+    path; without a prefix (text alone, as the engine serves it) prefill
+    takes flash wgmma."""
+    cfg = dataclasses.replace(get_config("paligemma-3b").reduced(), d_model=256, head_dim=256,
+                              n_heads=4, n_kv_heads=1, d_ff=512, prefix_len=16)
+    keys = ("wq", "wk", "wv", "w_gate", "w_up", "w_down")
+    params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    pp, masks = prune_params(params, FlexBlockSpec((IntraBlock(4, 1, 0.5),)), align_cols=True,
+                             keys=keys)
+    cp = compress_params(pp, masks, m=4)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen, device="cuda")
+    pre = _randn(gen, 2, 16, 256, dtype=torch.bfloat16) / 16
+    before = ops.variant_counts()
+    la = TT.forward(cp, toks, cfg, prefix_embed=pre)
+    assert _variant_delta(before) == {"intrablock_gather_matmul":
+                                      {"prefill": len(keys) * cfg.n_layers}}
+    lr = TT.forward(cp, toks, cfg, prefix_embed=pre, impl="ref")
+    assert la.shape == (2, 116, cfg.vocab_size) and (la - lr).abs().max().item() < 0.1
+    before = ops.variant_counts()
+    TT.prefill(cp, toks, cfg)
+    assert _variant_delta(before)["flash_attention"] == {"wgmma": cfg.n_layers}
+
+
+def test_decode_past_the_end_of_the_cache_on_the_card(gen):
+    """decode_step on the cache prefill returned (no headroom): the scalar
+    write clamps to the last slot, a per-slot write past the end is
+    dropped with no device-side assert; both as on the CPU."""
+    cfg = get_config("llama3-8b").reduced()
+    params = TT.init_params(cfg, 0, dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 10), generator=gen, device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else {k: (v.cpu() if torch.is_tensor(v) else
+                                              {n: t.cpu() for n, t in v.items()})
+                                          for k, v in params.items()}
+        t = toks.to(dev)
+        _, cache = TT.prefill(p, t[:, :8], cfg, impl="ref")
+        l1, cache = TT.decode_step(p, t[:, 8], cfg, cache, impl="ref")
+        cache["pos"] = torch.tensor([5, 9], device=dev)
+        l2, cache = TT.decode_step(p, t[:, 9], cfg, cache, impl="ref")
+        out[dev] = (l1, l2, cache["k"])
+    torch.cuda.synchronize()
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)

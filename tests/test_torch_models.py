@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 
 import _jax_reference
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.models import layers as TL
@@ -78,12 +78,15 @@ def llama(R):
 # ---------------------------------------------------------------------------
 
 def test_config_copy_matches_reference(R):
+    """llama3-8b's copy equals the reference's; the port's registry holds
+    exactly the reference's archs, and an unknown name still raises."""
     jcfg = R.configs.get_config("llama3-8b")
     assert dataclasses.asdict(get_config("llama3-8b")) == dataclasses.asdict(jcfg)
     assert dataclasses.asdict(get_config("llama3-8b").reduced()) == \
         dataclasses.asdict(jcfg.reduced())
+    assert sorted(list_archs()) == sorted(R.configs.list_archs())
     with pytest.raises(KeyError):
-        get_config("whisper-medium")
+        get_config("whisper-large")
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +219,74 @@ def test_decode_matches_forward(R, llama):
     torch.testing.assert_close(step, full[:, S], atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("arch", ["llama3-8b", "hymba-1.5b"])
+def test_decode_on_the_cache_prefill_returned_matches_reference(R, arch):
+    """``prefill`` returns k/v exactly S long, so the next ``decode_step``
+    writes past the end.  The reference clamps a scalar write's start
+    (``dynamic_update_slice``: the last slot is overwritten) and drops a
+    per-slot write past the end (JAX's scatter); the port does the same,
+    in place and without reading the position back.  Two steps on the
+    returned cache: a scalar position, then per-slot positions with slot 1
+    past the end.  Logits, k/v (and the SSM state) and ``pos`` against
+    the reference's."""
+    jcfg = R.configs.get_config(arch).reduced()
+    cfg = port_cfg(jcfg)
+    pj, pt = both(np_params(R, jcfg, 9))
+    rng = np.random.default_rng(10)
+    B, S = 2, 8
+    toks = rng.integers(0, cfg.vocab_size, size=(B, S + 2)).astype(np.int32)
+    _, cj = R.transformer.prefill(pj, jnp.asarray(toks[:, :S]), jcfg)
+    _, ct = TT.prefill(pt, torch.from_numpy(toks[:, :S]).long(), cfg)
+    assert ct["k"].shape[2] == S and int(ct["pos"]) == S
+    k_before = ct["k"].clone()
+
+    # scalar position S: past the end of an S-long cache
+    dj, cj = R.transformer.decode_step(pj, jnp.asarray(toks[:, S]), jcfg, cj)
+    dt, ct = TT.decode_step(pt, torch.from_numpy(toks[:, S]).long(), cfg, ct)
+    close(dt, dj, LOGIT_TOL)
+    for key in ("k", "v", "ssm"):
+        if key in cj:
+            close(ct[key], cj[key], LAYER_TOL)
+    assert int(ct["pos"]) == int(cj["pos"]) == S + 1
+    # the planted case: the write lands (the last slot), where an empty
+    # slice past the end would leave the cache as prefill returned it
+    assert not torch.equal(ct["k"][:, :, S - 1], k_before[:, :, S - 1])
+    assert torch.equal(ct["k"][:, :, :S - 1], k_before[:, :, :S - 1])
+
+    # per-slot positions: slot 0 inside the cache, slot 1 past its end
+    posv = np.array([S - 3, S + 1], np.int32)
+    cj = dict(cj, pos=jnp.asarray(posv))
+    ct = dict(ct, pos=torch.from_numpy(posv))
+    k_mid = ct["k"].clone()
+    dj, cj = R.transformer.decode_step(pj, jnp.asarray(toks[:, S + 1]), jcfg, cj)
+    dt, ct = TT.decode_step(pt, torch.from_numpy(toks[:, S + 1]).long(), cfg, ct)
+    close(dt, dj, LOGIT_TOL)
+    for key in ("k", "v", "ssm"):
+        if key in cj:
+            close(ct[key], cj[key], LAYER_TOL)
+    assert ct["pos"].tolist() == np.asarray(cj["pos"]).tolist() == (posv + 1).tolist()
+    assert torch.equal(ct["k"][:, 1], k_mid[:, 1])          # slot 1's write dropped
+    assert not torch.equal(ct["k"][:, 0, S - 3], k_mid[:, 0, S - 3])
+
+
+def test_cache_write_has_no_host_read_back():
+    """The scalar write runs on a position tensor without ``int()``: a
+    position whose ``__int__`` raises still writes, clamped."""
+    class NoInt(torch.Tensor):
+        def __int__(self):
+            raise AssertionError("read back to the host")
+
+        def __index__(self):
+            raise AssertionError("read back to the host")
+
+    buf = torch.zeros(2, 4, 1, 2)
+    TL.write_cache(buf, torch.ones(2, 1, 1, 2), torch.tensor(9).as_subclass(NoInt))
+    assert buf[:, :, 0, 0].tolist() == [[0, 0, 0, 1], [0, 0, 0, 1]]
+    buf.zero_()
+    TL.write_cache(buf, torch.ones(2, 1, 1, 2), torch.tensor([1, 4]))
+    assert buf[:, :, 0, 0].tolist() == [[0, 1, 0, 0], [0, 0, 0, 0]]
+
+
 @pytest.mark.parametrize("arch", ["llama3-8b", "gemma-7b"])
 def test_bf16_unembed_gives_f32_products_as_reference(R, arch):
     """bf16 weights still give f32 logits, not bf16-rounded ones."""
@@ -283,9 +354,18 @@ def test_params_from_jax_keeps_bf16_bits(R, llama):
 
 @pytest.mark.parametrize("arch", ["whisper-medium"])
 def test_other_families_raise(R, arch):
+    """The encoder-decoder is ported now (its init gives the reference's
+    encoder and cross leaves); a family outside those the port covers
+    still raises, and so does an encoder-decoder flag on a decoder
+    family."""
     cfg = port_cfg(R.configs.get_config(arch).reduced())
-    with pytest.raises(NotImplementedError):
-        TT.init_params(cfg, device="cpu")
+    p = TT.init_params(cfg, 0, dtype=torch.float32, device="cpu")
+    assert {"enc_layers", "enc_final_norm", "enc_cross", "dec_cross"} <= set(p)
+    for bad in (dataclasses.replace(cfg, family="video"),
+                dataclasses.replace(cfg, family="dense"),
+                dataclasses.replace(cfg, attention="none")):
+        with pytest.raises(NotImplementedError):
+            TT.init_params(bad, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
