@@ -49,6 +49,29 @@ Phases, each reported on its own line(s):
    host sync for the whole profile; the fused kernel against
    quantize_int8 + the plain count, and the int8 kernel against the plain
    count, in every (layer, kind);
+5b. train   — free the qwen3-4b weights, take the masks of its served
+   prune (row-aligned IntraBlock(4, 1, 0.5) on the six projections,
+   ``prune_params`` from the seed-0 weights), and fine-tune qwen3-4b at
+   full width and depth from the same seed through ``Trainer``: 6 steps of
+   ``TokenPipeline`` batches (vocab 151936, 2 x 512 tokens, seed 0) in 2
+   microbatches, bf16 params, f32 AdamW (lr 3e-4, warmup 1, 6 steps),
+   remat ``minimal``, no checkpoint on disk.  Hard checks: every loss and
+   grad_norm finite, grad_norm > 0; on step 1 a nonzero grad on layer 0's
+   wq/wk/wv/q_norm/k_norm/wo/w_gate/w_up/w_down and on embed; after every
+   step each pruned leaf exactly zero off its mask (density 0.5); no
+   kernel launch in the steps (a training forward takes
+   ``chunked_attention``, and a wrapper given an input that requires grad
+   would raise); peak device memory under 79.18 GiB.  Prints the step
+   wall p50, tokens/s, the split by CUDA events (forward + backward,
+   optimizer, masks), the host's issue of forward + backward against its
+   card time, the loss curve.  Then, with m/v freed, one forward +
+   backward of 1 x 512 without remat and with each remat policy (the
+   memory each forward keeps, the peak, the time; ``nothing`` must peak
+   below no remat, loss and grad_norm equal to 1e-6); then the fine-tuned
+   weights compressed to the gather layout, 4 of the served prompts
+   through ``ServeEngine(slots=4, max_len=1024)`` for 8 tokens each with
+   the launches held exactly (flash ``wgmma`` 36 a prefill, the
+   gather-matmul 6 x 36 a prefill and a decode step) and the parity phase;
 6. gemma-7b IntraBlock path: free the qwen3-4b weights, init gemma-7b
    at full width (28 layers, d_model 3072, 16 heads of 256, MHA, vocab
    256000 tied), prune the six projections with row-aligned
@@ -166,6 +189,7 @@ import dataclasses
 import gc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1147,11 +1171,13 @@ def check_single_variant(cfg, op: str, variant: str, counts: dict, want: int) ->
           f"{op}: launches by variant {v}, want {want} {variant} and no other")
 
 
-def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None):
-    """Serve 8 requests (prompts of 100..512 tokens from numpy seed 0, the
-    first made ``long_prompt`` tokens long when given, 32 new tokens each)
-    through ``ServeEngine(slots=4, max_len=max_len)``; read the launch
-    counts at the end of serving.  Returns (prompts, requests, counts)."""
+def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None, n_requests: int = 8,
+                new_tokens: int = 32):
+    """Serve the first ``n_requests`` of 8 requests (prompts of 100..512
+    tokens from numpy seed 0, the first made ``long_prompt`` tokens long
+    when given, ``new_tokens`` new tokens each) through
+    ``ServeEngine(slots=4, max_len=max_len)``; read the launch counts at the
+    end of serving.  Returns (prompts, requests, counts)."""
     from repro_torch.kernels import ops
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -1159,10 +1185,12 @@ def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None):
     lens = rng.integers(100, 513, size=8)
     if long_prompt:
         lens[0] = long_prompt
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32) for n in lens]
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lens][:n_requests]
+    lens = lens[:n_requests]
     engine = ServeEngine(cfg, cparams, slots=4, max_len=max_len, dtype=torch.bfloat16,
                          impl="auto", device="cuda")
-    reqs = [Request(prompt=p, max_new_tokens=32) for p in prompts]
+    reqs = [Request(prompt=p, max_new_tokens=new_tokens) for p in prompts]
     for r in reqs:
         check(engine.submit(r), "submit refused")
     t0 = time.perf_counter()
@@ -1174,11 +1202,12 @@ def serve_phase(cfg, cparams, *, max_len: int = 1024, long_prompt=None):
     shapes = ops.gather_matmul_shape_counts()      # keyed (variant, Kc, N): not JSON
     snap = engine.stats_snapshot()
     for i, r in enumerate(reqs):
-        check(r.done and len(r.output) == 32 and r.reject_reason is None,
+        check(r.done and len(r.output) == new_tokens and r.reject_reason is None,
               f"request {i}: done={r.done} tokens={len(r.output or [])}")
     decode_tokens = snap["tokens_generated"] - len(reqs)
-    print(f"[serve] {cfg.name}: 8 requests, prompt lengths {lens.tolist()}, 32 new tokens "
-          f"each: all done in {wall:.2f}s wall; TTFT p50 {snap['ttft_s']['p50'] * 1e3:.1f} ms; "
+    print(f"[serve] {cfg.name}: {len(reqs)} requests, prompt lengths {lens.tolist()}, "
+          f"{new_tokens} new tokens each: all done in {wall:.2f}s wall; "
+          f"TTFT p50 {snap['ttft_s']['p50'] * 1e3:.1f} ms; "
           f"step p50 {snap['token_latency_s']['p50'] * 1e3:.2f} ms over {snap['steps']} steps; "
           f"{snap['tokens_per_s']:.1f} tokens/s (engine busy time, prefill included); "
           f"{decode_tokens} decode tokens", flush=True)
@@ -1377,7 +1406,8 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict, ext
 
     Logits over 12 steps: the last prompt token of every prompt, plus
     12 - len(prompts) decode steps of the first request fed its served
-    tokens (4 for 8 prompts), kernels vs plain; ``extras`` gives each
+    tokens (4 for 8 prompts; at most one fewer than it was served), kernels
+    vs plain; ``extras`` gives each
     prompt's encoder or prefix input (batch 1) where the config takes one.  Greedy
     tokens: each served token against the plain path's argmax, required
     to agree where the plain top-2 margin exceeds 2*tol (a smaller margin
@@ -1415,7 +1445,7 @@ def parity_phase(cfg, cparams, prompts, served, *, tol: float, faults: dict, ext
     routed = cfg.n_experts > 1
     layered = routed or cfg.ssm_state > 0
     extras = extras or [{}] * len(prompts)
-    feed = served[0][:12 - len(prompts)]
+    feed = served[0][:min(12 - len(prompts), len(served[0]) - 1)]
 
     def steps(params, impl):
         return torch.cat([step_logits(params, cfg, prompts[0], impl, feed, **extras[0])]
@@ -1630,6 +1660,222 @@ def profile_phase(cfg, cparams, prompts, rows: dict) -> dict:
     check(not differ_int8, f"bit-serial counts differ kernel vs plain: {differ_int8[:4]}")
     check(all(0.0 <= r <= 1.0 for r in ratios.values()), "a skippable ratio outside [0, 1]")
     return ratios
+
+
+# ---------------------------------------------------------------------------
+# Phase 5b: training on the card — qwen3-4b sparse-fine-tuned, then served
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+TRAIN_SEQ = 512
+TRAIN_BATCH = 2          # global batch, in 2 microbatches of 1
+MEMORY_LIMIT_GIB = 79.18
+LAYER0_GRADS = ("wq", "wk", "wv", "q_norm", "k_norm", "wo", "w_gate", "w_up", "w_down")
+
+
+def train_phase(cfg, rows: dict) -> None:
+    """Train ``cfg`` (qwen3-4b) at full width and depth on the card for
+    TRAIN_STEPS steps with the masks it is served with, then serve the
+    fine-tuned weights (module docstring, phase 5b)."""
+    from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import REMAT_POLICIES, init_params
+    from repro_torch.sparsity.apply import compress_params, prune_params
+    from repro_torch.train.optimizer import AdamWConfig, global_norm
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import map_with_path
+
+    spec = FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),))
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    pruned, masks = prune_params(params, spec, keys=KEYS, align_cols=True, impl="auto",
+                                 device="cuda")
+    del params, pruned
+    gc.collect()
+    torch.cuda.empty_cache()
+    density = {k: torch.count_nonzero(masks["layers"][k]).item() / masks["layers"][k].numel()
+               for k in KEYS}
+    check(all(d == 0.5 for d in density.values()), f"mask densities {density}")
+    print(f"[train] {cfg.name}: masks from prune_params, {spec.describe()} row-aligned on "
+          f"{list(KEYS)}, density {json.dumps(density)}, in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    pcfg = PipelineConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=SEED)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, ocfg, TrainerConfig(steps=TRAIN_STEPS, microbatches=2,
+                                              param_dtype=torch.bfloat16, ckpt_dir=None,
+                                              seed=SEED, device="cuda"),
+                      TokenPipeline(pcfg), masks=masks, remat=True, remat_policy="minimal")
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name}: Trainer (dense bf16 init from seed {SEED}, f32 AdamW state) in "
+          f"{time.perf_counter() - t0:.1f}s; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # ---- the wrapped step: stage events, step-1 grads, checks after each step ----
+    # (the trainer retries a step that raises, so what fails inside a step is
+    # recorded in ``failures`` and checked after the run)
+    step = trainer.step_fn
+    marks, walls, layer0, failures, zeros = [], [], {}, [], {}
+
+    def on_stage(stage, grads):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1][stage] = (ev, time.perf_counter())
+        if stage == "grads" and len(marks) == 1:
+            layer0.update({k: grads["layers"][k][0].float().norm().item() for k in LAYER0_GRADS})
+            layer0["embed"] = grads["embed"].float().norm().item()
+
+    def timed(params, opt_state, batch):
+        ev = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev.record()
+        marks.append({"start": (ev, t)})
+        try:
+            out = step(params, opt_state, batch)
+        except Exception as e:
+            failures.append(f"step call {len(marks)}: {type(e).__name__}: {e}")
+            marks.pop()
+            raise
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        marks[-1]["end"] = (end, time.perf_counter())
+        walls.append(time.perf_counter() - t)
+        for k in KEYS:
+            w, m = params["layers"][k], masks["layers"][k]
+            if ((w != 0) & ~m).any():
+                failures.append(f"step {len(walls)}: {k} nonzero off its mask")
+            if torch.count_nonzero(m).item() != m.numel() // 2:
+                failures.append(f"step {len(walls)}: {k} mask density is not the spec's 0.5")
+            # a kept weight may step onto exactly 0.0; counted, not a fault
+            zeros[k] = m.sum().item() - torch.count_nonzero(w).item()
+        return out
+
+    step.on_stage = on_stage
+    trainer.step_fn = timed
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    log = trainer.train()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = ops.launch_counts()
+    variants = ops.variant_counts()
+    # ---- end of the train steps -----------------------------------------------------
+    check(not failures, f"train steps: {failures}")
+    losses = [m["loss"] for m in log]
+    norms = [m.get("grad_norm", float("nan")) for m in log]
+    check(len(log) == len(walls) == TRAIN_STEPS and [m["step"] for m in log]
+          == list(range(TRAIN_STEPS)) and trainer.skipped_nonfinite == 0,
+          f"{len(log)} steps logged, {len(walls)} step calls, "
+          f"{trainer.skipped_nonfinite} skipped: a step raised or was skipped")
+    check(all(math.isfinite(x) for x in losses + norms) and all(n > 0 for n in norms),
+          f"losses {losses}, grad norms {norms}")
+    check(all(v > 0 for v in layer0.values()), f"step 1: a zero grad in layer 0 {layer0}")
+    check(not any(counts.values()) and not any(any(v.values()) for v in variants.values()),
+          f"kernels launched in the train steps: {counts}")
+    check(peak < MEMORY_LIMIT_GIB, f"train peak {peak:.2f} GiB >= {MEMORY_LIMIT_GIB}")
+    for name in counts:
+        rows[name].setdefault("launches_by_path", {})[f"{cfg.name} train steps"] = counts[name]
+
+    def ms(a, b, m):
+        return m[a][0].elapsed_time(m[b][0])
+
+    fb = statistics.median(ms("start", "grads", m) for m in marks)
+    msk = statistics.median(ms("grads", "grad masks", m) + ms("optimizer", "param masks", m)
+                            for m in marks)
+    opt = statistics.median(ms("grad masks", "optimizer", m) for m in marks)
+    card = statistics.median(ms("start", "end", m) for m in marks)
+    issue = statistics.median((m["grads"][1] - m["start"][1]) * 1e3 for m in marks)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = statistics.median(walls)
+    print(f"[train] {cfg.name}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"(2 microbatches, remat minimal, masks on {len(KEYS)} projections) in "
+          f"{t_train:.1f}s; step wall p50 {p50 * 1e3:.1f} ms (host clock, to its end on the "
+          f"card; per step {[round(w * 1e3, 1) for w in walls]}), {tokens / p50:.0f} tokens/s",
+          flush=True)
+    print(f"[train] {cfg.name}: split by CUDA events, p50 over the steps: forward+backward "
+          f"{fb:.1f} ms, optimizer (the loss read + AdamW) {opt:.1f} ms, mask application "
+          f"{msk:.1f} ms, the step on the card {card:.1f} ms; host issue of forward+backward "
+          f"{issue:.1f} ms against its {fb:.1f} ms on the card ({issue / fb:.0%})", flush=True)
+    print(f"[train] {cfg.name}: loss curve {[round(x, 4) for x in losses]} (ln V = "
+          f"{math.log(cfg.vocab_size):.4f}); grad_norm {[round(x, 4) for x in norms]}; lr "
+          f"{[round(m['lr'], 9) for m in log]}", flush=True)
+    print(f"[train] {cfg.name}: step 1 grad norms of layer 0 and embed "
+          f"{json.dumps({k: float(f'{v:.4g}') for k, v in layer0.items()})}; after the last "
+          f"step every pruned leaf is zero off its mask (density 0.5), kept weights at exactly "
+          f"0.0 {json.dumps(zeros)}; launches in the steps {json.dumps(counts)}; peak device "
+          f"memory of the train steps {peak:.2f} GiB (limit {MEMORY_LIMIT_GIB})", flush=True)
+
+    # ---- remat: one forward + backward per policy at one microbatch -----------------
+    trainer.opt_state = None                     # free m/v (32 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = TokenPipeline(pcfg).next_batch()
+    batch = {k: torch.as_tensor(v[:1], device="cuda") for k, v in batch.items()}
+    remat = {}
+    for policy in (None, *REMAT_POLICIES):
+        kw = {"remat": policy is not None, "remat_policy": policy or "minimal"}
+        st = make_train_step(cfg, ocfg, **kw)
+        # what the forward keeps for the backward: memory held after it alone
+        alias = map_with_path(lambda _, p: p.detach().requires_grad_(), trainer.params)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = st.loss_fn(alias, batch, **kw)
+        torch.cuda.synchronize()
+        saved = (torch.cuda.memory_allocated() - before) / 2**30
+        del loss, alias
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, grads = st.grads(trainer.params, batch)
+        gn = global_norm(grads).item()
+        torch.cuda.synchronize()
+        remat[policy or "none"] = {"loss": loss.item(), "grad_norm": gn,
+                                   "saved_after_forward_gib": saved,
+                                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                                   "above_base_gib": (torch.cuda.max_memory_allocated() - base)
+                                   / 2**30, "ms": (time.perf_counter() - t) * 1e3}
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[train] {cfg.name}: remat, one forward + backward of 1 x {TRAIN_SEQ} tokens each, "
+          f"no update (saved_after_forward: held after the forward alone; ms: host clock to "
+          f"the end on the card): " + json.dumps({k: {n: float(f"{x:.7g}") for n, x in v.items()}
+                                       for k, v in remat.items()}), flush=True)
+    none = remat["none"]
+    check(remat["nothing"]["peak_gib"] < none["peak_gib"],
+          f"remat nothing peak {remat['nothing']['peak_gib']} >= no remat {none['peak_gib']}")
+    for policy, r in remat.items():
+        # 1e-6 relative: the same f32 accumulation, recomputed (the embedding's
+        # grad sums with atomics, in any order)
+        for key in ("loss", "grad_norm"):
+            check(abs(r[key] - none[key]) <= 1e-6 * abs(none[key]),
+                  f"remat {policy}: {key} {r[key]} vs {none[key]} without remat")
+
+    # ---- serve the fine-tuned weights ------------------------------------------------
+    t0 = time.perf_counter()
+    cparams = compress_params(trainer.params, masks, m=INTRA_M)
+    trainer.params = None
+    del trainer, step, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] {cfg.name}: fine-tuned weights compressed in {time.perf_counter() - t0:.1f}s;"
+          f" device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    served = dataclasses.replace(cfg, name=f"{cfg.name} fine-tuned")
+    ops.reset_launch_counts()
+    prompts, reqs, counts = serve_phase(served, cparams, n_requests=4, new_tokens=8)
+    model = {"spec": spec, "cparams": cparams, "comp_keys": KEYS}
+    check_path_launches(served, rows, model, counts, len(reqs), "wgmma")
+    parity_phase(served, cparams, prompts, [r.output for r in reqs], tol=0.15,
+                 faults=intrablock_faults(cfg, cparams))
+    print(f"[train] card {card_line()}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2469,6 +2715,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         print(f"[time] qwen3-4b path {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        train_phase(get_config("qwen3-4b"), rows)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] qwen3-4b train phase {time.perf_counter() - t0:.1f}s; device memory "
+              f"after freeing it {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
         later = []
         for name, path in (("gemma-7b", gemma7b_path), ("gemma2-9b", gemma2_path),
                            ("qwen3-moe-30b-a3b", moe_path), ("mamba2-130m", mamba2_path),

@@ -7,7 +7,11 @@
 * ``"cuda"`` — the CUDA kernel (a CPU tensor raises).
 * ``"ref"``  — the plain PyTorch version, on any device.
 
-Shapes, layouts and errors follow ``repro/kernels/ops.py``.  Each CUDA
+Shapes, layouts and errors follow ``repro/kernels/ops.py``.  No CUDA
+kernel has a backward (nor has any Pallas kernel of the reference): an op
+that resolves to ``cuda`` while grad mode is on and a float input
+requires grad raises ``RuntimeError`` rather than return an output that
+silently cuts the autograd graph.  Each CUDA
 wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them, :func:`variant_counts` reads the per-variant counts of the
 five kernels, :func:`gather_matmul_shape_counts` and
@@ -48,6 +52,17 @@ def _resolve(impl: str, t: torch.Tensor) -> str:
     if impl == "auto":
         return "cuda" if t.is_cuda else "ref"
     return impl
+
+
+def _route(op: str, impl: str, t: torch.Tensor, *inputs: torch.Tensor) -> str:
+    """``impl`` resolved for the tensor ``t``; a ``cuda`` route raises where
+    grad mode is on and any of ``t`` and ``inputs`` requires grad."""
+    route = _resolve(impl, t)
+    if (route == "cuda" and torch.is_grad_enabled()
+            and any(x.requires_grad for x in (t, *inputs))):
+        raise RuntimeError(f"{op}: the CUDA kernel has no backward, and an input requires "
+                           "grad; call it under torch.no_grad(), or use impl='ref'")
+    return route
 
 
 def launch_counts() -> Dict[str, int]:
@@ -237,7 +252,7 @@ def block_sparse_matmul(x: torch.Tensor, w_comp: torch.Tensor, idx: torch.Tensor
     """(B, K) @ FullBlock-compressed weight (Gn, L, bm, bn) → (B, Gn*bn).
     ``tile_b`` is the reference's; see :func:`_check_tiles`."""
     _check_tiles(tile_b=tile_b)
-    if _resolve(impl, x) == "ref":
+    if _route("block_sparse_matmul", impl, x, w_comp) == "ref":
         return _ref.block_sparse_matmul_ref(x, w_comp, idx)
     return _bsm.block_sparse_matmul_cuda(x, w_comp, idx)
 
@@ -250,7 +265,7 @@ def intrablock_gather_matmul(x: torch.Tensor, w_comp: torch.Tensor, row_idx: tor
     :func:`~repro_torch.kernels.intrablock_matmul.intrablock_gather_matmul_cuda`;
     ``tile_b`` / ``tile_n`` are the reference's (see :func:`_check_tiles`)."""
     _check_tiles(tile_b=tile_b, tile_n=tile_n)
-    if _resolve(impl, x) == "ref":
+    if _route("intrablock_gather_matmul", impl, x, w_comp) == "ref":
         return _ref.intrablock_gather_matmul_ref(x, w_comp, row_idx)
     return _igm.intrablock_gather_matmul_cuda(x, w_comp, row_idx, check_range=check_range)
 
@@ -260,7 +275,7 @@ def bitserial_zero_profile(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
     """int32 ``[skippable, total]`` zero-plane slots of int8 q (V, K).
     ``tile_v`` is the reference's; see :func:`_check_tiles`."""
     _check_tiles(tile_v=tile_v)
-    if _resolve(impl, q) == "ref":
+    if _route("bitserial_zero_profile", impl, q) == "ref":
         return _ref.bitserial_zero_profile_ref(q, group_rows, n_bits)
     return _bsp.bitserial_zero_profile_cuda(q, group_rows, n_bits)
 
@@ -271,7 +286,7 @@ def quantized_zero_profile(x: torch.Tensor, group_rows: int, n_bits: int = 8, *,
     """int32 ``[skippable, total]`` of ``quantize_int8(x)`` for a float x
     (V, K): the §IV-B profile of one activation.  On the card the
     quantisation is fused into the count's read of x."""
-    if _resolve(impl, x) == "ref":
+    if _route("quantized_zero_profile", impl, x) == "ref":
         return _ref.quantized_zero_profile_ref(x, group_rows, n_bits,
                                                per_tensor_scale=per_tensor_scale)
     return _bsp.quantized_zero_profile_cuda(x, group_rows, n_bits,
@@ -284,7 +299,7 @@ def block_importance(w: torch.Tensor, bm: int, bn: int, criterion: str = "l1", *
     kernel's column-strip contract: it must tile N in whole blocks."""
     if criterion not in _bi.CRITERIA:
         raise ValueError(f"criterion must be one of {tuple(_bi.CRITERIA)}, got {criterion!r}")
-    if _resolve(impl, w) == "ref":
+    if _route("block_importance", impl, w) == "ref":
         return _ref.block_importance_ref(w, bm, bn, criterion)
     M, N = w.shape
     if M % bm or N % bn:
@@ -307,7 +322,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if _resolve(impl, q) == "ref":
+    if _route("flash_attention", impl, q, k, v) == "ref":
         G = Hq // Hkv
         if G > 1:
             k = k.repeat_interleave(G, dim=2)

@@ -260,8 +260,14 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
       (``repro/kernels/flash_attention.py``) has none of these in its
       contract, and the JAX model never calls it, so the port's flash
       kernel takes none either; its tail padding is exact only under a
-      causal mask.  The route follows from the arguments and ``cfg``
-      alone, before any launch.
+      causal mask.  Under autograd (grad mode on and q, k or v requiring
+      grad: a training forward) causal attention runs through
+      :func:`chunked_attention` too.  That is what the reference trains
+      through: its ``forward`` computes attention in jnp, and neither its
+      Pallas flash kernel nor the port's has a backward (the CUDA wrapper
+      refuses an input that requires grad).  Under ``torch.no_grad`` or
+      ``inference_mode`` serving keeps flash.  The route follows from the
+      grad mode, the arguments and ``cfg`` alone, before any launch.
     * decode: ``cache_kv=(K, V)`` buffers (B, Smax, Hkv, hd).  The new
       k/v are written into them **in place** at ``cache_len``, and
       attention spans the whole cache through :func:`chunked_attention`,
@@ -282,7 +288,8 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     k = rope(k, positions, cfg.rope_theta)
     if cache_kv is None:
-        if not causal or prefix > 0 or cfg.attn_softcap > 0:
+        train = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        if train or not causal or prefix > 0 or cfg.attn_softcap > 0:
             out = chunked_attention(q, k, v, causal=causal, window=window, prefix=prefix,
                                     attn_cap=cfg.attn_softcap)
         else:

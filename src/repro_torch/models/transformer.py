@@ -26,7 +26,8 @@ reference's ``lax.scan`` over layers is a Python loop here.
 Entry points:
 
 * ``forward``     — logits over a full sequence (after the prefix,
-  where one is given);
+  where one is given); with ``remat`` each decoder layer is checkpointed
+  (``torch.utils.checkpoint``) under one of :data:`REMAT_POLICIES`;
 * ``prefill``     — forward + the per-layer cache (k/v, SSM and conv
   states, the encoder's cross k/v), last-token logits;
 * ``decode_step`` — one token per sequence against a cache, at a scalar
@@ -39,17 +40,20 @@ the prefix, where the causal mask already shows all of it).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from .layers import (COMPRESSED, attention_block, chunked_attention, mlp_block, moe_block,
                      project, rms_norm, ssm_block)
 
-__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step", "layer_flags"]
+__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step", "layer_flags",
+           "REMAT_POLICIES"]
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -217,6 +221,16 @@ def _layer(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
             for k, w in layers.items()}
 
 
+def _layers(layers: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """``[_layer(layers, l) for l in range(n)]`` with each dense stacked leaf
+    unbound once (``torch.unbind``): under autograd its one backward stacks
+    the per-layer grads, where ``n`` indexings would each add a zero-filled
+    grad of the whole stacked leaf.  Compressed leaves give ``.layer(l)``."""
+    split = {k: None if isinstance(w, COMPRESSED) else w.unbind(0) for k, w in layers.items()}
+    return [{k: w.layer(l) if split[k] is None else split[k][l] for k, w in layers.items()}
+            for l in range(n)]
+
+
 def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None,
                    cache_len=None, impl: str = "auto", tap=None, prefix: int = 0, cross=None):
     """One decoder layer; returns (x, new) with this layer's cache entries:
@@ -291,8 +305,7 @@ def _encoder_stack(params: Params, enc_embed: torch.Tensor, cfg: ArchConfig,
     are dense matmuls."""
     x = enc_embed
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    for l in range(cfg.enc_layers):
-        lp = _layer(params["enc_layers"], l)
+    for lp in _layers(params["enc_layers"], cfg.enc_layers):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, _ = attention_block(h, lp, cfg, positions=positions, causal=False, impl=impl)
         x = x + y
@@ -307,8 +320,8 @@ def _cross_kv(params: Params, enc_out: torch.Tensor, cfg: ArchConfig,
     ``transformer.py:267-271``): (L, B, Se, Hkv, hd) each, in the compute
     dtype."""
     wk, wv = params["enc_cross"]["wk"], params["enc_cross"]["wv"]
-    k = torch.stack([project(enc_out, wk[l], impl) for l in range(wk.shape[0])])
-    v = torch.stack([project(enc_out, wv[l], impl) for l in range(wv.shape[0])])
+    k = torch.stack([project(enc_out, w, impl) for w in wk.unbind(0)])
+    v = torch.stack([project(enc_out, w, impl) for w in wv.unbind(0)])
     return k.to(enc_out.dtype), v.to(enc_out.dtype)
 
 
@@ -325,18 +338,51 @@ def _unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # logit is rounded to bf16 before the softcap or the argmax.  The
     # weight is widened one vocab chunk at a time, so no f32 copy of the
     # whole matrix (2 GB for llama3-8b's lm_head) is ever held.
+    # (split, not slicing: under autograd one backward joins the chunks' grads)
     x2 = x.reshape(-1, x.shape[-1]).float()
-    logits = torch.cat([x2 @ w[:, i:i + _VOCAB_CHUNK].float()
-                        for i in range(0, w.shape[1], _VOCAB_CHUNK)], dim=1)
+    logits = torch.cat([x2 @ wc.float() for wc in w.split(_VOCAB_CHUNK, dim=1)], dim=1)
     logits = logits.reshape(*x.shape[:-1], -1)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
 
 
+# Activation rematerialisation (``forward(remat=True)``): the aten ops whose
+# outputs a checkpointed decoder layer saves for its backward; everything
+# else is recomputed.  The reference's jax.checkpoint policies:
+REMAT_POLICIES = {
+    # dots_with_no_batch_dims_saveable: the weight projections (``project``
+    # is ``x2 @ w`` on 2-D operands, aten.mm); the attention einsums of
+    # ``chunked_attention`` (aten.bmm) are recomputed
+    "minimal": (torch.ops.aten.mm.default,),
+    # dots_saveable: every matmul output
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+    # nothing_saveable: a plain per-layer checkpoint
+    "nothing": (),
+}
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under a non-reentrant ``torch.utils.checkpoint`` that saves the
+    outputs of ``REMAT_POLICIES[policy]`` (a selective checkpoint), or
+    nothing; an unknown policy raises ``KeyError``."""
+    saved = REMAT_POLICIES[policy]
+    ctx = ({"context_fn": functools.partial(create_selective_checkpoint_contexts, list(saved))}
+           if saved else {})
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **ctx)
+
+
+def _layer_output(x, lp, cross, *, cfg: ArchConfig, positions, window, impl: str,
+                  prefix: int) -> torch.Tensor:
+    """One decoder layer's output alone (the body a checkpoint recomputes)."""
+    return _decoder_layer(x, lp, cfg, positions=positions, window=window, impl=impl,
+                          prefix=prefix, cross=cross)[0]
+
+
 def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
          keep_cache: bool, tap: Optional[Callable[[int, str, torch.Tensor], None]] = None, *,
-         prefix_embed: Optional[torch.Tensor] = None, enc_embed: Optional[torch.Tensor] = None):
+         prefix_embed: Optional[torch.Tensor] = None, enc_embed: Optional[torch.Tensor] = None,
+         remat: Optional[str] = None):
     """The decoder stack over full sequences; returns (x, caches), caches
     mapping each cache entry of :func:`_decoder_layer` to its per-layer
     list (empty unless ``keep_cache``), and, for an encoder-decoder with
@@ -351,7 +397,9 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
     block's router and experts) and ``down_in`` (w_down of a dense MLP),
     each (B, S, features) (the §IV-B profile).  It does not reach the SSM
     mixer's inner projection ``w_out``, so a config with an SSM mixer
-    refuses it rather than give a profile that misses it."""
+    refuses it rather than give a profile that misses it.  ``remat`` (a
+    key of :data:`REMAT_POLICIES`, forward only) checkpoints each decoder
+    layer under that policy."""
     _check_supported(cfg)
     if tap is not None and cfg.ssm_state:
         raise NotImplementedError(f"{cfg.name}: the activation tap does not cover the SSM "
@@ -372,12 +420,20 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
         ck, cv = _cross_kv(params, enc_out, cfg, impl)
         if keep_cache:
             caches["cross_k"], caches["cross_v"] = ck, cv
+    layers = _layers(params["layers"], cfg.n_layers)
+    if ck is not None:
+        crosses = [dict(c, k=k, v=v) for c, k, v in
+                   zip(_layers(params["dec_cross"], cfg.n_layers), ck.unbind(0), cv.unbind(0))]
     for l, window in enumerate(_windows(cfg)):
         layer_tap = None if tap is None else (lambda kind, a, l=l: tap(l, kind, a))
-        cross = None if ck is None else _cross_layer(params, ck, cv, l)
-        x, new = _decoder_layer(x, _layer(params["layers"], l), cfg, positions=positions,
-                                window=window, impl=impl, tap=layer_tap, prefix=prefix,
-                                cross=cross)
+        cross = None if ck is None else crosses[l]
+        if remat is not None:
+            body = functools.partial(_layer_output, cfg=cfg, positions=positions,
+                                     window=window, impl=impl, prefix=prefix)
+            x = _remat(body, remat)(x, layers[l], cross)
+            continue
+        x, new = _decoder_layer(x, layers[l], cfg, positions=positions, window=window,
+                                impl=impl, tap=layer_tap, prefix=prefix, cross=cross)
         if keep_cache:
             for key, t in new.items():
                 caches.setdefault(key, []).append(t)
@@ -386,13 +442,20 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
             prefix_embed: Optional[torch.Tensor] = None,
-            enc_embed: Optional[torch.Tensor] = None, impl: str = "auto") -> torch.Tensor:
+            enc_embed: Optional[torch.Tensor] = None, impl: str = "auto",
+            remat: bool = False, remat_policy: str = "minimal") -> torch.Tensor:
     """Logits (B, P + S, V) in f32 for int tokens (B, S), after a prefix of
     P embeddings where ``prefix_embed`` is given (P = 0 otherwise).  An
     encoder-decoder needs ``enc_embed`` (B, Se, d) and raises
-    ``ValueError`` without it."""
+    ``ValueError`` without it.
+
+    ``remat=True`` checkpoints each decoder layer (activation
+    rematerialisation, the reference's ``jax.checkpoint`` of its scanned
+    layer): backward saves only what ``remat_policy`` (a key of
+    :data:`REMAT_POLICIES`; ``KeyError`` otherwise) allows and recomputes
+    the rest.  It changes memory, not numbers."""
     x, _ = _run(params, tokens, cfg, impl, keep_cache=False, prefix_embed=prefix_embed,
-                enc_embed=enc_embed)
+                enc_embed=enc_embed, remat=remat_policy if remat else None)
     return _unembed(params, x, cfg)
 
 

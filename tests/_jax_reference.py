@@ -51,6 +51,12 @@ MODULES = {
     "hardware": "repro.core.hardware",
     "profile": "repro.calibrate.profile",
     "core": "repro.core",
+    "optimizer": "repro.train.optimizer",
+    "step": "repro.train.step",
+    "checkpoint": "repro.train.checkpoint",
+    "trainer": "repro.train.trainer",
+    "compress": "repro.distributed.compress",
+    "pipeline": "repro.data.pipeline",
 }
 
 # imported at call time: by layers.moe_block, and by serve.engine.ServeEngine

@@ -1019,3 +1019,160 @@ def test_decode_past_the_end_of_the_cache_on_the_card(gen):
     torch.cuda.synchronize()
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return None if tree is None else tree.to(dev, copy=True)   # the step writes in place
+
+
+def _train_batch(gen, cfg, B=4, S=40):
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen, device="cuda")
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_step_on_the_card_matches_the_cpu(gen, dtype):
+    """One qwen3-4b .reduced() train step (2 microbatches, IntraBlock masks,
+    remat "minimal") on the card ≡ the same step on the CPU.  f32: loss and
+    grad_norm to 1e-4, moments to 1e-4 of a leaf's largest entry, params
+    to 1e-4 of it plus 1e-3 of lr where |g| > 1e-6 (AdamW's direction is
+    ill-conditioned where |g| nears eps) and to one update (2.2 lr)
+    elsewhere.  bf16: loss to 1e-2, grad_norm to 5e-2, moments to 5e-2,
+    params to one update plus a bf16 ulp.  No kernel runs in the step,
+    every weight gets a grad, pruned entries are exactly zero after it."""
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = get_config("qwen3-4b").reduced()
+    keys = ("wq", "wk", "wv", "w_gate", "w_up", "w_down")
+    params = TT.init_params(cfg, 0, dtype=dtype)
+    _, masks = prune_params(params, FlexBlockSpec((IntraBlock(4, 1, 0.5),)), align_cols=True,
+                            keys=keys)
+    batch = _train_batch(gen, cfg)
+    lr = 1e-2
+    out, grads = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        o = adamw_init(p)
+        step = make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=1, total_steps=4),
+                               microbatches=2, masks=_to(masks, dev), remat=True)
+        step.on_stage = lambda stage, g, dev=dev: stage == "grads" and grads.setdefault(dev, {
+            k: float(v[0].float().norm()) for k, v in g["layers"].items()})
+        ops.reset_launch_counts()
+        p, o, met = step(p, o, _to(batch, dev))
+        assert not any(ops.launch_counts().values())
+        out[dev] = (p, o, {k: float(v) for k, v in met.items()})
+    assert all(v > 0 for v in grads["cuda"].values()), grads["cuda"]
+    (pc, oc, mc), (pp, op, mp) = out["cuda"], out["cpu"]
+    f32 = dtype == torch.float32
+    for k, tol in (("loss", 1e-4 if f32 else 1e-2), ("grad_norm", 1e-4 if f32 else 5e-2),
+                   ("lr", 1e-6)):
+        assert abs(mc[k] - mp[k]) <= tol * abs(mp[k]), (k, mc[k], mp[k])
+    for name in ("m", "v"):
+        for (path, a), (_, b) in zip(leaves_with_paths(oc[name]), leaves_with_paths(op[name])):
+            err = (a.cpu() - b).abs().max().item()
+            assert err <= (1e-4 if f32 else 5e-2) * b.abs().max().item(), (name, path, err)
+    for (path, a), (_, b), (_, v) in zip(leaves_with_paths(pc), leaves_with_paths(pp),
+                                         leaves_with_paths(op["v"])):
+        err = (a.cpu().float() - b.float()).abs()
+        top = b.float().abs().max().item()
+        if f32:
+            well = (v / (1 - 0.95)).sqrt() > 1e-6
+            assert (err[well] <= 1e-4 * top + 1e-3 * lr).all(), path
+            assert (err <= 1e-4 * top + 2.2 * lr).all(), path
+        else:
+            assert (err <= 2.2 * lr + b.float().abs() * 2.0 ** -7).all(), path
+    for k in keys:
+        assert not pc["layers"][k][~masks["layers"][k]].any(), k
+
+
+def test_remat_policies_equal_on_the_card(gen):
+    """Loss and grads of qwen3-4b .reduced() (bf16) with each remat policy ≡
+    without remat, on the card: 1e-6 relative (the embedding's grad sums
+    with atomics, in any order)."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_config("qwen3-4b").reduced()
+    params = TT.init_params(cfg, 1, dtype=torch.bfloat16)
+    batch = _train_batch(gen, cfg, B=2, S=200)
+    loss0, g0 = make_train_step(cfg, AdamWConfig()).grads(params, batch)
+    for policy in TT.REMAT_POLICIES:
+        loss, g = make_train_step(cfg, AdamWConfig(), remat=True,
+                                  remat_policy=policy).grads(params, batch)
+        assert abs(loss.item() - loss0.item()) <= 1e-6 * abs(loss0.item()), policy
+        for a, b in zip(leaves(g), leaves(g0)):
+            assert (a.float() - b.float()).abs().max().item() <= \
+                1e-6 * b.float().abs().max().item() + 1e-30, policy
+
+
+def _grad_inputs(gen, op):
+    """Arguments of ``op`` on the card with a float input that requires grad."""
+    x = _randn(gen, 4, 256, dtype=torch.bfloat16).requires_grad_()
+    if op == "flash_attention":
+        q = _randn(gen, 1, 128, 4, 128, dtype=torch.bfloat16).requires_grad_()
+        return (q, q.detach(), q.detach()), {}
+    if op == "block_sparse_matmul":
+        w, idx = ops.compress_fullblock_torch(_randn(gen, 256, 256, dtype=torch.bfloat16),
+                                              torch.ones(2, 2, dtype=torch.bool, device="cuda"),
+                                              128, 128)
+        return (x, w, idx), {}
+    if op == "intrablock_gather_matmul":
+        row_idx = torch.arange(0, 256, 2, dtype=torch.int32, device="cuda")
+        return (x, _randn(gen, 128, 256, dtype=torch.bfloat16), row_idx), {}
+    if op == "block_importance":
+        return (_randn(gen, 256, 256).requires_grad_(), 128, 128), {}
+    if op == "bitserial_zero_profile":
+        return (torch.zeros(4, 256, dtype=torch.int8, device="cuda"), 32), {}
+    return (x, 32), {}
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "block_sparse_matmul",
+                                "intrablock_gather_matmul", "block_importance",
+                                "bitserial_zero_profile", "quantized_zero_profile"])
+def test_cuda_wrapper_refuses_an_input_that_requires_grad(gen, op):
+    """No CUDA kernel has a backward: with grad mode on, an input that
+    requires grad raises rather than return an output with no graph; under
+    no_grad the kernel runs.  (The int8 bit-serial count cannot take such
+    an input: its q is integer.)"""
+    args, kw = _grad_inputs(gen, op)
+    fn = getattr(ops, op)
+    if op == "bitserial_zero_profile":
+        fn(*args, **kw)
+        return
+    with pytest.raises(RuntimeError, match=f"{op}: the CUDA kernel has no backward"):
+        fn(*args, **kw)
+    with torch.no_grad():
+        out = fn(*args, **kw)
+    assert out.device.type == "cuda"
+    out = fn(*[a.detach() if torch.is_tensor(a) else a for a in args], **kw)
+    assert not out.requires_grad
+
+
+def test_compressed_model_under_grad_raises_on_the_card(gen):
+    """A forward through compressed weights with an input that needs grad
+    reaches the gather-matmul's refusal; the training route (dense weights)
+    takes no kernel at all."""
+    cfg = get_config("qwen3-4b").reduced()
+    params = TT.init_params(cfg, 0, dtype=torch.bfloat16)
+    pp, masks = prune_params(params, FlexBlockSpec((IntraBlock(4, 1, 0.5),)), align_cols=True,
+                             keys=("wq", "wk", "wv", "w_gate", "w_up", "w_down"))
+    cp = compress_params(pp, masks, m=4)
+    toks = torch.randint(0, cfg.vocab_size, (1, 40), generator=gen, device="cuda")
+    train = dict(cp, embed=cp["embed"].detach().requires_grad_())
+    with pytest.raises(RuntimeError, match="intrablock_gather_matmul: the CUDA kernel has no"):
+        TT.forward(train, toks, cfg)
+    dense = dict(params, layers={k: v.detach().requires_grad_()
+                                 for k, v in params["layers"].items()})
+    ops.reset_launch_counts()
+    TT.forward(dense, toks, cfg).float().sum().backward()
+    assert not any(ops.launch_counts().values())
+    assert dense["layers"]["wq"].grad[0].float().norm().item() > 0

@@ -410,6 +410,15 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_import_boundary_covers_the_training_modules():
+    """The boundary check above walks every file of the port: the training
+    slice's modules among them, the pipeline a copy, not an import."""
+    port = ROOT / "src" / "repro_torch"
+    covered = {str(p.relative_to(port)) for p in port.rglob("*.py")}
+    assert {"train/optimizer.py", "train/step.py", "train/checkpoint.py", "train/trainer.py",
+            "distributed/compress.py", "data/pipeline.py", "tree.py"} <= covered
+
+
 def test_reference_loader_leaves_sys_modules_as_found():
     before = {n for n in sys.modules if n == "repro" or n.startswith("repro.")}
     R = _jax_reference.load()
