@@ -294,6 +294,13 @@ def bound(nbytes: int, ops: float, peak: float) -> dict:
     return {"bound_ms": max(t_b, t_f) * 1e3, "bound_by": "bytes" if t_b >= t_f else "operations"}
 
 
+def live_pairs(S: int, window=None) -> int:
+    """The (query, key) pairs a causal attention of one head over S
+    positions needs: query i sees min(i + 1, window) keys."""
+    w = min(window or S, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
 def ratios(line: dict) -> dict:
     """share_of_bound (bound / ms) and x_library (ms / library ms) of a row."""
     lib = line.get("library_ms")
@@ -464,7 +471,7 @@ def kernel_phase() -> dict:
     tol = {torch.bfloat16: 3e-2, torch.float32: 3e-5}
     for (B, S, Hq, Hkv, hd, window) in fa_cases:
         G = Hq // Hkv
-        pairs = B * Hq * sum(min(i + 1, window or S) for i in range(S))   # live (q, k) pairs
+        pairs = B * Hq * live_pairs(S, window)
         for dt in dtypes if S <= 512 else (torch.bfloat16,):
             esize = torch.empty((), dtype=dt).element_size()
             nbytes = 2 * B * S * (Hq + Hkv) * hd * esize           # q, k, v read; o written
@@ -2575,9 +2582,9 @@ def check_scaled(label: str, scaled, base, wl, prof) -> None:
               f"{label}: {a.name} latency {a.latency_cycles} != {want}")
 
 
-def cost_phase(samples: list, served: list) -> None:
+def cost_phase(samples: list, served: list):
     """Fit the card's profile, then cost each served model (see the
-    module docstring, phase 14).  Runs on the host."""
+    module docstring, phase 14).  Runs on the host; returns the profile."""
     from repro_torch.calibrate.fit import fit_profile
     from repro_torch.core.costmodel import compare, dense_baseline, simulate
     from repro_torch.core.mapping import default_mapping
@@ -2656,6 +2663,207 @@ def cost_phase(samples: list, served: list) -> None:
         report_line(f"{label} (c) {'measured ratios + ' if ratios else ''}fitted profile",
                     rep_c, compare(rep_c, dense_c), card)
     print(f"[time] cost phase {time.perf_counter() - t0:.2f}s", flush=True)
+    return prof
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the launch layer: cells counted on meta, qwen3-4b's executed
+# ---------------------------------------------------------------------------
+
+# qwen3-4b's three cells at the reference's global shapes, and one cell of
+# each other family: the whole arch x cell matrix (``dryrun --all``, 33
+# cells) counts for 144 s on a 2-core host, over the phase's budget
+DRYRUN_COUNTED = (("qwen3-4b", "train_4k"), ("qwen3-4b", "prefill_32k"),
+                  ("qwen3-4b", "decode_32k"), ("qwen3-moe-30b-a3b", "prefill_32k"),
+                  ("mamba2-130m", "decode_32k"), ("hymba-1.5b", "decode_32k"),
+                  ("whisper-medium", "decode_32k"), ("paligemma-3b", "decode_32k"))
+# qwen3-4b's cells executed at full width and depth: (cell, batch), and
+# the timed calls after one warmup
+DRYRUN_EXECUTED = (("train_4k", 1), ("prefill_32k", 1), ("decode_32k", 8))
+DRYRUN_REPEATS = 3
+LONG_S = 32768          # flash at prefill_32k's length
+LOGIT_LAYERS = 4        # depth of the prefill_32k logit check (the plain flash is slow)
+PATH_TOL = 0.15         # the served paths' logit tolerance
+
+
+def rows_plain(q, k, v, r0: int, h: int, rows: int = 128) -> torch.Tensor:
+    """Plain causal attention of query rows r0..r0+rows of q head h over
+    all keys of its kv head, in f32 (q (1, S, Hq, hd), k/v (1, S, Hkv, hd))."""
+    hk = h // (q.shape[2] // k.shape[2])
+    qs = q[0, r0:r0 + rows, h].float()
+    ks, vs = k[0, :, hk].float(), v[0, :, hk].float()
+    s = (qs @ ks.T) / math.sqrt(q.shape[-1])
+    pos = r0 + torch.arange(rows, device=q.device)[:, None]
+    s = s.masked_fill(torch.arange(ks.shape[0], device=q.device)[None, :] > pos, float("-inf"))
+    return torch.softmax(s, dim=-1) @ vs
+
+
+def long_flash_check(card: str) -> None:
+    """Flash ``wgmma`` at S = 32768 (qwen3-4b's prefill_32k heads) held to
+    the plain version on three 128-row query tiles (first, middle, last) of
+    two heads, and timed from CUDA graphs beside SDPA (row 1e)."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    Hq, Hkv, hd = 32, 8, 128
+    q = torch.randn((1, LONG_S, Hq, hd), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, LONG_S, Hkv, hd), generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn((1, LONG_S, Hkv, hd), generator=g, device="cuda").to(torch.bfloat16)
+    before = ops.variant_counts()["flash_attention"]
+    out = fa_mod.flash_attention_cuda(q, k, v, causal=True)
+    variant = moved_variant("flash_attention", before)
+    check(variant == "wgmma", f"flash at S={LONG_S}: ran the {variant} variant")
+    err, tiles, heads = 0.0, (0, LONG_S // 2, LONG_S - 128), (0, Hq - 1)
+    for r0 in tiles:
+        for h in heads:
+            want = rows_plain(q, k, v, r0, h)
+            err = max(err, (out[0, r0:r0 + 128, h].float() - want).abs().max().item())
+    check(err <= 3e-2, f"flash at S={LONG_S}: max_abs_err {err} > 3e-2 on the checked rows")
+    lib_set = [(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(Hq // Hkv, 1),
+                v.transpose(1, 2).repeat_interleave(Hq // Hkv, 1))]
+    # the causal pairs the function needs, as rows 1-1d count them (the
+    # kernel's diagonal tiles also visit masked pairs: work.flash_attention)
+    flops = 4 * hd * Hq * live_pairs(LONG_S)
+    nbytes = 2 * LONG_S * (Hq + Hkv) * hd * q.element_size()      # q, k, v read; o written
+    sets = [(q, k, v)]
+    line = {"variant": variant, "max_abs_err": err, "tol": 3e-2,
+            "checked": f"128 query rows from each of {tiles} of q heads {heads}, all keys",
+            "ms": graph_ms(lambda a, b, c: fa_mod.flash_attention_cuda(a, b, c, causal=True),
+                           sets, iters=5),
+            "plain_ms": cuda_ms(lambda a, b, c: ops.flash_attention(a, b, c, impl="ref"), sets,
+                                iters=1, warmup=1),
+            "library_ms": graph_ms(lambda a, b, c: F.scaled_dot_product_attention(
+                a, b, c, is_causal=True), lib_set, iters=5),
+            "flops": flops, **bound(nbytes, flops, BF16_TC_FLOPS)}
+    line.update(ratios(line))
+    line["tflops"] = flops / (line["ms"] * 1e-3) / 1e12
+    print(f"[dryrun] flash_attention B=1 S={LONG_S} Hq={Hq} Hkv={Hkv} hd={hd} bf16 causal "
+          f"(row 1e): {json.dumps(line)} [{card}]", flush=True)
+
+
+def logit_check(card: str) -> None:
+    """prefill_32k's last-token logits at qwen3-4b's width and LOGIT_LAYERS
+    layers, seed-0 random weights and tokens: flash against ``impl="ref"``
+    (the plain flash in row blocks)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params, prefill
+    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=LOGIT_LAYERS)
+    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(1, LONG_S))
+    toks = torch.as_tensor(toks, device="cuda")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got, _ = prefill(params, toks, cfg)
+        counts = ops.variant_counts()["flash_attention"]
+        t0 = time.perf_counter()
+        want, _ = prefill(params, toks, cfg, impl="ref")
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    check(counts["wgmma"] == LOGIT_LAYERS and counts["general"] == counts["f32"] == 0,
+          f"the logit check's prefill launched {counts}")
+    check(got.shape == want.shape == (1, 1, cfg.vocab_size), f"logits {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    err = (got - want).abs().max().item()
+    print(f"[dryrun] prefill_32k last-token logits, qwen3-4b width, {LOGIT_LAYERS} layers, "
+          f"seed {SEED}: flash wgmma against impl='ref' max_abs_err {err:.4f} (tol {PATH_TOL}); "
+          f"the plain path took {ref_s:.1f}s [{card}]", flush=True)
+    check(err <= PATH_TOL, f"prefill_32k logits: {err} > {PATH_TOL}")
+
+
+def dryrun_phase(micro_samples: list, micro_prof) -> None:
+    """The launch layer on the card (module docstring, phase 15)."""
+    from repro_torch.calibrate.fit import fit_profile
+    from repro_torch.calibrate.harvest import from_ledger
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, hlo_histogram, roofline
+
+    card = card_line()
+    ledger = HERE / "build" / "dryrun.jsonl"
+    ledger.unlink(missing_ok=True)
+    times = {}
+
+    t0 = time.perf_counter()
+    for arch, cell in DRYRUN_COUNTED:
+        check(dryrun.main(["--arch", arch, "--cell", cell, "--out", str(ledger)]) == 0,
+              f"dry-run count of {arch} {cell} failed")
+    counted = [json.loads(line) for line in ledger.read_text().splitlines()]
+    for rec in counted:
+        check("error" not in rec and rec["flops"] > 0 and rec["peak_bytes"] >= rec["argument_bytes"],
+              f"counted record {rec}")
+        print(f"[dryrun] counted {rec['arch']} {rec['cell']} (B {rec['global_batch']}, S "
+              f"{rec['seq_len']}, meta): flops {rec['flops']!r}, bytes {rec['bytes_accessed']!r}, "
+              f"peak {rec['peak_bytes'] / 2**30:.2f} GiB, count {rec['lower_s']}s", flush=True)
+    times["count"] = time.perf_counter() - t0
+
+    executed = {}
+    for cell, batch in DRYRUN_EXECUTED:
+        t0 = time.perf_counter()
+        resident = torch.cuda.memory_allocated() / 2**30
+        ops.reset_launch_counts()
+        rc = dryrun.main(["--arch", "qwen3-4b", "--cell", cell, "--execute", str(DRYRUN_REPEATS),
+                          "--batch", str(batch), "--out", str(ledger)])
+        counts, variants = ops.launch_counts(), ops.variant_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = json.loads(ledger.read_text().splitlines()[-1])
+        check(rc == 0 and "error" not in rec, f"qwen3-4b {cell} execution failed: {rec}")
+        peak = rec["measured_peak_bytes"] / 2**30
+        print(f"[dryrun] executed qwen3-4b {cell} B {batch} (zeros, {rec['execute_repeats']} timed "
+              f"after a warmup): time_s {rec['time_s']!r}, time_s_median {rec['time_s_median']!r}, "
+              f"measured peak {peak:.2f} GiB ({resident:.2f} GiB resident before the cell), "
+              f"counted peak {rec['peak_bytes'] / 2**30:.2f} GiB "
+              f"(measured/counted {rec['measured_peak_bytes'] / rec['peak_bytes']:.3f}), "
+              f"{rec['flops'] / rec['time_s'] / 1e12:.2f} TFLOP/s of {rec['flops']!r} counted "
+              f"flops; launches {json.dumps(counts)} [{card}]", flush=True)
+        check(peak < MEMORY_LIMIT_GIB, f"qwen3-4b {cell}: peak {peak:.2f} GiB")
+        if cell == "prefill_32k":
+            want = get_config("qwen3-4b").n_layers * (DRYRUN_REPEATS + 1)   # per layer and call
+            check(variants["flash_attention"] == {"wgmma": want, "general": 0, "f32": 0},
+                  f"prefill_32k launched flash {variants['flash_attention']}, want {want} wgmma")
+            check(sum(counts.values()) == want, f"prefill_32k launched {counts}")
+        else:
+            check(sum(counts.values()) == 0, f"qwen3-4b {cell} launched {counts}")
+        executed[cell] = rec
+        times[cell] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    long_flash_check(card)
+    logit_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["flash and logits"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rep = from_ledger(ledger)
+    classes = sorted(s.op_class for s in rep.samples)
+    check(classes == ["step:decode", "step:prefill", "step:train"],
+          f"harvested {classes} from {ledger.name}")
+    check(rep.skipped_untimed == len(counted) and rep.skipped_malformed == 0,
+          f"harvest skipped {rep.skipped_untimed} untimed, {rep.skipped_malformed} malformed")
+    name = "".join(c if c.isalnum() else "-" for c in torch.cuda.get_device_name(0).lower())
+    prof = fit_profile(list(micro_samples) + rep.samples, name=f"{name}-microbench-steps",
+                       provenance={"source": "chip_smoke.py microbench_kernels + dry-run steps",
+                                   "card": card})
+    path = prof.save_addressed(HERE / "build" / "profiles")
+    for label, p in (("microbench only", micro_prof), ("microbench + 3 steps", prof)):
+        print(f"[dryrun] profile, {label}: peak_flops {p.peak_flops!r}, hbm_bw {p.hbm_bw!r}, "
+              f"efficiency {json.dumps(p.efficiency)}, rel_rmse {p.residuals['rel_rmse']!r} over "
+              f"{int(p.residuals['n_samples'])} samples [{card}]", flush=True)
+    print(f"[dryrun] the microbench + steps profile saved as {path.relative_to(HERE)}",
+          flush=True)
+    for cell, rec in executed.items():
+        a = roofline.analyze(rec, prof)
+        print(f"[dryrun] roofline of qwen3-4b {cell} ({rec['tag']}) with that profile: compute "
+              f"{a['t_compute_s']!r} s, memory {a['t_memory_s']!r} s, dominant {a['dominant']}, "
+              f"useful {a['useful_ratio']!r}, measured time_s {rec['time_s']!r} [{card}]",
+              flush=True)
+    hlo_histogram.main(["--arch", "qwen3-4b", "--cell", "prefill_32k", "--layers", "2",
+                        "--top", "10"])
+    times["fit, roofline, histogram"] = time.perf_counter() - t0
+    print(f"[time] dry-run phase {sum(times.values()):.1f}s: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in times.items()), flush=True)
 
 
 # what the kernels line gives of each further variant of a kernel (None
@@ -2733,7 +2941,8 @@ def main() -> int:
             print(f"[time] {name} path {time.perf_counter() - t0:.1f}s; device memory after "
                   f"freeing it {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
         samples = microbench_phase()
-        cost_phase(samples, [qwen, llama, *later])
+        prof = cost_phase(samples, [qwen, llama, *later])
+        dryrun_phase(samples, prof)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -6,12 +6,10 @@ A :class:`CalibrationProfile` is the contract between the measurement
 plane (dry-run ledgers + kernel microbenchmarks, :mod:`.harvest`) and
 the consumers that price work against a device:
 
-* :mod:`repro.launch.roofline` resolves its per-chip peaks from a
+* :mod:`repro_torch.launch.roofline` resolves its per-chip peaks from a
   profile instead of module constants;
-* :func:`repro.core.costmodel.simulate` optionally scales op latency by
-  the profile's per-op-class efficiency factors;
-* the exploration engine threads a profile through every job so sweeps
-  rank designs by *calibrated* peaks.
+* :func:`repro_torch.core.costmodel.simulate` optionally scales op
+  latency by the profile's per-op-class efficiency factors.
 
 Profiles are schema-versioned JSON documents with provenance (where the
 samples came from) and fit residuals (how well the roofline explains
@@ -19,9 +17,8 @@ them), and are persisted content-addressed — the filename embeds a
 digest of the physical parameters, so two fits that agree land on the
 same file and a changed fit never silently shadows an old one.
 
-This module is stdlib-only on purpose: everything that merely *reads* a
-profile (roofline, the explore CLI) must keep working without jax, and
-without even numpy.
+This module is stdlib-only on purpose, as the reference's: what merely
+*reads* a profile (the roofline) needs neither torch nor numpy.
 """
 from __future__ import annotations
 

@@ -2,9 +2,9 @@
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
-from .base import ArchConfig
+from .base import SHAPE_CELLS, ArchConfig, ShapeCell
 
 _ARCH_MODULES = {
     "llama3-8b": "llama3_8b",
@@ -30,4 +30,18 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(f".{_ARCH_MODULES[name]}", __package__).CONFIG
 
 
-__all__ = ["ArchConfig", "get_config", "list_archs"]
+def all_configs() -> Dict[str, ArchConfig]:
+    return {n: get_config(n) for n in _ARCH_MODULES}
+
+
+def cells_for(cfg: ArchConfig) -> Dict[str, ShapeCell]:
+    """The shape cells that run for this arch: ``long_500k`` only where
+    attention is sub-quadratic (``cfg.subquadratic``)."""
+    cells = dict(SHAPE_CELLS)
+    if not cfg.subquadratic:
+        cells.pop("long_500k")
+    return cells
+
+
+__all__ = ["ArchConfig", "ShapeCell", "SHAPE_CELLS", "get_config", "list_archs",
+           "all_configs", "cells_for"]

@@ -17,10 +17,19 @@ reads them, :func:`variant_counts` reads the per-variant counts of the
 five kernels, :func:`gather_matmul_shape_counts` and
 :func:`block_sparse_shape_counts` the two compressed matmuls' per variant
 and weight shape, and :func:`reset_launch_counts` sets them all to 0.
+
+Inside a :func:`~repro_torch.launch.counting.count` block each op counts
+as one launch of its CUDA kernel, with the flops and bytes of
+:mod:`.work` for the plan it would take on the card, whatever the device
+and ``impl``; the ops of the plain stand-in that computes its values
+there are not counted.  On the ``meta`` device, which computes nothing,
+each op returns an empty tensor laid out as its kernel's output, and no
+stand-in runs.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +38,10 @@ from . import bitserial_profile as _bsp
 from . import block_importance as _bi
 from . import block_sparse_matmul as _bsm
 from . import flash_attention as _fa
+from . import hook as _hook
 from . import intrablock_matmul as _igm
 from . import ref as _ref
+from . import work as _work
 
 __all__ = ["IMPLS", "compress_fullblock", "compress_fullblock_torch",
            "compress_intrablock", "compress_intrablock_torch", "aligned_rows",
@@ -238,6 +249,30 @@ def aligned_rows(w: torch.Tensor) -> torch.Tensor:
 # Dispatch wrappers
 # ---------------------------------------------------------------------------
 
+def _counted(kernel: str, work: Callable[..., Dict[str, int]],
+             out: Callable[..., Tuple[Tuple[int, ...], torch.dtype]]) -> Callable:
+    """The op, under a count, as one launch of ``kernel`` doing ``work(*args,
+    **kwargs)``; on ``meta``, an empty tensor of ``out(*args, **kwargs)``'s
+    (shape, dtype) in place of the op (see the module docstring).  Off
+    ``meta`` and outside a count, the op unchanged."""
+    def wrap(op: Callable) -> Callable:
+        def on_meta(*args, **kwargs):
+            shape, dtype = out(*args, **kwargs)
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        @functools.wraps(op)
+        def counted(*args, **kwargs):
+            run = on_meta if args[0].is_meta else op
+            if _hook.active() is None:
+                return run(*args, **kwargs)
+            with _hook.paused():
+                cost = work(*args, **kwargs)
+            with _hook.kernel(kernel, **cost) as adopt:
+                return adopt(run(*args, **kwargs))
+        return counted
+    return wrap
+
+
 def _check_tiles(**tiles: int) -> None:
     """The reference's tile arguments only pad B, N or V, so the result
     does not depend on them; here they are checked and otherwise unused
@@ -247,6 +282,9 @@ def _check_tiles(**tiles: int) -> None:
             raise ValueError(f"{name} must be a positive int, got {v!r}")
 
 
+@_counted("block_sparse_matmul", _work.block_sparse_matmul,
+          lambda x, w_comp, *_, **__: ((x.shape[0], w_comp.shape[0] * w_comp.shape[3]),
+                                       x.dtype))
 def block_sparse_matmul(x: torch.Tensor, w_comp: torch.Tensor, idx: torch.Tensor, *,
                         impl: str = "auto", tile_b: int = 128) -> torch.Tensor:
     """(B, K) @ FullBlock-compressed weight (Gn, L, bm, bn) → (B, Gn*bn).
@@ -257,6 +295,8 @@ def block_sparse_matmul(x: torch.Tensor, w_comp: torch.Tensor, idx: torch.Tensor
     return _bsm.block_sparse_matmul_cuda(x, w_comp, idx)
 
 
+@_counted("intrablock_gather_matmul", _work.intrablock_gather_matmul,
+          lambda x, w_comp, *_, **__: ((x.shape[0], w_comp.shape[1]), x.dtype))
 def intrablock_gather_matmul(x: torch.Tensor, w_comp: torch.Tensor, row_idx: torch.Tensor, *,
                              impl: str = "auto", tile_b: int = 128, tile_n: int = 128,
                              check_range: bool = True) -> torch.Tensor:
@@ -270,6 +310,8 @@ def intrablock_gather_matmul(x: torch.Tensor, w_comp: torch.Tensor, row_idx: tor
     return _igm.intrablock_gather_matmul_cuda(x, w_comp, row_idx, check_range=check_range)
 
 
+@_counted("bitserial_zero_profile", _work.bitserial_zero_profile,
+          lambda *_, **__: ((2,), torch.int32))
 def bitserial_zero_profile(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
                            impl: str = "auto", tile_v: int = 128) -> torch.Tensor:
     """int32 ``[skippable, total]`` zero-plane slots of int8 q (V, K).
@@ -280,6 +322,8 @@ def bitserial_zero_profile(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
     return _bsp.bitserial_zero_profile_cuda(q, group_rows, n_bits)
 
 
+@_counted("bitserial_zero_profile", _work.quantized_zero_profile,
+          lambda *_, **__: ((2,), torch.int32))
 def quantized_zero_profile(x: torch.Tensor, group_rows: int, n_bits: int = 8, *,
                            per_tensor_scale: Optional[float] = None,
                            impl: str = "auto") -> torch.Tensor:
@@ -293,6 +337,8 @@ def quantized_zero_profile(x: torch.Tensor, group_rows: int, n_bits: int = 8, *,
                                             per_tensor_scale=per_tensor_scale)
 
 
+@_counted("block_importance", _work.block_importance,
+          lambda w, bm, bn, *_, **__: ((w.shape[0] // bm, w.shape[1] // bn), torch.float32))
 def block_importance(w: torch.Tensor, bm: int, bn: int, criterion: str = "l1", *,
                      impl: str = "auto", tile_n: int = 0) -> torch.Tensor:
     """Eq. 1 block losses (M/bm, N/bn) f32.  ``tile_n`` keeps the TPU
@@ -310,6 +356,8 @@ def block_importance(w: torch.Tensor, bm: int, bn: int, criterion: str = "l1", *
     return _bi.block_importance_cuda(w, bm, bn, criterion)
 
 
+@_counted("flash_attention", _work.flash_attention,
+          lambda q, *_, **__: (tuple(q.shape), q.dtype))
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     impl: str = "auto", tile_q: int = 128,

@@ -20,13 +20,44 @@ __all__ = ["flash_attention_ref", "block_sparse_matmul_ref",
            "quantize_int8", "quantized_zero_profile_ref"]
 
 
+# bytes of f32 scores the plain flash attention holds at a time: past this
+# it takes the query rows in blocks (a 32768-token prefill of 32 heads has
+# 137 GB of scores, more than one card holds)
+_SCORE_BYTES = 1 << 31
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         window: Optional[int] = None) -> torch.Tensor:
-    """Dense softmax attention over (BH, S, hd) with causal/window masks."""
+    """Dense softmax attention over (BH, S, hd) with causal/window masks.
+
+    Where the whole (BH, Sq, Skv) f32 score matrix is over 2 GiB, the
+    query rows go in blocks whose scores stay under it, each block against
+    the keys its mask leaves any of its rows (the others would add
+    exp(-inf) = 0)."""
+    BH, Sq, _ = q.shape
+    Skv = k.shape[1]
+    rows = max(1, _SCORE_BYTES // (4 * BH * max(Skv, 1)))
+    if rows >= Sq:
+        return _attention_rows(q, k, v, 0, causal, window)
+    blocks = []
+    for q0 in range(0, Sq, rows):
+        q1 = min(q0 + rows, Sq)
+        hi = min(q1, Skv) if causal else Skv
+        # (at least one key: rows that see none give NaN, as the whole matrix does)
+        lo = min(max(q0 - window + 1, 0), max(hi - 1, 0)) if window is not None else 0
+        blocks.append(_attention_rows(q[:, q0:q1], k[:, lo:hi], v[:, lo:hi], q0 - lo,
+                                      causal, window))
+    return torch.cat(blocks, dim=1)
+
+
+def _attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+                    causal: bool, window: Optional[int]) -> torch.Tensor:
+    """Attention of query rows at positions ``q_offset`` + i over keys at
+    positions 0.. of k/v."""
     hd = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(hd)
-    qi = torch.arange(q.shape[1], device=q.device)[:, None]
+    qi = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
     ki = torch.arange(k.shape[1], device=q.device)[None, :]
     ok = torch.ones(s.shape[1:], dtype=torch.bool, device=q.device)
     if causal:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import os
 import sys
 import types
 
@@ -57,6 +58,9 @@ MODULES = {
     "trainer": "repro.train.trainer",
     "compress": "repro.distributed.compress",
     "pipeline": "repro.data.pipeline",
+    "dryrun": "repro.launch.dryrun",
+    "roofline": "repro.launch.roofline",
+    "hlo_histogram": "repro.launch.hlo_histogram",
 }
 
 # imported at call time: by layers.moe_block, and by serve.engine.ServeEngine
@@ -114,6 +118,11 @@ def load() -> types.SimpleNamespace:
     """The reference modules of :data:`MODULES`, as a namespace, with
     ``active()``: a context manager for reference calls that import lazily."""
     before, attrs = _snapshot()
+    # repro.launch.dryrun and hlo_histogram set XLA_FLAGS (512 / 256 host
+    # devices) when imported: start JAX's backend first, so that the flag
+    # reaches no backend, and put the variable back as it was after
+    jax.devices()
+    xla_flags = os.environ.get("XLA_FLAGS")
     try:
         try:
             importlib.import_module("repro.runtime.compat")
@@ -125,6 +134,10 @@ def load() -> types.SimpleNamespace:
         loaded = {n: m for n, m in sys.modules.items() if _is_repro(n)}
     finally:
         _restore(before, attrs)
+        if xla_flags is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = xla_flags
 
     @contextlib.contextmanager
     def active():

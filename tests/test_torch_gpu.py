@@ -1176,3 +1176,48 @@ def test_compressed_model_under_grad_raises_on_the_card(gen):
     TT.forward(dense, toks, cfg).float().sum().backward()
     assert not any(ops.launch_counts().values())
     assert dense["layers"]["wq"].grad[0].float().norm().item() > 0
+
+
+def test_flash_attention_wgmma_at_32k_matches_plain_rows(gen):
+    """prefill_32k's flash launch (qwen3-4b heads, S = 32768): 128-row query
+    tiles at the start, middle and end of two heads within 3e-2 of plain
+    attention over all keys (the whole plain matrix would not fit)."""
+    S, Hq, Hkv, hd = 32768, 32, 8, 128
+    q = _randn(gen, 1, S, Hq, hd, dtype=torch.bfloat16)
+    k, v = (_randn(gen, 1, S, Hkv, hd, dtype=torch.bfloat16) for _ in range(2))
+    before = ops.variant_counts()
+    out = ops.flash_attention(q, k, v)
+    assert _variant_delta(before) == {"flash_attention": {"wgmma": 1}}
+    for r0 in (0, S // 2, S - 128):
+        for h in (0, Hq - 1):
+            qs, ks, vs = q[0, r0:r0 + 128, h].float(), k[0, :, h // 4].float(), v[0, :, h // 4].float()
+            s = (qs @ ks.T) / hd ** 0.5
+            pos = r0 + torch.arange(128, device="cuda")[:, None]
+            s = s.masked_fill(torch.arange(S, device="cuda")[None, :] > pos, float("-inf"))
+            want = torch.softmax(s, dim=-1) @ vs
+            torch.testing.assert_close(out[0, r0:r0 + 128, h].float(), want, atol=3e-2, rtol=0)
+
+
+def test_dryrun_counts_the_cards_route_and_executes_on_the_card(gen):
+    """A prefill counted on CUDA tensors (the kernels launch inside the
+    count) gives the flops and peak of the same count on ``meta``; executed
+    on the card, the record's fields come from the card."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.counting import count
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), head_dim=128)
+    cell = ShapeCell("t", 256, 2, "prefill")
+    meta = dryrun.count_cell(cfg, cell)
+    step, structs = dryrun._cell_step(cfg, cell)
+    args = dryrun._zeros_like_structs(structs, torch.device("cuda"))
+    ops.reset_launch_counts()
+    with count(args) as c:
+        c.returned(step(*args))
+    assert ops.variant_counts()["flash_attention"]["wgmma"] == cfg.n_layers
+    assert {k: (v, meta.oplog.get(k)) for k, v in c.oplog.items() if meta.oplog.get(k) != v} == {}
+    assert c.flops_by_kind == meta.flops_by_kind
+    assert (c.argument_bytes, c.peak_bytes) == (meta.argument_bytes, meta.peak_bytes)
+    timing = dryrun._execute_cell(step, structs, "prefill", 2, torch.device("cuda"))
+    assert timing["execute_repeats"] == 2 and timing["time_s"] > 0
+    assert timing["device"] == torch.cuda.get_device_name(0)
+    assert timing["measured_peak_bytes"] >= meta.argument_bytes

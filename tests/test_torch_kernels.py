@@ -63,6 +63,30 @@ def test_flash_attention_plain_matches_oracle(R, Sq, Skv, hd, causal, window, dt
                                atol=TOL[dtype])
 
 
+
+@pytest.mark.parametrize("Sq,Skv,hd,causal,window", [
+    (128, 128, 32, True, None),
+    (256, 256, 64, True, 64),
+    (128, 256, 32, False, None),
+    (128, 128, 32, False, 64),
+    (200, 136, 16, True, 40),
+])
+def test_flash_attention_plain_in_row_blocks_matches_oracle(R, monkeypatch, Sq, Skv, hd,
+                                                             causal, window):
+    """Past its score budget the plain version takes query rows in blocks,
+    each against the keys its mask leaves: the same attention as the
+    oracle's whole matrix."""
+    from repro_torch.kernels import ref
+    B, Hq, Hkv = 2, 4, 2
+    monkeypatch.setattr(ref, "_SCORE_BYTES", 4 * B * Hq * Skv * 24)      # 24 rows a block
+    qj, qt = _both(RNG.normal(size=(B, Sq, Hq, hd)), np.float32)
+    kj, kt = _both(RNG.normal(size=(B, Skv, Hkv, hd)), np.float32)
+    vj, vt = _both(RNG.normal(size=(B, Skv, Hkv, hd)), np.float32)
+    want = R.ops.flash_attention(qj, kj, vj, causal=causal, window=window, impl="ref")
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window, impl="ref")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL[np.float32])
+
+
 @pytest.mark.parametrize("K,N,bm,bn,B", [
     (128, 64, 32, 32, 8),
     (256, 128, 64, 64, 32),
@@ -412,11 +436,14 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_import_boundary_covers_the_training_modules():
     """The boundary check above walks every file of the port: the training
-    slice's modules among them, the pipeline a copy, not an import."""
+    slice's and the launch layer's modules among them, the pipeline and
+    the roofline copies, not imports."""
     port = ROOT / "src" / "repro_torch"
     covered = {str(p.relative_to(port)) for p in port.rglob("*.py")}
     assert {"train/optimizer.py", "train/step.py", "train/checkpoint.py", "train/trainer.py",
-            "distributed/compress.py", "data/pipeline.py", "tree.py"} <= covered
+            "distributed/compress.py", "data/pipeline.py", "tree.py", "launch/counting.py",
+            "launch/dryrun.py", "launch/roofline.py", "launch/hlo_histogram.py",
+            "kernels/work.py", "kernels/hook.py"} <= covered
 
 
 def test_reference_loader_leaves_sys_modules_as_found():
