@@ -141,6 +141,19 @@ Phases, each reported on its own line(s):
    prefix of 256 against none differs on exactly rows 0..254.  Its
    prefill takes no flash launch: the prefix-LM mask is outside the flash
    kernel's contract;
+12b. mesh   — the two mesh paths at full width in worlds of ranks on
+   the one card (``torch.distributed`` over gloo, each rank this script
+   again with ``--mesh-rank``): qwen3-moe-30b-a3b on a (data 1, model 2)
+   mesh, each rank holding half the experts (pruned whole, then cut),
+   served through ``ServeEngine(slots=4)`` with the launches held as on
+   one card, the expert path of layers 0 and 47 against the global
+   dispatch at dropless capacity (and a planted fault past the
+   tolerance); hymba-1.5b on (data 2, model 2), one 2 x 4096 prefill
+   through the window path on every attention layer (flash's wgmma
+   variant on each rank's block, one launch a layer), decode steps, and
+   each layer's attention and k/v against one process's (and planted
+   faults); tokens equal on every rank, card memory under 79.18 GiB (see
+   :func:`mesh_phase`);
 13. microbench — ``microbench_kernels`` on the card, its samples written
    as JSONL under ``build/`` and read back;
 14. cost    — on the host, from what the card produced in this run: a
@@ -1160,7 +1173,8 @@ def check_main_variants(cfg, op: str, counts: dict, prefills: int, cparams, keys
             Kc, N = cparams["layers"][k].w_comp.shape[1:]
             for variant, per in (("decode", steps), ("prefill", prefills)):
                 key = (variant, Kc, N)
-                by_shape[key] = by_shape.get(key, 0) + cfg.n_layers * per
+                if per:
+                    by_shape[key] = by_shape.get(key, 0) + cfg.n_layers * per
         got = {" ".join(map(str, k)): c for k, c in sorted(counts["shapes"].items())}
         print(f"[serve] {cfg.name}: {op} launches by (variant, Kc, N) {json.dumps(got)}",
               flush=True)
@@ -2055,6 +2069,10 @@ def moe_path(cfg, rows: dict) -> dict:
     check(mem["MemAvailable"] > 40, "the host cannot hold one expert leaf and its mask")
     model = served_path(cfg, rows, FlexBlockSpec((FullBlock(BLOCK, BLOCK, 0.5),)),
                         flash="wgmma", pre_check=dense_scale_experts)
+    # prompt 0's prefill logits, for the mesh phase's diagnostic on the same weights
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(step_logits(model["cparams"], cfg, model["prompts"][0], "auto")[0].cpu(),
+               MOE_LOGITS)
     return cost_inputs(model)
 
 
@@ -2496,6 +2514,402 @@ def paligemma_path(cfg, rows: dict) -> dict:
     print(f"[time] {cfg.name} parity phase {time.perf_counter() - t0:.1f}s", flush=True)
     prefix_check(cfg, cparams, model["prompts"][0], stub)
     return cost_inputs(model)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12b: the mesh on the card — ranks on one card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_DIR = HERE / "build" / "mesh"
+# case → (config, mesh (data, model), time limit of the world in s)
+MESH_CASES = {"moe": ("qwen3-moe-30b-a3b", (1, 2), 420),
+              "hymba": ("hymba-1.5b", (2, 2), 300)}
+MESH_TOL = 3e-2           # a layer's window path vs one process: of the output's max |y|, bf16
+# the expert path vs the global dispatch at dropless capacity, of max |y|: both
+# route the same tokens to the same experts and run the same expert products,
+# so they read 0.0 on the card (NVIDIA H100 80GB HBM3); 1e-3 leaves room for a
+# reordered bf16 sum and none for a wrong weight or route on a few tokens
+MOE_MESH_TOL = 1e-3
+MESH_NEW_TOKENS = 32      # per request on the MoE mesh path, as the served path
+HYMBA_MESH_B, HYMBA_MESH_S, HYMBA_MESH_STEPS = 2, 4096, 4
+MOE_LOGITS = MESH_DIR / "moe_single_logits.pt"   # moe_path's prefill logits of prompt 0
+
+
+KERNEL_NAMES = ("flash_attention", "block_sparse_matmul", "block_importance",
+                "intrablock_gather_matmul", "bitserial_zero_profile")
+
+
+def mesh_phase(rows: dict) -> None:
+    """Both mesh paths at full width, in worlds of ranks on the one card
+    (``torch.distributed`` over gloo: NCCL refuses two ranks on one
+    device).  Each rank is this script again (``--mesh-rank R
+    --mesh-case C``), imports the port alone and holds its own CUDA
+    context; every collective of the paths asserts CUDA tensors and has a
+    120 s timeout, and a world that overruns its limit is killed and
+    fails the phase.
+
+    (a) qwen3-moe-30b-a3b, (data 1, model 2): each rank keeps 64 of the
+    128 experts of every layer (drawn whole, scaled and pruned whole, then
+    cut: :func:`~repro_torch.sparsity.apply.prune_local`), the rest
+    replicated; served through ``ServeEngine(slots=4)`` with the served
+    path's 8 requests (MESH_NEW_TOKENS each), its launches held as the
+    single-process path's; the expert path's layer 0 and last layer
+    against the global dispatch of the gathered experts at dropless
+    capacity, and a planted fault (each rank's experts offset by one).
+    (b) hymba-1.5b, (data 2, model 2): one prefill of B 2 x S 4096 (every
+    attention layer takes the window path, whose attention is one flash
+    wgmma launch on the rank's block), decode steps, and each layer's
+    attention output and k/v against one process's on the same input,
+    with planted faults (RoPE restarted at each rank's block, the block
+    cut to its slice without the W keys before it).  Tokens
+    must agree across ranks: a liveness check that every rank ran the
+    same program to its end, not a correctness check, since each rank
+    gathers the same global tensors and a wrong exchange gives equal
+    wrong tokens; the layer parities are the correctness checks.  Rank
+    0's launches go into ``rows`` as the path "<config> mesh, rank 0"."""
+    card = card_line()
+    for case, (arch, shape, limit) in MESH_CASES.items():
+        t0 = time.perf_counter()
+        res = run_mesh_world(case, shape, limit)
+        r0 = res[0]
+        check(all(r["tokens"] == r0["tokens"] for r in res),
+              f"mesh {case}: ranks disagree on the tokens")
+        print(f"[mesh] {arch} on a (data {shape[0]}, model {shape[1]}) mesh, {len(res)} ranks on "
+              f"one card ({card}): tokens equal on every rank; card memory in use with every "
+              f"rank's state loaded {r0['mem_used_gib']:.2f} GiB of {r0['mem_total_gib']:.2f} "
+              f"(mem_get_info, every process on the card); per rank peak allocated "
+              f"{json.dumps([round(r['peak_gib'], 2) for r in res])} GiB; "
+              f"world {time.perf_counter() - t0:.1f}s", flush=True)
+        for name, n in r0["launches"].items():
+            rows[name].setdefault("launches_by_path", {})[f"{arch} mesh, rank 0"] = n
+        check(r0["mem_used_gib"] < MEMORY_LIMIT_GIB,
+              f"mesh {case}: {r0['mem_used_gib']:.2f} GiB in use on the card")
+        shown = {k: v for k, v in r0.items() if k != "tokens"}
+        print(f"[mesh] {arch} results: {json.dumps(shown)}", flush=True)
+
+
+def run_mesh_world(case: str, shape, limit: float) -> list:
+    """Start the ranks of ``case``, wait for all within ``limit`` s (killing
+    every one left past it), print rank 0's log (and a failed rank's
+    tail); fails unless each exits 0.  Returns each rank's result."""
+    import shutil
+
+    d = MESH_DIR / case
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    world = math.prod(shape)
+    logs = [open(d / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                               str(r), "--mesh-case", case], stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=HERE) for r in range(world)]
+    deadline = time.monotonic() + limit
+    timed_out = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        timed_out = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for line in (d / "rank0.log").read_text().splitlines():
+        print(f"  {line}", flush=True)
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    for r in bad[:2]:
+        tail = (d / f"rank{r}.log").read_text().splitlines()[-15:]
+        print(f"[mesh] {case} rank {r} exited {procs[r].returncode}:\n  " + "\n  ".join(tail),
+              flush=True)
+    check(not timed_out, f"mesh {case}: the world ran past its {limit} s limit")
+    check(not bad, f"mesh {case}: ranks {bad} failed")
+    return [json.loads((d / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def mesh_rank(rank: int, case: str) -> int:
+    """One rank of a mesh world (see :func:`mesh_phase`)."""
+    sys.path.insert(0, str(HERE / "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as lmesh
+
+    arch, shape, _ = MESH_CASES[case]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lmesh.init_world(rank, math.prod(shape), f"file://{MESH_DIR / case / 'store'}")
+    mesh = lmesh.make_mesh(shape, ("data", "model"))
+    check(mesh.device_type == "cuda", f"the mesh is on {mesh.device_type}")
+    fn = moe_rank if case == "moe" else hymba_rank
+    with torch.no_grad():
+        res = fn(get_config(arch), mesh, rank)
+    (MESH_DIR / case / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_memory(res: dict) -> None:
+    """Card memory in use by every process, read after every rank has
+    loaded its state (``mem_get_info``: total - free)."""
+    import torch.distributed as dist
+    dist.barrier()
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    res["mem_used_gib"], res["mem_total_gib"] = (total - free) / 2**30, total / 2**30
+    res["allocated_gib"] = torch.cuda.memory_allocated() / 2**30
+    dist.barrier()
+
+
+def moe_rank(cfg, mesh, rank: int) -> dict:
+    """Rank ``rank`` of the MoE world: init with this rank's experts pruned,
+    prune the rest, compress, serve, then the layer parity and the
+    collective times."""
+    from repro_torch.core.flexblock import FlexBlockSpec, FullBlock
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import _moe_block_global, moe_block
+    from repro_torch.models.transformer import decode_step, init_cache, init_params, prefill
+    from repro_torch.sparsity.apply import (compress_params, prune_local, prune_params,
+                                            sparsity_report)
+
+    tag = f"[mesh r{rank}] {cfg.name}"
+    spec = FlexBlockSpec((FullBlock(BLOCK, BLOCK, 0.5),))
+    keys = pruned_keys(cfg)
+    scale = math.sqrt(cfg.n_experts)
+    kept = {k: [0, 0] for k in EXPERT_KEYS}
+    M = shd.axis_size(mesh, "model")
+
+    def keep(name, w):
+        if name not in EXPERT_KEYS:
+            return w
+        w.mul_(scale)                       # a dense MLP's std, as dense_scale_experts
+        wl, ml = prune_local(w, name, spec, mesh, device="cuda")
+        kept[name][0] += int(torch.count_nonzero(ml))
+        kept[name][1] += ml.numel()
+        return wl
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda", keep=keep)
+    params, masks = prune_params(params, spec, keys=KEYS[:3], device="cuda")
+    density = {k.split("/")[-1]: v for k, v in sparsity_report(params, masks).items()
+               if k.startswith("layers/")}
+    density.update({k: n / tot for k, (n, tot) in kept.items()})
+    cparams = compress_params(params, masks, BLOCK, BLOCK)
+    del params, masks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res = {"prune_s": time.perf_counter() - t0, "density": density,
+           "experts_local": int(cparams["layers"]["w_up"].shape[1])}
+    print(f"{tag}: init + prune + compress {res['prune_s']:.1f}s, experts on this rank "
+          f"{res['experts_local']} of {cfg.n_experts}, density {json.dumps(density)}", flush=True)
+    for k in keys:
+        check(abs(density[k] - 0.5) < 1e-9, f"{k}: density {density[k]}")
+    check(res["experts_local"] == cfg.n_experts // M, "the rank does not hold its experts")
+    mesh_memory(res)
+
+    torch.cuda.reset_peak_memory_stats()
+    shd.reset_path_counts()
+    with shd.set_mesh(mesh):
+        prompts, reqs, counts = serve_phase(cfg, cparams, new_tokens=MESH_NEW_TOKENS)
+    paths = shd.path_counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["tokens"] = [[int(t) for t in r.output] for r in reqs]
+    res["launches"] = {n: counts[n] for n in KERNEL_NAMES}
+    model = {"spec": spec, "cparams": cparams, "comp_keys": KEYS[:3]}
+    stub = {n: {} for n in KERNEL_NAMES}
+    check_path_launches(cfg, stub, model, counts, len(reqs), "wgmma")
+    # every prefill and decode step, and host_issue's 6 steps after the count
+    want = cfg.n_layers * (len(reqs) + counts["steps"] + 6)
+    res["paths"] = paths
+    print(f"{tag}: mesh paths taken {json.dumps(paths)}; want moe_ep {want} (every layer of "
+          f"{len(reqs)} prefills, {counts['steps']} engine steps and 6 timed steps)", flush=True)
+    check(paths == {"moe_ep": want, "swa_seqpar": 0}, f"mesh paths {paths}")
+
+    with shd.set_mesh(mesh):
+        tok = torch.as_tensor(prompts[0], dtype=torch.long, device="cuda")[None]
+        res["prefill_ms"] = events_ms(lambda: prefill(cparams, tok, cfg), 3)
+        cache = init_cache(cfg, 4, 1024, device="cuda")
+        cache["pos"] = torch.full((4,), 600, dtype=torch.int64, device="cuda")
+        step_tok = torch.zeros(4, dtype=torch.long, device="cuda")
+        res["decode_step_ms"] = events_ms(lambda: decode_step(cparams, step_tok, cfg, cache))
+        del cache
+        lg = prefill(cparams, tok, cfg)[0][0, -1].float()
+    if MOE_LOGITS.exists():
+        single = torch.load(MOE_LOGITS).to("cuda")
+        res["logits_vs_single_process"] = (lg - single).abs().max().item()
+    else:
+        res["logits_vs_single_process"] = "not measured (no single-process run)"
+
+    # collectives of one layer at the decode and prefill shapes, bf16
+    D, E_loc = cfg.d_model, cfg.n_experts // M
+    for label, T_loc in (("decode", 4), (f"prefill_{len(prompts[0])}", len(prompts[0]))):
+        Ts = -(-T_loc // M)
+        C = max(1, math.ceil(Ts * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+        blocks = torch.zeros((M, E_loc, C, D), dtype=torch.bfloat16, device="cuda")
+        piece = torch.zeros((Ts, D), dtype=torch.bfloat16, device="cuda")
+        a2a = events_ms(lambda: coll.all_to_all(blocks, mesh, "model"), 10)
+        gat = events_ms(lambda: coll.gather_grid(piece, mesh, ((), ("model",))), 10)
+        res[f"collective_ms_{label}"] = {"all_to_all": a2a, "gather": gat,
+                                         "per_layer": 2 * a2a + gat,
+                                         "all_to_all_bytes": blocks.numel() * 2}
+
+    # layer parity at dropless capacity: the gathered experts through the global dispatch
+    dropless = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    parity = {}
+    for l in (0, cfg.n_layers - 1):
+        lp = {k: cparams["layers"][k][l] for k in (*EXPERT_KEYS, "w_router")}
+        whole = dict(lp, **{k: coll.all_gather(lp[k], mesh, "model", 0) for k in EXPERT_KEYS})
+        g = torch.Generator(device="cuda").manual_seed(SEED + l)
+        x = torch.randn((2, 128, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+        with shd.set_mesh(mesh):
+            y_ep = moe_block(x, lp, dropless)
+            shifted = dict(lp, **{k: lp[k].roll(1, dims=0) for k in EXPERT_KEYS})
+            y_fault = moe_block(x, shifted, dropless)
+        y_glob = _moe_block_global(x, whole, dropless)
+        y_glob = y_glob.float()
+        parity[l] = {"err": rel(y_ep.float(), y_glob),
+                     "fault_experts_offset": rel(y_fault.float(), y_glob)}
+        del whole
+    res["layer_parity"] = parity
+    print(f"{tag}: expert path vs global dispatch of the gathered experts at dropless capacity "
+          f"{dropless.capacity_factor}, (2, 128) tokens, max |d| / max |y| "
+          f"{json.dumps(parity)} (tol {MOE_MESH_TOL}); prefill of {len(prompts[0])} tokens "
+          f"{res['prefill_ms']:.1f} ms, 4-slot decode step {res['decode_step_ms']:.1f} ms; "
+          f"collectives {json.dumps({k: v for k, v in res.items() if k.startswith('collective')})}"
+          f"; prefill logits vs one process's (served capacity, drops differ by design): "
+          f"{res['logits_vs_single_process']}", flush=True)
+    for l, r in parity.items():
+        check(r["err"] <= MOE_MESH_TOL, f"layer {l}: expert path off by {r['err']}")
+        check(r["fault_experts_offset"] > MOE_MESH_TOL, f"layer {l}: the planted fault reads "
+                                                    f"{r['fault_experts_offset']}")
+    return res
+
+
+def hymba_rank(cfg, mesh, rank: int) -> dict:
+    """Rank ``rank`` of the window world: prune and compress hymba-1.5b
+    (replicated), one prefill through the window path with its launches
+    (one flash wgmma launch a layer, on the rank's block of B/2 x
+    (W + S/2) rows; rank coordinate 0 of "model" on S/2 rows),
+    decode steps, then each layer's attention against one process's."""
+    from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as TL
+    from repro_torch.models.layers import COMPRESSED, attention_block, rms_norm
+    from repro_torch.models.transformer import (_decoder_layer, _layer, decode_step,
+                                                init_params, prefill)
+    from repro_torch.sparsity.apply import compress_params, prune_params
+
+    tag = f"[mesh r{rank}] {cfg.name}"
+    spec = FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),))
+    keys = pruned_keys(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    params, masks = prune_params(params, spec, keys=keys, align_cols=True, device="cuda")
+    cparams = compress_params(params, masks, m=INTRA_M)
+    del params, masks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    comp_keys = tuple(k for k in keys if isinstance(cparams["layers"][k], COMPRESSED))
+    check(comp_keys == keys, f"{cfg.name}: {comp_keys} compressed of {keys}")
+    res = {"prune_s": time.perf_counter() - t0}
+    mesh_memory(res)
+
+    B, S, W = HYMBA_MESH_B, HYMBA_MESH_S, cfg.window
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(B, S)), dtype=torch.long,
+                             device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    shd.reset_path_counts()
+    with shd.set_mesh(mesh):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = prefill(cparams, tokens, cfg)
+        torch.cuda.synchronize()
+        res["prefill_ms"] = (time.perf_counter() - t1) * 1e3
+    counts = ops.launch_counts()
+    counts["variants"], counts["shapes"] = ops.variant_counts(), ops.gather_matmul_shape_counts()
+    counts["steps"] = 0
+    paths = shd.path_counts()
+    res["paths"], res["launches"] = paths, {n: counts[n] for n in KERNEL_NAMES}
+    print(f"{tag}: prefill of {B} x {S} on the mesh {res['prefill_ms']:.1f} ms; mesh paths "
+          f"{json.dumps(paths)} (want swa_seqpar {cfg.n_layers})", flush=True)
+    check(paths == {"moe_ep": 0, "swa_seqpar": cfg.n_layers}, f"mesh paths {paths}")
+    check_single_variant(cfg, "flash_attention", "wgmma", counts, cfg.n_layers)
+    check(counts["block_sparse_matmul"] == 0, "block_sparse_matmul ran on an IntraBlock path")
+    check_main_variants(cfg, "intrablock_gather_matmul", counts, 1, cparams, comp_keys)
+
+    steps = HYMBA_MESH_STEPS
+    for key in ("k", "v"):
+        cache[key] = F.pad(cache[key], (0, 0, 0, 0, 0, steps))
+    out = [logits[:, -1].argmax(-1)]
+    with shd.set_mesh(mesh):
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            lg, cache = decode_step(cparams, out[-1], cfg, cache)
+            out.append(lg.argmax(-1))
+        torch.cuda.synchronize()
+        res["decode_step_ms"] = (time.perf_counter() - t1) * 1e3 / steps
+    res["tokens"] = torch.stack(out, dim=1).tolist()
+    check(shd.path_counts()["swa_seqpar"] == cfg.n_layers, "a decode step took the window path")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del cache, logits
+
+    # each layer on the same input: the window path against one process's attention
+    x = cparams["embed"][tokens]
+    pos = torch.arange(S, device="cuda").expand(B, S)
+    worst = {"y": 0.0, "k": 0.0, "v": 0.0}
+    S_loc = S // shd.axis_size(mesh, "model")
+    rope, attend = TL.rope, TL._causal_self_attention
+
+    def halo_dropped(q, k, v, cfg, *, window, impl):
+        # the rank's block cut to its own slice: no keys before it
+        n = q.shape[1] - S_loc
+        out = attend(q[:, n:], k[:, n:], v[:, n:], cfg, window=window, impl=impl)
+        return F.pad(out, (0, 0, 0, 0, n, 0))
+
+    # planted faults, each read where it lands: RoPE restarted at each block's
+    # start shifts every key of model rank 1 by W (rank 0's block starts at 0),
+    # which moves k and barely moves y (random weights give near-uniform
+    # attention over ~W keys); a block without its W halo keys moves y
+    plants = {"rope_from_0": ("rope", lambda t, p, th: rope(t, p - p[..., :1], th), "k"),
+              "halo_dropped": ("_causal_self_attention", halo_dropped, "y")}
+    faults = {}
+    for l in range(cfg.n_layers):
+        lp = _layer(cparams["layers"], l)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        ys, (ks, vs) = attention_block(h, lp, cfg, positions=pos, window=W)
+        with shd.set_mesh(mesh):
+            ym, (km, vm) = attention_block(h, lp, cfg, positions=pos, window=W)
+            for name, (attr, fn, _) in plants.items() if l == 0 else ():
+                orig = getattr(TL, attr)
+                setattr(TL, attr, fn)
+                try:
+                    yf, (kf, _) = attention_block(h, lp, cfg, positions=pos, window=W)
+                finally:
+                    setattr(TL, attr, orig)
+                faults[name] = {"y": rel(yf.float(), ys.float()), "k": rel(kf.float(), ks.float())}
+            x, _ = _decoder_layer(x, lp, cfg, positions=pos, window=W)
+        for name, a, b in (("y", ym, ys), ("k", km, ks), ("v", vm, vs)):
+            worst[name] = max(worst[name], rel(a.float(), b.float()))
+    res["layer_parity"], res["faults"] = worst, faults
+    print(f"{tag}: {steps} decode steps {res['decode_step_ms']:.1f} ms each; each layer's "
+          f"attention (window path, flash on the rank's block) vs one process's (flash) on the "
+          f"same input, worst over {cfg.n_layers} layers, max |d| / max |ref| "
+          f"{json.dumps(worst)} (tol {MESH_TOL}); planted faults at layer 0, each held on the "
+          f"output it lands on ({json.dumps({n: t for n, (_, _, t) in plants.items()})}): "
+          f"{json.dumps(faults)}", flush=True)
+    for name, e in worst.items():
+        check(e <= MESH_TOL, f"window path {name} off by {e}")
+    for name, (_, _, on) in plants.items():
+        check(faults[name][on] > MESH_TOL, f"the planted fault {name} reads {faults[name]}")
+    return res
 
 
 def microbench_phase() -> list:
@@ -2940,6 +3354,9 @@ def main() -> int:
             torch.cuda.empty_cache()
             print(f"[time] {name} path {time.perf_counter() - t0:.1f}s; device memory after "
                   f"freeing it {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+        t0 = time.perf_counter()
+        mesh_phase(rows)
+        print(f"[time] mesh phase {time.perf_counter() - t0:.1f}s", flush=True)
         samples = microbench_phase()
         prof = cost_phase(samples, [qwen, llama, *later])
         dryrun_phase(samples, prof)
@@ -2972,4 +3389,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-rank" in sys.argv:
+        sys.exit(mesh_rank(int(sys.argv[sys.argv.index("--mesh-rank") + 1]),
+                           sys.argv[sys.argv.index("--mesh-case") + 1]))
     sys.exit(main())

@@ -36,9 +36,15 @@ Results append to a JSONL ledger (``--out``), one record per cell and one
 ``error`` record per failed cell (exit 1 on any), so an interrupted
 matrix run resumes where it stopped (``--skip-done``).
 
-Not ported here: the sharding knobs (``--fsdp``, ``--no-zero1``,
-``--no-ep``, ``--legacy-sharding``) and ``--mesh multi|both`` (one card,
-mesh ``local``), ``--scores-bf16`` and ``--emit-trace``.
+Not ported here: the dry-run on a mesh (``--mesh single|multi|both``, the
+sharding knobs ``--fsdp``, ``--no-zero1``, ``--no-ep`` and
+``--legacy-sharding``, per-device counts and ``collective_bytes`` by
+kind).  It is the next piece of work: counted on ``meta`` under a fake
+process group of 256 or 512 ranks, with the params placed by
+:func:`repro_torch.distributed.sharding.tree_shardings`, it needs the
+whole model sharded by the specs, where the port's mesh today runs the
+global view with two mesh paths (:mod:`repro_torch.distributed.sharding`).
+Nor are ``--scores-bf16`` and ``--emit-trace``.
 
 Usage (from the repository root, with ``PYTHONPATH=src``):
   python -m repro_torch.launch.dryrun --arch qwen3-4b --cell prefill_32k --out d.jsonl
@@ -266,8 +272,8 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str = "local", *,
     """Count one cell (and, with ``execute``, run it on ``device``, the card
     by default); returns its ledger record, with the reference's keys."""
     if mesh_kind != "local":
-        raise ValueError(f"mesh {mesh_kind!r}: the port's dry-run runs on one card "
-                         "(mesh 'local')")
+        raise ValueError(f"mesh {mesh_kind!r}: the port's dry-run counts one card "
+                         "(mesh 'local'); counting on a mesh is not ported yet")
     cfg = get_config(arch)
     if ffn_compress > 0:
         # FullBlock row-compressed FFN: pruned rows of w_up/w_gate (and

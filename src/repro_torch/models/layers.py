@@ -1,10 +1,18 @@
 """Model-layer primitives of the decoder (port of
 ``repro/models/layers.py``): RMSNorm, RoPE, softcap, chunked
 online-softmax attention with GQA, windows, an attention softcap and a
-prefix-LM mask, the attention sub-block (causal or bidirectional), the
-gated or plain MLP, the capacity-bounded top-k MoE
-block (the reference's global-dispatch path) and the Mamba-2 mixer
-(chunked SSD for prefill, the single-step recurrence for decode).
+prefix-LM mask, the attention sub-block (causal or bidirectional; on a
+mesh, the sequence-parallel window path), the gated or plain MLP, the
+capacity-bounded top-k MoE block (the global-dispatch path, and on a
+mesh the expert-parallel path) and the Mamba-2 mixer (chunked SSD for
+prefill, the single-step recurrence for decode).
+
+The two mesh paths run in the global view of
+:mod:`repro_torch.distributed.sharding`: every rank holds the global
+tensors, a path cuts its rank's slice on entry, computes with explicit
+collectives (:mod:`repro_torch.distributed.collectives`) and gathers the
+global result on exit, so every rank's value at a layer boundary is the
+reference's.
 
 Projections are either dense weights in the reference layout (``wq``
 (d, Hq, hd), ``wo`` (Hq, hd, d), ``w_up`` (d, F), ...) or compressed
@@ -22,6 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import collectives as coll
+from ..distributed import sharding as shd
+from ..distributed.sharding import P
 from ..kernels import ops
 from ..kernels.intrablock_matmul import check_row_idx
 
@@ -241,6 +252,96 @@ def self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :S]
 
 
+def _causal_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg, *,
+                           window: Optional[int], impl: str) -> torch.Tensor:
+    """Causal self-attention with no prefix, by :func:`attention_block`'s
+    route: :func:`self_attention` (the flash op) under no grad and without
+    an attention softcap, else :func:`chunked_attention`."""
+    train = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if train or cfg.attn_softcap > 0:
+        return chunked_attention(q, k, v, causal=True, window=window, attn_cap=cfg.attn_softcap)
+    return self_attention(q, k, v, window=window, impl=impl)
+
+
+# the unit the sequence length must come in on each model rank for the
+# sequence-parallel window path (the reference's query tile)
+SEQPAR_CHUNK = 1024
+
+
+def _swa_seqpar_attention(x: torch.Tensor, p: Params, cfg, mesh, *, window: int,
+                          impl: str = "auto"):
+    """Sequence-parallel sliding-window attention (the reference's
+    ``_swa_seqpar_attention``, ``repro/models/layers.py:297-375``).
+
+    For head counts that do not divide the "model" axis (hymba: 25 q / 5
+    kv heads), each of the M model ranks takes a contiguous 1/M slice of
+    the query sequence, starting at ``start = m·S/M``, against the keys of
+    its block ``[lo, start + S/M)``, ``lo = max(0, start - W)``: the slice
+    and the W positions before it, which are all a windowed query of the
+    slice can see.  RoPE is applied at the absolute positions of both.
+    Each data rank takes its batch slice, as the reference's ``in_specs``
+    P(batch axes) cut it.  The projections run inside on the slice,
+    through :func:`project` (a compressed weight runs its kernel).  On
+    exit every rank gathers the output and the rank's own k/v (the
+    prefill cache) over the mesh.  Returns (y, k, v), each global.
+
+    The attention is causal self-attention over the block, windowed by W,
+    with the block's first ``start - lo`` query rows zero (they only hold
+    keys) and dropped after: the causal and window masks read only index
+    differences, which the offset keeps, so each kept row equals the
+    reference's tile of W + S/M keys masked to positions >= 0.  So it takes
+    :func:`attention_block`'s route: the flash op under no grad, else
+    :func:`chunked_attention`.  ``positions`` is not read: as in the
+    reference, RoPE comes from ``start + arange``, so the path is right for
+    a prefill from position 0.
+    """
+    B, S, D = x.shape
+    M = shd.axis_size(mesh, "model")
+    S_loc = S // M
+    W = window
+    baxes = shd.mesh_batch_axes(mesh)
+    dev = x.device
+    shd.count_path("swa_seqpar")
+
+    xl = coll.enter(x, P(baxes, None, None), mesh)
+    wq, wk, wv, wo = (coll.enter(p[k], P(), mesh) for k in ("wq", "wk", "wv", "wo"))
+    B_loc = xl.shape[0]
+    start = shd.coordinate(mesh, "model")[0] * S_loc
+    lo = max(0, start - W)
+    off, L = start - lo, start + S_loc - lo
+    xb = xl[:, lo:start + S_loc]
+    q = project(xb[:, off:], wq, impl).to(x.dtype)
+    k = project(xb, wk, impl).to(x.dtype)
+    v = project(xb, wv, impl).to(x.dtype)
+    q = rope(q, (start + torch.arange(S_loc, device=dev)).expand(B_loc, S_loc), cfg.rope_theta)
+    k = rope(k, (lo + torch.arange(L, device=dev)).expand(B_loc, L), cfg.rope_theta)
+    q = F.pad(q, (0, 0, 0, 0, off, 0))
+    out = _causal_self_attention(q, k, v, cfg, window=W, impl=impl)[:, off:]
+    y = project(out, wo, impl, n_in=2).to(x.dtype)
+    groups = (baxes, ("model",))
+
+    def gathered(piece):
+        # (nb, M, B_loc, S_loc, ...) → (nb·B_loc, M·S_loc, ...)
+        g = coll.gather_grid(piece, mesh, groups)
+        g = g.transpose(1, 2)
+        return g.reshape(B, S, *piece.shape[2:])
+
+    return gathered(y), gathered(k[:, off:]), gathered(v[:, off:])
+
+
+def _takes_seqpar(cfg, S: int, *, causal: bool, window, prefix: int) -> bool:
+    """The reference's condition for the sequence-parallel path
+    (``repro/models/layers.py:403-411``): no cache, causal, a static int
+    window, no qk-norm, no prefix, and an active mesh whose "model" axis
+    is > 1, does not divide the q heads and divides S in SEQPAR_CHUNKs."""
+    mesh = shd.active_mesh()
+    if mesh is None or "model" not in shd.axis_names(mesh):
+        return False
+    M = shd.axis_size(mesh, "model")
+    return (causal and isinstance(window, int) and not cfg.qk_norm and prefix == 0
+            and M > 1 and cfg.n_heads % M != 0 and S % (M * SEQPAR_CHUNK) == 0)
+
+
 def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None, prefix: int = 0,
                     cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -277,7 +378,14 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
       overwrites its last slots); at per-sequence (B,) positions a row
       whose position is past the end is dropped, as JAX's scatter drops
       it.  Neither reads the position back to the host.
+    * on a mesh, a prefill or forward with no cache that meets the
+      reference's condition (:func:`_takes_seqpar`) runs through
+      :func:`_swa_seqpar_attention`.
     """
+    if cache_kv is None and _takes_seqpar(cfg, x.shape[1], causal=causal, window=window,
+                                          prefix=prefix):
+        y, k, v = _swa_seqpar_attention(x, p, cfg, shd.active_mesh(), window=window, impl=impl)
+        return y, (k, v)
     q = project(x, p["wq"], impl)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -288,12 +396,11 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     k = rope(k, positions, cfg.rope_theta)
     if cache_kv is None:
-        train = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-        if train or not causal or prefix > 0 or cfg.attn_softcap > 0:
+        if not causal or prefix > 0:
             out = chunked_attention(q, k, v, causal=causal, window=window, prefix=prefix,
                                     attn_cap=cfg.attn_softcap)
         else:
-            out = self_attention(q, k, v, window=window, impl=impl)
+            out = _causal_self_attention(q, k, v, cfg, window=window, impl=impl)
         new_kv = (k, v)
     else:
         K, V = cache_kv
@@ -429,19 +536,109 @@ def _expert_ffn(eb: torch.Tensor, p: Params, cfg, dtype: torch.dtype) -> torch.T
     return torch.bmm(h, p["w_down"]).to(dtype)
 
 
-def moe_block(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
-    """Capacity-based top-k MoE over the B·S tokens of ``x`` (B, S, D): the
-    reference's global-dispatch path (``_moe_block_global``).  Its
-    expert-parallel path (``_moe_block_ep``, a shard_map over a mesh) is
-    not ported.  The expert leaves are dense (masked) weights, so no
-    kernel runs here."""
+def _moe_block_global(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+    """The global-dispatch path over the B·S tokens of ``x`` (B, S, D):
+    the reference's ``_moe_block_global``.  The expert leaves are dense
+    (masked) weights, so no kernel runs here."""
     B, S, D = x.shape
     T = B * S
+    if p["w_up"].shape[0] != cfg.n_experts:
+        raise ValueError(f"the expert leaves hold {p['w_up'].shape[0]} of {cfg.n_experts} "
+                         "experts (a rank's slice): only the expert-parallel path takes them")
     eb, top_p, keep, dest, tok_idx, _ = _moe_dispatch(
         x.reshape(T, D), p["w_router"], cfg.n_experts, cfg.top_k, cfg.capacity_factor,
         x.dtype)
     eo = _expert_ffn(eb, p, cfg, x.dtype)
     return _moe_combine(eo, top_p, keep, dest, tok_idx, T, D, x.dtype).reshape(B, S, D)
+
+
+def _expert_leaf(w: torch.Tensor, key: str, cfg, mesh, fsdp: bool) -> torch.Tensor:
+    """This rank's experts of one layer's expert leaf, whole over their
+    other dims: the slice the reference's ``in_specs`` cut (through
+    :func:`~repro_torch.distributed.sharding.spec_for_param`), then, with
+    ``fsdp``, all-gathered over "data" where the spec put it.  A leaf may
+    be given whole (E, ...) or as this rank's "model" slice (E/M, ...),
+    the layout a mesh run keeps when the whole model does not fit on
+    every rank (``init_params(keep=)`` with
+    :func:`~repro_torch.sparsity.apply.prune_local`)."""
+    E, M = cfg.n_experts, shd.axis_size(mesh, "model")
+    spec = shd.layer_spec(key, (E,) + tuple(w.shape[1:]), fsdp=fsdp)
+    if w.shape[0] == E // M and M > 1:
+        spec = P(None, *spec[1:])
+    elif w.shape[0] != E:
+        raise ValueError(f"{key}: {w.shape[0]} experts, neither {E} nor {E // M}")
+    w = coll.enter(w, spec, mesh)
+    for d, entry in enumerate(spec):
+        if entry is not None and "data" in ((entry,) if isinstance(entry, str) else entry) \
+                and "data" in shd.axis_names(mesh):
+            w = coll.all_gather(w, mesh, "data", d)
+    return w
+
+
+def _moe_block_ep(x: torch.Tensor, p: Params, cfg, mesh, baxes) -> torch.Tensor:
+    """Expert-parallel MoE (the reference's ``_moe_block_ep``,
+    ``repro/models/layers.py:556-639``).
+
+    Each rank takes its batch slice (P(batch axes)); each of the M model
+    ranks routes a disjoint 1/M slice of the local T_loc tokens, zero-padded
+    to Ts·M rows (Ts = ceil(T_loc / M); pad rows are routed too, as in the
+    reference), with capacity C from its Ts tokens.  The (M, E/M, C, D)
+    capacity blocks are exchanged over "model" (block j to the rank that
+    holds experts j·E/M ...), the resident experts run over the M·C rows
+    from every source, the blocks go back by the reverse exchange, and
+    each rank combines its own tokens.  On exit every rank gathers the
+    tokens of every rank.  Capacity drops are per slice, so at a dropping
+    capacity they differ from the global path's, as in the reference.
+    """
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    M = shd.axis_size(mesh, "model")
+    E_loc = E // M
+    fsdp = shd.get_options().fsdp
+    shd.count_path("moe_ep")
+
+    xl = coll.enter(x, P(baxes, None, None), mesh)
+    wr = coll.enter(p["w_router"], P(), mesh)
+    lp = {k: _expert_leaf(p[k], k, cfg, mesh, fsdp) for k in ("w_gate", "w_up", "w_down")
+          if k in p}
+    B_loc = xl.shape[0]
+    T_loc = B_loc * S
+    xt = xl.reshape(T_loc, D)
+    Ts = -(-T_loc // M)
+    pad = Ts * M - T_loc
+    if pad:
+        xt = torch.cat([xt, xt.new_zeros((pad, D))])
+    mi = shd.coordinate(mesh, "model")[0]
+    xs = xt[mi * Ts:(mi + 1) * Ts]
+    eb, top_p, keep, dest, tok_idx, C = _moe_dispatch(xs, wr, E, K, cfg.capacity_factor,
+                                                      x.dtype)
+    ex = coll.all_to_all(eb.reshape(M, E_loc, C, D), mesh, "model")   # dim 0: source rank
+    ex = ex.transpose(0, 1).reshape(E_loc, M * C, D)
+    eo = _expert_ffn(ex, lp, cfg, x.dtype)                             # (E_loc, M·C, D)
+    eo = eo.reshape(E_loc, M, C, D).transpose(0, 1)
+    eo = coll.all_to_all(eo, mesh, "model").reshape(E, C, D)           # back to the sources
+    ys = _moe_combine(eo, top_p, keep, dest, tok_idx, Ts, D, x.dtype)
+    nb = math.prod(shd.axis_size(mesh, a) for a in baxes)
+    y = coll.gather_grid(ys, mesh, (baxes, ("model",)))                # (nb, M, Ts, D)
+    return y.reshape(nb, M * Ts, D)[:, :T_loc].reshape(B, S, D)
+
+
+def moe_block(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+    """Capacity-based top-k MoE over the tokens of ``x`` (B, S, D), chosen
+    as the reference's ``moe_block`` chooses (``layers.py:642-658``): the
+    expert-parallel path (:func:`_moe_block_ep`) with ``ep_shardmap`` on,
+    on a mesh whose "model" axis divides the expert count, when the batch
+    divides the batch axes; the global-dispatch path
+    (:func:`_moe_block_global`) otherwise."""
+    mesh = shd.active_mesh()
+    if (shd.get_options().ep_shardmap and mesh is not None
+            and "model" in shd.axis_names(mesh)
+            and cfg.n_experts % shd.axis_size(mesh, "model") == 0):
+        baxes = shd.mesh_batch_axes(mesh)
+        nb = math.prod(shd.axis_size(mesh, a) for a in baxes)
+        if x.shape[0] % max(nb, 1) == 0:
+            return _moe_block_ep(x, p, cfg, mesh, baxes)
+    return _moe_block_global(x, p, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -151,7 +151,8 @@ _CONSTANT_INIT = {"A_log": 0.0, "dt_bias": 0.0, "D_skip": 0.5}
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
-                device: Optional[Union[str, torch.device]] = None) -> Params:
+                device: Optional[Union[str, torch.device]] = None,
+                keep: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None) -> Params:
     """Random weights with the reference init's distributions.
 
     Norm scales are zero, ``A_log`` and ``dt_bias`` zero, ``D_skip`` 0.5;
@@ -166,6 +167,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
     at a time so the f32 draw never holds more than one layer.  Each
     weight is its own draw: the reference draws ``enc_cross`` wk and wv
     from one key, so they are equal there, and not here.
+
+    ``keep(name, w)``, when given, sees each drawn layer ``w`` of a decoder
+    weight ``name`` and returns what to store of it (e.g. a rank's pruned
+    slice of an expert leaf, so that the whole leaf never stands on the
+    device); the draws, and so every other weight, are as without it.
     """
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -175,7 +181,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
     def normal(shape, std):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
 
-    def stacked(shapes, n):
+    def stacked(shapes, n, keep=None):
         layers = {}
         for name, shp in sorted(shapes.items()):
             if name.startswith(("ln", "post_ln")) or name.endswith("_norm"):
@@ -186,16 +192,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
                                           device=dev)
                 continue
             fan_in = d if name in ("wq", "wk", "wv") else math.prod(shp[:-1])
-            layers[name] = per_layer((n,) + shp, 1.0 / math.sqrt(max(fan_in, 1)))
+            layers[name] = per_layer((n,) + shp, 1.0 / math.sqrt(max(fan_in, 1)),
+                                     None if keep is None else functools.partial(keep, name))
         return layers
 
-    def per_layer(shape, std):
-        w = torch.empty(shape, dtype=dtype, device=dev)
+    def per_layer(shape, std, kept=None):
+        w = None if kept is not None else torch.empty(shape, dtype=dtype, device=dev)
         for l in range(shape[0]):
-            w[l] = normal(shape[1:], std)
+            wl = normal(shape[1:], std)
+            if kept is not None:
+                wl = kept(wl)
+                if w is None:
+                    w = torch.empty((shape[0],) + tuple(wl.shape), dtype=wl.dtype, device=dev)
+            w[l] = wl
         return w
 
-    layers = stacked(_layer_shapes(cfg), L)
+    layers = stacked(_layer_shapes(cfg), L, keep)
     params: Params = {
         "embed": normal((cfg.vocab_size, d), 1.0 / math.sqrt(d)),
         "final_norm": torch.zeros((d,), dtype=dtype, device=dev),

@@ -35,11 +35,12 @@ from ..core.flexblock import FlexBlockSpec
 from ..core.mapping import default_mapping
 from ..core.pruning import flexblock_mask
 from ..core.workload import lm_workload
+from ..distributed.sharding import layer_spec, local_shard
 from ..kernels.ops import aligned_rows, compress_fullblock_torch, compress_intrablock_torch
 from ..models.layers import BlockSparseLinear, IntraBlockLinear
 
-__all__ = ["PRUNABLE_KEYS", "prune_params", "sparsity_report", "compress_params",
-           "cim_cost_of_model"]
+__all__ = ["PRUNABLE_KEYS", "prune_params", "prune_local", "sparsity_report",
+           "compress_params", "cim_cost_of_model"]
 
 PRUNABLE_KEYS = ("w_gate", "w_up", "w_down", "w_in", "w_out",
                  "wq", "wk", "wv", "wo")
@@ -107,6 +108,25 @@ def prune_params(params: Dict[str, Any], spec: FlexBlockSpec, *, criterion: str 
     out = dict(params)
     out["layers"] = new_layers
     return out, masks
+
+
+def prune_local(w: torch.Tensor, key: str, spec: FlexBlockSpec, mesh, *,
+                device: Optional[Union[str, torch.device]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prune one layer ``w`` (E, K, N) of an MoE expert leaf whole and keep
+    this rank's experts: (pruned slice, its mask), each a new tensor on
+    ``device`` (the mask on the host, as :func:`prune_params` keeps an
+    expert mask).  The reference masks the layer as (E, K·N), so a
+    FullBlock block spans the experts of every rank and no rank can pick
+    its part of the mask from its own experts; pruned whole, the slice is
+    the single-process mask's.  The rank's experts are those the expert
+    path takes (the leaf's spec on ``mesh``, "model" on E)."""
+    if w.dim() != 3 or key not in ("w_gate", "w_up", "w_down"):
+        raise ValueError(f"{key} {tuple(w.shape)}: not one layer of an expert leaf")
+    one, masks = prune_params({"layers": {key: w[None]}}, spec, keys=(key,), device=device)
+    cut = layer_spec(key, tuple(w.shape), fsdp=False)
+    return (local_shard(one["layers"][key][0], cut, mesh).clone(),
+            local_shard(masks["layers"][key][0], cut, mesh).clone())
 
 
 def sparsity_report(params: Dict[str, Any], masks: Dict[str, Any]) -> Dict[str, float]:

@@ -6,6 +6,7 @@ import jax, so it runs where only PyTorch is installed).
 """
 import ctypes
 import dataclasses
+import json
 import subprocess
 from pathlib import Path
 
@@ -1221,3 +1222,78 @@ def test_dryrun_counts_the_cards_route_and_executes_on_the_card(gen):
     assert timing["execute_repeats"] == 2 and timing["time_s"] > 0
     assert timing["device"] == torch.cuda.get_device_name(0)
     assert timing["measured_peak_bytes"] >= meta.argument_bytes
+
+
+def test_mesh_paths_on_the_card_match_one_process(gen, tmp_path):
+    """The expert and window paths in a 2-rank gloo world on ``cuda:0``, a
+    (data 1, model 2) mesh (tests/_torch_dist_worker.py; every collective
+    asserts CUDA tensors), against the same calls in this one process
+    with no mesh, f32: the MoE block dropless and at a decode batch of one
+    token (T_loc < M), with its gradients; the window attention (5 heads,
+    window 64, S 2048), with its gradients, and under no grad (head dim
+    64, which the CUDA kernel takes) through flash on each rank's block
+    against one process's flash."""
+    import os
+    import sys
+
+    import _dist_cases as cases
+    from repro_torch.models import layers as TL
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root / "src"), str(root / "tests")]))
+    procs = [subprocess.Popen([sys.executable, str(root / "tests" / "_torch_dist_worker.py"),
+                               str(r), "2", str(tmp_path / "store"), str(tmp_path), "cuda"],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), logs
+    out = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    for k in out[0]:
+        assert np.array_equal(out[0][k], out[1][k]), k
+
+    def cu(a, grad=False):
+        return torch.tensor(a, device="cuda").requires_grad_(grad)
+
+    mcfg, scfg = cases.moe_cfg(), cases.swa_cfg()
+    for name, inp, grads in (("moe_dropless", cases.moe_inputs(mcfg), True),
+                             ("moe_decode", cases.moe_inputs(mcfg, batch=1, seq=1, seed=4),
+                              False)):
+        p = {k: cu(inp[k], grads) for k in ("w_router", "w_up", "w_gate", "w_down")}
+        x = cu(inp["x"], grads)
+        y = TL._moe_block_global(x, p, mcfg)
+        assert np.abs(out[0][f"{name}/y"] - y.detach().cpu().numpy()).max() <= cases.MOE_TOL
+        if grads:
+            (y * cu(inp["cot"])).sum().backward()
+            for k, g in dict(p, x=x).items():
+                want = g.grad.cpu().numpy()
+                assert np.abs(out[0][f"{name}/grad_{k}"] - want).max() \
+                    <= cases.MOE_TOL * max(1.0, float(np.abs(want).max())), k
+    inp = cases.swa_inputs(scfg)
+    p = {k: cu(v, True) for k, v in inp.items() if k not in ("x", "cot")}
+    x = cu(inp["x"], True)
+    S = x.shape[1]
+    y, (k, v) = TL.attention_block(x, p, scfg, positions=torch.arange(S, device="cuda")[None],
+                                   causal=True, window=scfg.window, impl="ref")
+    for name, want in (("y", y), ("k", k), ("v", v)):
+        assert np.abs(out[0][f"swa/{name}"] - want.detach().cpu().numpy()).max() <= cases.SWA_TOL
+    (y * cu(inp["cot"])).sum().backward()
+    for name, g in dict(p, x=x).items():
+        assert np.abs(out[0][f"swa/grad_{name}"] - g.grad.cpu().numpy()).max() \
+            <= cases.GRAD_TOL, name
+    # under no grad the window path runs flash on each rank's block, one launch a rank
+    assert json.loads((tmp_path / "rank0.json").read_text())["swa_flash_launches"] == 1
+    fcfg = cases.swa_cfg(head_dim=64)
+    inp = cases.swa_inputs(fcfg)
+    p = {k: cu(v) for k, v in inp.items() if k not in ("x", "cot")}
+    with torch.no_grad():
+        y, (k, v) = TL.attention_block(cu(inp["x"]), p, fcfg, causal=True, window=fcfg.window,
+                                       positions=torch.arange(S, device="cuda")[None])
+    for name, want in (("y", y), ("k", k), ("v", v)):
+        want = want.cpu().numpy()
+        assert np.abs(out[0][f"swa_flash/{name}"] - want).max() \
+            <= TOL[torch.float32] * max(1.0, float(np.abs(want).max())), name
