@@ -172,7 +172,23 @@ Phases, each reported on its own line(s):
    unit efficiencies must give (b) bit for bit, (c) must be (b) (or (a))
    with each op's latency divided by its class's efficiency, and the
    density of every mask the card produced must be the spec's;
-15. the ``{"kernels": [...]}`` line; 16. the card's name and power limit.
+15. dry-run — the launch layer (:func:`dryrun_phase`): cells counted on
+   ``meta``, qwen3-4b's train_4k (B 1), prefill_32k (B 1) and decode_32k
+   (B 8) executed on zeros, each with ``--emit-trace``: the record's five
+   ``trace_*`` fields, its graph reloading to the recorded digest, and for
+   the prefill and train cells MVM macs equal to ``lm_workload``'s at the
+   record's shape (:func:`emitted_trace_check`);
+16. trace   — the modeling plane's front end (:func:`trace_phase`), on
+   ``meta`` tensors and the host, no launch: every config's forward,
+   prefill and decode at published width and depth (S 128, B 1) captured
+   and lowered, forward and prefill diffed against ``lm_workload`` (MVM
+   macs, MVM weights and total weights equal), decode sorted and
+   simulated on ``usecase_arch(16)`` under the three schedule policies;
+   vgg16, resnet18 and resnet50 at img 32 diffed against their builders;
+   two captures of llama3-8b forward with equal digests; llama3-8b's own
+   forward (``source="model"``) at S 8 and 128, its MVM weights equal to
+   the hand DAG's and, at S 8, its macs within (0.9, 1.2) of them;
+17. the ``{"kernels": [...]}`` line; 18. the card's name and power limit.
 
 The launch counts are set to 0 just before each path and read just
 after it: on each served path from prune to the end of serving (every
@@ -3185,6 +3201,40 @@ def logit_check(card: str) -> None:
     check(err <= PATH_TOL, f"prefill_32k logits: {err} > {PATH_TOL}")
 
 
+def emitted_trace_check(rec: dict) -> None:
+    """An executed dry-run record's ``--emit-trace`` fields: all five, the
+    graph on disk reloading to the recorded digest and lowering to the
+    recorded totals, and, for a prefill or train cell, MVM macs equal to
+    ``lm_workload``'s at the record's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.workload import lm_workload
+    from repro_torch.trace import TraceGraph, lower_graph, summarize
+
+    keys = ("trace_path", "trace_digest", "trace_ops", "trace_mvm_macs", "trace_mvm_weights")
+    check(all(k in rec for k in keys), f"{rec['cell']}: the record lacks a trace field")
+    path = Path(rec["trace_path"])
+    check(path.is_file(), f"{rec['cell']}: no trace graph at {path}")
+    graph = TraceGraph.load(path)
+    check(graph.digest() == rec["trace_digest"], f"{rec['cell']}: {path.name} reloads to "
+          f"digest {graph.digest()[:16]}, the record has {rec['trace_digest'][:16]}")
+    check((graph.meta["batch"], graph.meta["seq_len"]) == (rec["global_batch"], rec["seq_len"]),
+          f"{rec['cell']}: traced at {graph.meta}, ran B {rec['global_batch']}")
+    s = summarize(lower_graph(graph))
+    check((s["mvm_macs"], s["mvm_weights"]) == (rec["trace_mvm_macs"], rec["trace_mvm_weights"]),
+          f"{rec['cell']}: the graph lowers to {s}, not the record's totals")
+    hand = None
+    if rec["kind"] in ("train", "prefill"):
+        hand = lm_workload(get_config(rec["arch"]), seq_len=rec["seq_len"],
+                           batch=rec["global_batch"]).total_macs()
+        check(rec["trace_mvm_macs"] == hand,
+              f"{rec['cell']}: trace_mvm_macs {rec['trace_mvm_macs']} != lm_workload's {hand}")
+    print(f"[dryrun] --emit-trace {rec['arch']} {rec['cell']} (B {rec['global_batch']}, S "
+          f"{rec['seq_len']}): {path.relative_to(HERE)} digest {rec['trace_digest'][:16]}, "
+          f"{rec['trace_ops']} ops, mvm macs {rec['trace_mvm_macs']!r}"
+          + ("" if hand is None else " (= lm_workload's)")
+          + f", mvm weights {rec['trace_mvm_weights']!r}", flush=True)
+
+
 def dryrun_phase(micro_samples: list, micro_prof) -> None:
     """The launch layer on the card (module docstring, phase 15)."""
     from repro_torch.calibrate.fit import fit_profile
@@ -3217,7 +3267,7 @@ def dryrun_phase(micro_samples: list, micro_prof) -> None:
         resident = torch.cuda.memory_allocated() / 2**30
         ops.reset_launch_counts()
         rc = dryrun.main(["--arch", "qwen3-4b", "--cell", cell, "--execute", str(DRYRUN_REPEATS),
-                          "--batch", str(batch), "--out", str(ledger)])
+                          "--batch", str(batch), "--out", str(ledger), "--emit-trace"])
         counts, variants = ops.launch_counts(), ops.variant_counts()
         gc.collect()
         torch.cuda.empty_cache()
@@ -3239,6 +3289,7 @@ def dryrun_phase(micro_samples: list, micro_prof) -> None:
             check(sum(counts.values()) == want, f"prefill_32k launched {counts}")
         else:
             check(sum(counts.values()) == 0, f"qwen3-4b {cell} launched {counts}")
+        emitted_trace_check(rec)
         executed[cell] = rec
         times[cell] = time.perf_counter() - t0
 
@@ -3278,6 +3329,101 @@ def dryrun_phase(micro_samples: list, micro_prof) -> None:
     times["fit, roofline, histogram"] = time.perf_counter() - t0
     print(f"[time] dry-run phase {sum(times.values()):.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in times.items()), flush=True)
+
+
+TRACE_SEQ, TRACE_BATCH, TRACE_IMG = 128, 1, 32
+CNNS = ("vgg16", "resnet18", "resnet50")
+
+
+def trace_phase() -> None:
+    """The modeling plane's front end (``repro_torch.trace``) on every
+    config at published width and depth (module docstring, phase 16).  It
+    runs on ``meta`` tensors and the host: it launches no kernel."""
+    from repro_torch.analysis import preflight
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.core import SchedulePolicy, default_mapping, simulate, usecase_arch
+    from repro_torch.core.schedule import POLICIES
+    from repro_torch.core.workload import MODEL_BUILDERS, lm_workload
+    from repro_torch.kernels import ops
+    from repro_torch.trace import diff_workloads, lower_graph, summarize, trace_model
+    from repro_torch.trace.capture import cnn_graph
+
+    card = card_line()
+    arch16 = usecase_arch(16)
+    mapping = default_mapping(arch16, "spatial")
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def report(label, graph, t_cap, hand=None):
+        w, t_low = timed(lambda: lower_graph(graph))
+        s = summarize(w)
+        line = (f"[trace] {label}: {graph.n_eqns()} eqns, digest {graph.digest()[:16]}, "
+                f"{s['n_mvm']} MVM nodes, mvm macs {s['mvm_macs']!r}")
+        if hand is not None:
+            d = diff_workloads(w, hand)
+            check(d["mvm_match"] and d["total_weights_equal"], f"{label}: traced {d['traced']} "
+                  f"against the hand DAG's {d['hand']}")
+            line += f" (= hand's), elementwise surplus {d['elementwise_surplus']!r}"
+        return w, line + f"; capture {t_cap:.3f}s, lower {t_low:.3f}s"
+
+    def simulated(label, w, line):
+        check(sorted(w.topo_order()) == sorted(w.nodes) and bool(w.levels()),
+              f"{label}: no topological order")
+        cycles, t0 = {}, time.perf_counter()
+        for pol in POLICIES:
+            rep = simulate(arch16, w, mapping, schedule=SchedulePolicy(pol))
+            check(rep.latency_cycles > 0, f"{label}: {pol} gives {rep.latency_cycles} cycles")
+            cycles[pol] = rep.latency_cycles
+        return line + (f", simulate {time.perf_counter() - t0:.3f}s, cycles on usecase_arch(16) "
+                       f"{json.dumps(cycles)}")
+
+    for name in list_archs():
+        cfg = get_config(name)
+        hand = lm_workload(cfg, seq_len=TRACE_SEQ, batch=TRACE_BATCH)
+        for step in ("forward", "prefill", "decode"):
+            graph, t_cap = timed(lambda: trace_model(cfg, step=step, seq_len=TRACE_SEQ,
+                                                     batch=TRACE_BATCH))
+            label = f"{name} {step} (S {TRACE_SEQ}, B {TRACE_BATCH})"
+            w, line = report(label, graph, t_cap, None if step == "decode" else hand)
+            if step == "decode":
+                line = simulated(label, w, line)
+            print(line, flush=True)
+    for model in CNNS:
+        graph, t_cap = timed(lambda: cnn_graph(model, TRACE_IMG, 100))
+        _, line = report(f"{model} (img {TRACE_IMG})", graph, t_cap,
+                         MODEL_BUILDERS[model](TRACE_IMG, 100))
+        print(line, flush=True)
+
+    cfg = get_config("llama3-8b")
+    digests = [trace_model(cfg, step="forward", seq_len=TRACE_SEQ).digest() for _ in range(2)]
+    check(digests[0] == digests[1], f"two captures of llama3-8b forward differ: {digests}")
+    print(f"[trace] llama3-8b forward captured twice: digest {digests[0][:16]} both times",
+          flush=True)
+    for S in (8, TRACE_SEQ):
+        graph, t_cap = timed(lambda: trace_model(cfg, step="forward", seq_len=S,
+                                                 source="model"))
+        w = lower_graph(graph)
+        preflight(w, strict=True, where="chip_smoke.trace")
+        hand = lm_workload(cfg, seq_len=S, batch=1)
+        t, h = summarize(w), summarize(hand)
+        ratio = t["mvm_macs"] / h["mvm_macs"]
+        check(t["mvm_weights"] == h["mvm_weights"],
+              f"llama3-8b model source S {S}: mvm weights {t['mvm_weights']} != {h['mvm_weights']}")
+        if S == 8:
+            check(0.9 < ratio < 1.2, f"llama3-8b model source S 8: macs ratio {ratio!r}")
+        print(f"[trace] llama3-8b forward, source=model (the port's forward on meta params), "
+              f"S {S}: {graph.n_eqns()} eqns, {t['n_mvm']} MVM nodes, mvm macs {t['mvm_macs']!r}"
+              f" = {ratio!r} x the hand DAG's, mvm weights equal; capture {t_cap:.3f}s",
+              flush=True)
+    launched = ops.launch_counts()
+    check(sum(launched.values()) == 0, f"the trace phase launched {launched}")
+    print(f"[time] trace phase {time.perf_counter() - t_phase:.1f}s on the host, no launch "
+          f"[{card}]", flush=True)
 
 
 # what the kernels line gives of each further variant of a kernel (None
@@ -3360,6 +3506,7 @@ def main() -> int:
         samples = microbench_phase()
         prof = cost_phase(samples, [qwen, llama, *later])
         dryrun_phase(samples, prof)
+        trace_phase()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

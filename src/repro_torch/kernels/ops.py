@@ -24,7 +24,9 @@ as one launch of its CUDA kernel, with the flops and bytes of
 and ``impl``; the ops of the plain stand-in that computes its values
 there are not counted.  On the ``meta`` device, which computes nothing,
 each op returns an empty tensor laid out as its kernel's output, and no
-stand-in runs.
+stand-in runs.  Inside a capture (:mod:`repro_torch.trace.capture`)
+``flash_attention`` is recorded as the attention it computes, from the
+operands the hook hands on; every other op raises, naming itself.
 """
 from __future__ import annotations
 
@@ -267,7 +269,7 @@ def _counted(kernel: str, work: Callable[..., Dict[str, int]],
                 return run(*args, **kwargs)
             with _hook.paused():
                 cost = work(*args, **kwargs)
-            with _hook.kernel(kernel, **cost) as adopt:
+            with _hook.kernel(kernel, **cost, op=op.__name__, operands=(args, kwargs)) as adopt:
                 return adopt(run(*args, **kwargs))
         return counted
     return wrap

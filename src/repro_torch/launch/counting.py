@@ -170,7 +170,7 @@ class Counter(TorchDispatchMode):
     # -- the kernels' hook --------------------------------------------------
 
     @contextlib.contextmanager
-    def _kernel(self, name: str, flops: int, nbytes: int) -> Iterator[Callable]:
+    def _kernel(self, name: str, flops: int, nbytes: int, **_: Any) -> Iterator[Callable]:
         self.flops_by_kind["kernel"] += int(flops)
         self.bytes_accessed += int(nbytes)
         self._paused += 1

@@ -44,13 +44,21 @@ process group of 256 or 512 ranks, with the params placed by
 :func:`repro_torch.distributed.sharding.tree_shardings`, it needs the
 whole model sharded by the specs, where the port's mesh today runs the
 global view with two mesh paths (:mod:`repro_torch.distributed.sharding`).
-Nor are ``--scores-bf16`` and ``--emit-trace``.
+Nor is ``--scores-bf16``.
+
+``--emit-trace`` also captures each cell's modeling-plane DAG
+(:mod:`repro_torch.trace`, on ``meta``: a train cell as the forward trace)
+at the record's shape, its ``global_batch`` included, saves the graph under
+``<out dir>/trace/<arch>_<cell>.json``, pre-flights the lowered DAG
+strictly and adds ``trace_path``, ``trace_digest``, ``trace_ops``,
+``trace_mvm_macs`` and ``trace_mvm_weights`` to the record.
 
 Usage (from the repository root, with ``PYTHONPATH=src``):
   python -m repro_torch.launch.dryrun --arch qwen3-4b --cell prefill_32k --out d.jsonl
   python -m repro_torch.launch.dryrun --all --out results/dryrun.jsonl
   python -m repro_torch.launch.dryrun --arch qwen3-4b --cell decode_32k \\
       --execute 3 --batch 8 --tag calib
+  python -m repro_torch.launch.dryrun --arch qwen3-4b --cell prefill_32k --emit-trace
 """
 from __future__ import annotations
 
@@ -66,7 +74,7 @@ import torch
 from .. import obs, resolve_device
 from ..configs import all_configs, cells_for, get_config
 from ..configs.base import SHAPE_CELLS, ArchConfig, ShapeCell
-from ..models.transformer import _layer_shapes, decode_step, init_cache, prefill
+from ..models.transformer import decode_step, init_cache, param_struct, prefill
 from ..train.optimizer import AdamWConfig, adamw_init, adamw_update
 from ..train.step import make_train_step
 from .counting import Counter, count
@@ -84,32 +92,6 @@ _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
-
-
-def param_struct(cfg: ArchConfig, dtype=torch.bfloat16) -> Dict[str, Any]:
-    """The tree of ``init_params(cfg, dtype=dtype)`` as ``meta`` tensors:
-    the same key paths, shapes and dtypes.  (``init_params`` cannot build
-    it: a ``meta`` generator does not exist, and it writes each layer into
-    a preallocated stack.)"""
-    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
-    hd, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-
-    def stacked(shapes, n):
-        return {name: _meta((n,) + shp, dtype) for name, shp in shapes.items()}
-
-    params = {"embed": _meta((V, d), dtype), "final_norm": _meta((d,), dtype),
-              "layers": stacked(_layer_shapes(cfg), L)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = _meta((d, V), dtype)
-    if cfg.enc_dec:
-        params["enc_layers"] = stacked(_layer_shapes(cfg, encoder=True), cfg.enc_layers)
-        params["enc_final_norm"] = _meta((d,), dtype)
-        params["enc_cross"] = {"wk": _meta((L, d, Hkv, hd), dtype),
-                               "wv": _meta((L, d, Hkv, hd), dtype)}
-        params["dec_cross"] = {"wq": _meta((L, d, Hq, hd), dtype),
-                               "wo": _meta((L, Hq, hd, d), dtype),
-                               "ln": _meta((L, d), dtype)}
-    return params
 
 
 def input_specs(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, Any]:
@@ -332,6 +314,31 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str = "local", *,
     return rec
 
 
+def _emit_trace(arch: str, cell: ShapeCell, out: str) -> Dict[str, Any]:
+    """Capture the cell's modeling-plane DAG (a train cell as the forward
+    trace, as the reference maps it) and save it beside the ledger
+    (``<out dir>/trace/<arch>_<cell>.json``); returns the record's
+    ``trace_*`` fields: the graph's content digest, which keys the
+    explore cache, and the lowered MVM totals, the analytic counterpart of
+    the record's ``flops``.  A broken lowered DAG raises (strict
+    pre-flight), which fails the cell's record."""
+    from ..analysis import preflight
+    from ..trace import lower_graph, summarize, trace_model
+
+    step = {"train": "forward"}.get(cell.kind, cell.kind)
+    graph = trace_model(get_config(arch), step=step, seq_len=cell.seq_len,
+                        batch=cell.global_batch)
+    tdir = os.path.join(os.path.dirname(out) or ".", "trace")
+    os.makedirs(tdir, exist_ok=True)
+    path = os.path.join(tdir, f"{arch}_{cell.name}.json")
+    graph.save(path)
+    wl = lower_graph(graph)
+    preflight(wl, strict=True, where="dryrun.emit_trace")
+    s = summarize(wl)
+    return {"trace_path": path, "trace_digest": graph.digest(), "trace_ops": len(wl),
+            "trace_mvm_macs": s["mvm_macs"], "trace_mvm_weights": s["mvm_weights"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -355,6 +362,10 @@ def main(argv=None) -> int:
                     help="global batch in place of the cell's (tag gains b<batch>)")
     ap.add_argument("--device", default=None,
                     help="execution device (default: the card; 'cpu' for the plain path)")
+    ap.add_argument("--emit-trace", action="store_true",
+                    help="also capture each cell's modeling-plane DAG (repro_torch.trace) at "
+                         "the record's shape, save the graph JSON under <out dir>/trace/, and "
+                         "add its content digest and MVM totals to the record")
     args = ap.parse_args(argv)
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -390,6 +401,12 @@ def main(argv=None) -> int:
             rec = run_cell(arch, cell_name, remat=not args.no_remat, extra_tag=args.tag,
                            remat_policy=args.remat_policy, ffn_compress=args.ffn_compress,
                            execute=args.execute, batch=args.batch, device=args.device)
+            if args.emit_trace:
+                cell = dataclasses.replace(SHAPE_CELLS[cell_name],
+                                           global_batch=rec["global_batch"])
+                rec.update(_emit_trace(arch, cell, args.out))
+                print(f"    trace: {rec['trace_path']} digest={rec['trace_digest'][:16]} "
+                      f"mvm_macs={rec['trace_mvm_macs']:.3e}", flush=True)
             timed = f" time={rec['time_s']:.3f}s" if "time_s" in rec else ""
             print(f"    flops={rec['flops']:.3e} bytes={rec['bytes_accessed']:.3e} "
                   f"peak={rec['peak_bytes'] / 2**30:.2f} GiB count={rec['lower_s']}s{timed}",

@@ -21,7 +21,8 @@ weights stacked on a leading L axis (``wq`` (L, d, Hq, hd), ``wo``
 ``wo`` (L, Hq, hd, d), ``ln`` (L, d)).  A pruned projection may be a compressed
 module (:class:`~.layers.BlockSparseLinear` or
 :class:`~.layers.IntraBlockLinear`) instead of a dense tensor.  The
-reference's ``lax.scan`` over layers is a Python loop here.
+reference's ``lax.scan`` over layers is a Python loop here (:func:`_scan`),
+which a capture (:mod:`repro_torch.trace.capture`) records as one scan.
 
 Entry points:
 
@@ -49,10 +50,11 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..kernels import hook
 from .layers import (COMPRESSED, attention_block, chunked_attention, mlp_block, moe_block,
                      project, rms_norm, ssm_block)
 
-__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step", "layer_flags",
+__all__ = ["init_params", "param_struct", "init_cache", "forward", "prefill", "decode_step", "layer_flags",
            "REMAT_POLICIES"]
 
 Params = Dict[str, Any]
@@ -228,19 +230,86 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, dtype=torch.bfloat16,
     return params
 
 
-def _layer(layers: Dict[str, Any], l: int) -> Dict[str, Any]:
-    return {k: (w.layer(l) if isinstance(w, COMPRESSED) else w[l])
-            for k, w in layers.items()}
+def param_struct(cfg: ArchConfig, dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The tree of ``init_params(cfg, dtype=dtype)`` as ``meta`` tensors:
+    the same key paths, shapes and dtypes.  (``init_params`` cannot build
+    it: a ``meta`` generator does not exist, and it writes each layer into
+    a preallocated stack.)"""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    hd, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def stacked(shapes, n):
+        return {name: meta((n,) + shp, dtype) for name, shp in shapes.items()}
+
+    params = {"embed": meta((V, d), dtype), "final_norm": meta((d,), dtype),
+              "layers": stacked(_layer_shapes(cfg), L)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = meta((d, V), dtype)
+    if cfg.enc_dec:
+        params["enc_layers"] = stacked(_layer_shapes(cfg, encoder=True), cfg.enc_layers)
+        params["enc_final_norm"] = meta((d,), dtype)
+        params["enc_cross"] = {"wk": meta((L, d, Hkv, hd), dtype),
+                               "wv": meta((L, d, Hkv, hd), dtype)}
+        params["dec_cross"] = {"wq": meta((L, d, Hq, hd), dtype),
+                               "wo": meta((L, Hq, hd, d), dtype),
+                               "ln": meta((L, d), dtype)}
+    return params
 
 
-def _layers(layers: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
-    """``[_layer(layers, l) for l in range(n)]`` with each dense stacked leaf
-    unbound once (``torch.unbind``): under autograd its one backward stacks
-    the per-layer grads, where ``n`` indexings would each add a zero-filled
+def _scan(body: Callable, carry, xs, length: int, *, unbind: bool = True):
+    """The layer loop (the reference's ``_scan``, a ``jax.lax.scan``):
+    ``carry, y = body(carry, l, x_l)`` for l in range(length), ``x_l`` layer
+    l's slice of ``xs``, a tree of stacked ``(L, ...)`` leaves; returns
+    (carry, [y_0, ..., y_{length-1}]).  The slices are :func:`_layers`'
+    (each tensor leaf unbound once, before the loop), or with ``unbind``
+    False :func:`_layer`'s, each taken as the loop reaches it (decode's,
+    where nothing needs a gradient).
+
+    Under a capture the body is recorded once, as a ``scan`` over ``xs``,
+    and the outputs come back stacked; the recorded body is layer 0's
+    (``l`` is 0), so where layers differ (gemma2's alternating windows,
+    hymba's global layers) the trace holds layer 0's kind for every layer."""
+    rec = hook.capturing()
+    if rec is not None:
+        return rec.scan(lambda c, x: body(c, 0, x), carry, xs, length)
+    split = _layers(xs, length) if unbind else None
+    ys = []
+    for l in range(length):
+        carry, y = body(carry, l, split[l] if unbind else _layer(xs, l))
+        ys.append(y)
+    return carry, ys
+
+
+def _layer(xs, l: int):
+    """Layer ``l``'s slice of a tree (dicts, tuples, ``None``) of stacked
+    ``(L, ...)`` leaves: ``w.layer(l)`` for a compressed leaf, ``w[l]`` for
+    a tensor."""
+    if xs is None:
+        return None
+    if isinstance(xs, dict):
+        return {k: _layer(w, l) for k, w in xs.items()}
+    if isinstance(xs, tuple):
+        return tuple(_layer(w, l) for w in xs)
+    return xs.layer(l) if isinstance(xs, COMPRESSED) else xs[l]
+
+
+def _layers(xs, n: int) -> List[Any]:
+    """``[_layer(xs, l) for l in range(n)]`` with each tensor leaf unbound
+    once (``torch.unbind``): under autograd its one backward stacks the
+    per-layer grads, where ``n`` indexings would each add a zero-filled
     grad of the whole stacked leaf.  Compressed leaves give ``.layer(l)``."""
-    split = {k: None if isinstance(w, COMPRESSED) else w.unbind(0) for k, w in layers.items()}
-    return [{k: w.layer(l) if split[k] is None else split[k][l] for k, w in layers.items()}
-            for l in range(n)]
+    if xs is None:
+        return [None] * n
+    if isinstance(xs, dict):
+        split = {k: _layers(w, n) for k, w in xs.items()}
+        return [{k: s[l] for k, s in split.items()} for l in range(n)]
+    if isinstance(xs, tuple):
+        split = [_layers(w, n) for w in xs]
+        return [tuple(s[l] for s in split) for l in range(n)]
+    return [xs.layer(l) for l in range(n)] if isinstance(xs, COMPRESSED) else list(xs.unbind(0))
 
 
 def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None,
@@ -315,14 +384,16 @@ def _encoder_stack(params: Params, enc_embed: torch.Tensor, cfg: ArchConfig,
     the end.  Its weights are never pruned (the reference's
     ``prune_params`` walks ``params["layers"]`` only), so its projections
     are dense matmuls."""
-    x = enc_embed
-    positions = torch.arange(x.shape[1], device=x.device)[None]
-    for lp in _layers(params["enc_layers"], cfg.enc_layers):
+    positions = torch.arange(enc_embed.shape[1], device=enc_embed.device)[None]
+
+    def layer(x, l, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         y, _ = attention_block(h, lp, cfg, positions=positions, causal=False, impl=impl)
         x = x + y
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_block(h, lp, cfg, impl)
+        return x + mlp_block(h, lp, cfg, impl), None
+
+    x, _ = _scan(layer, enc_embed, params["enc_layers"], cfg.enc_layers)
     return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -331,15 +402,12 @@ def _cross_kv(params: Params, enc_out: torch.Tensor, cfg: ArchConfig,
     """Every decoder layer's cross k/v from the encoder output (reference
     ``transformer.py:267-271``): (L, B, Se, Hkv, hd) each, in the compute
     dtype."""
-    wk, wv = params["enc_cross"]["wk"], params["enc_cross"]["wv"]
-    k = torch.stack([project(enc_out, w, impl) for w in wk.unbind(0)])
-    v = torch.stack([project(enc_out, w, impl) for w in wv.unbind(0)])
+    def stacked(w):
+        _, ys = _scan(lambda c, l, wl: (c, project(enc_out, wl, impl)), None, w, w.shape[0])
+        return ys if torch.is_tensor(ys) else torch.stack(ys)
+
+    k, v = stacked(params["enc_cross"]["wk"]), stacked(params["enc_cross"]["wv"])
     return k.to(enc_out.dtype), v.to(enc_out.dtype)
-
-
-def _cross_layer(params: Params, ck: torch.Tensor, cv: torch.Tensor, l: int) -> Dict[str, Any]:
-    dc = params["dec_cross"]
-    return {"k": ck[l], "v": cv[l], "wq": dc["wq"][l], "wo": dc["wo"][l], "ln": dc["ln"][l]}
 
 
 def _unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -352,7 +420,12 @@ def _unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # whole matrix (2 GB for llama3-8b's lm_head) is ever held.
     # (split, not slicing: under autograd one backward joins the chunks' grads)
     x2 = x.reshape(-1, x.shape[-1]).float()
-    logits = torch.cat([x2 @ wc.float() for wc in w.split(_VOCAB_CHUNK, dim=1)], dim=1)
+    if hook.capturing() is not None:
+        # a capture records the product once: the chunks are a memory
+        # schedule, and each would be priced with the whole weight's size
+        logits = x2 @ w.float()
+    else:
+        logits = torch.cat([x2 @ wc.float() for wc in w.split(_VOCAB_CHUNK, dim=1)], dim=1)
     logits = logits.reshape(*x.shape[:-1], -1)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -432,23 +505,25 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
         ck, cv = _cross_kv(params, enc_out, cfg, impl)
         if keep_cache:
             caches["cross_k"], caches["cross_v"] = ck, cv
-    layers = _layers(params["layers"], cfg.n_layers)
-    if ck is not None:
-        crosses = [dict(c, k=k, v=v) for c, k, v in
-                   zip(_layers(params["dec_cross"], cfg.n_layers), ck.unbind(0), cv.unbind(0))]
-    for l, window in enumerate(_windows(cfg)):
-        layer_tap = None if tap is None else (lambda kind, a, l=l: tap(l, kind, a))
-        cross = None if ck is None else crosses[l]
+    windows = _windows(cfg)
+
+    def layer(x, l, xs):
+        lp, cross = xs
         if remat is not None:
             body = functools.partial(_layer_output, cfg=cfg, positions=positions,
-                                     window=window, impl=impl, prefix=prefix)
-            x = _remat(body, remat)(x, layers[l], cross)
-            continue
-        x, new = _decoder_layer(x, layers[l], cfg, positions=positions, window=window,
+                                     window=windows[l], impl=impl, prefix=prefix)
+            return _remat(body, remat)(x, lp, cross), None
+        layer_tap = None if tap is None else (lambda kind, a: tap(l, kind, a))
+        x, new = _decoder_layer(x, lp, cfg, positions=positions, window=windows[l],
                                 impl=impl, tap=layer_tap, prefix=prefix, cross=cross)
-        if keep_cache:
-            for key, t in new.items():
-                caches.setdefault(key, []).append(t)
+        return x, (new if keep_cache else None)
+
+    stacked = (params["layers"], None if ck is None else dict(params["dec_cross"], k=ck, v=cv))
+    x, ys = _scan(layer, x, stacked, cfg.n_layers)
+    if keep_cache:
+        # per layer, as the loop made them (stacked already under a capture)
+        caches.update(ys if isinstance(ys, dict)
+                      else {key: [y[key] for y in ys] for key in ys[0]})
     return x, caches
 
 
@@ -531,12 +606,18 @@ def decode_step(params: Params, tokens: torch.Tensor, cfg: ArchConfig, cache: Ca
     pos = torch.as_tensor(cache["pos"], device=x.device)
     positions = (pos if pos.dim() == 0 else pos[:, None]).expand(B, 1)
     keys = [k for k in ("k", "v", "ssm", "conv") if k in cache]
-    for l, window in enumerate(_windows(cfg)):
-        cross = (_cross_layer(params, cache["cross_k"], cache["cross_v"], l) if cfg.enc_dec
-                 else None)
-        x, _ = _decoder_layer(x, _layer(params["layers"], l), cfg, positions=positions,
-                              window=window, cache={k: cache[k][l] for k in keys},
+    windows = _windows(cfg)
+
+    def layer(x, l, xs):
+        cross, lp, lc = xs
+        x, _ = _decoder_layer(x, lp, cfg, positions=positions, window=windows[l], cache=lc,
                               cache_len=pos, impl=impl, cross=cross)
+        return x, None
+
+    cross = (dict(params["dec_cross"], k=cache["cross_k"], v=cache["cross_v"]) if cfg.enc_dec
+             else None)
+    x, _ = _scan(layer, x, (cross, params["layers"], {k: cache[k] for k in keys}),
+                 cfg.n_layers, unbind=False)
     logits = _unembed(params, x, cfg)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
