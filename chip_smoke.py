@@ -177,7 +177,30 @@ Phases, each reported on its own line(s):
    (B 8) executed on zeros, each with ``--emit-trace``: the record's five
    ``trace_*`` fields, its graph reloading to the recorded digest, and for
    the prefill and train cells MVM macs equal to ``lm_workload``'s at the
-   record's shape (:func:`emitted_trace_check`);
+   record's shape (:func:`emitted_trace_check`); then the three cells
+   again with ``--scores-bf16`` (:func:`scores_bf16_cells`: time, counted
+   bytes, peaks and flash launches beside the f32 records; the flops and
+   the launches may not move, the bytes must fall where
+   ``chunked_attention`` runs and not on flash's prefill), and one decode
+   step of full-width qwen3-4b over a prefilled cache with bf16 against
+   f32 score tiles (:func:`scores_logit_check`, the logits within
+   SCORES_LOGIT_TOL);
+15b. mesh-dryrun — the dry-run on a mesh (:func:`mesh_dryrun_phase`),
+   counted in four processes of their own started once phase 15 is done,
+   so that no timed phase shares the host with them
+   (:func:`start_mesh_dryrun`; the card hidden from them, a fake world
+   their default group), and read after phase 16: llama3-8b's and
+   qwen3-4b's three cells on both meshes (256 / 512 ranks), gemma-7b's
+   and gemma2-9b's prefill_32k on the single-pod one, llama3-8b's
+   train_4k under ``--fsdp`` and ``--legacy-sharding``; no ``error``,
+   per-device argument bytes equal to the specs' reckoning, collective
+   bytes on every train cell, prefill's flash counted once a layer at its
+   per-device ``wgmma`` work.  On a fake (2, 2) world, llama3-8b
+   ``.reduced()``'s prefill and train step under each knob (and
+   ``--fsdp --no-zero1``, which changes nothing) and its widened train
+   step must issue the collectives of a hand count
+   (:func:`hand_collectives`), by kind, bytes and number.  Counts of one
+   rank on ``meta``, no card time; each record on a ``[mesh-dryrun]`` line;
 16. trace   — the modeling plane's front end (:func:`trace_phase`), on
    ``meta`` tensors and the host, no launch: every config's forward,
    prefill and decode at published width and depth (S 128, B 1) captured
@@ -188,7 +211,9 @@ Phases, each reported on its own line(s):
    two captures of llama3-8b forward with equal digests; llama3-8b's own
    forward (``source="model"``) at S 8 and 128, its MVM weights equal to
    the hand DAG's and, at S 8, its macs within (0.9, 1.2) of them;
-17. the ``{"kernels": [...]}`` line; 18. the card's name and power limit.
+17. the ``{"kernels": [...]}`` line (flash's ``launches`` are the card's; the
+   mesh records' counted calls are on the ``[mesh-dryrun]`` lines); 18. the
+   card's name and power limit.
 
 The launch counts are set to 0 just before each path and read just
 after it: on each served path from prune to the end of serving (every
@@ -218,6 +243,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3201,6 +3227,105 @@ def logit_check(card: str) -> None:
     check(err <= PATH_TOL, f"prefill_32k logits: {err} > {PATH_TOL}")
 
 
+def scores_bf16_cells(executed: dict, card: str) -> None:
+    """qwen3-4b's three executed cells again with ``--scores-bf16``
+    (``chunked_attention``'s score tiles in bf16; flash's never leave the
+    chip), into a ledger of their own (``build/dryrun_bf16.jsonl``), each
+    printed beside its f32 record: time, counted bytes, measured peak and
+    flash launches, which must not move (prefill_32k 144 ``wgmma``, the
+    others 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers
+
+    ledger = HERE / "build" / "dryrun_bf16.jsonl"
+    ledger.unlink(missing_ok=True)
+    for cell, batch in DRYRUN_EXECUTED:
+        ops.reset_launch_counts()
+        rc = dryrun.main(["--arch", "qwen3-4b", "--cell", cell, "--execute", str(DRYRUN_REPEATS),
+                          "--batch", str(batch), "--out", str(ledger), "--scores-bf16",
+                          "--tag", "bf16"])
+        counts, variants = ops.launch_counts(), ops.variant_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = json.loads(ledger.read_text().splitlines()[-1])
+        check(rc == 0 and "error" not in rec, f"qwen3-4b {cell} with bf16 scores failed: {rec}")
+        check(layers._SCORES_DTYPE == torch.float32, "--scores-bf16 left the scores dtype set")
+        if cell == "prefill_32k":
+            want = get_config("qwen3-4b").n_layers * (DRYRUN_REPEATS + 1)
+            check(variants["flash_attention"] == {"wgmma": want, "general": 0, "f32": 0}
+                  and sum(counts.values()) == want,
+                  f"prefill_32k with bf16 scores launched {counts}, want {want} flash wgmma")
+        else:
+            check(sum(counts.values()) == 0, f"qwen3-4b {cell} with bf16 scores launched {counts}")
+        f32 = executed[cell]
+        line = {"cell": cell, "batch": batch, "flash_launches": counts["flash_attention"]}
+        for key in ("time_s", "time_s_median", "bytes_accessed", "peak_bytes",
+                    "measured_peak_bytes", "flops"):
+            line[key] = {"f32": f32[key], "bf16": rec[key]}
+        line["bytes_ratio"] = rec["bytes_accessed"] / f32["bytes_accessed"]
+        line["time_ratio"] = rec["time_s"] / f32["time_s"]
+        print(f"[dryrun] --scores-bf16 qwen3-4b {cell} B {batch}: {json.dumps(line)} [{card}]",
+              flush=True)
+        check(rec["flops"] == f32["flops"], f"{cell}: bf16 scores moved the counted flops")
+        if cell == "prefill_32k":
+            check(rec["bytes_accessed"] == f32["bytes_accessed"],
+                  "prefill_32k (flash): bf16 scores moved the counted bytes")
+        else:
+            check(rec["bytes_accessed"] < f32["bytes_accessed"],
+                  f"{cell}: bf16 scores did not cut the counted bytes")
+
+
+SCORES_PROMPT, SCORES_BATCH = 2048, 4
+# the decode logits' bound, bf16 scores against f32: about twice the first
+# reading on an H100 (0.129, largest |logit| 4.8)
+SCORES_LOGIT_TOL = 0.25
+
+
+def scores_logit_check(card: str) -> None:
+    """One full-width qwen3-4b decode step (seed-0 weights, all 36 layers)
+    over a real cache, the prefill of 4 seeded prompts of 2048 tokens, with
+    bf16 score tiles against f32: the largest logit difference, and how
+    many next tokens move."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import decode_step, init_cache, init_params, prefill
+    cfg = get_config("qwen3-4b")
+    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(SCORES_BATCH, SCORES_PROMPT)),
+                           device="cuda")
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(SCORES_BATCH,)), device="cuda")
+    with torch.no_grad():
+        _, filled = prefill(params, toks, cfg)
+        cache = init_cache(cfg, SCORES_BATCH, SCORES_PROMPT + 8, device="cuda")
+        for key in ("k", "v"):
+            cache[key][:, :, :SCORES_PROMPT] = filled[key]
+        cache["pos"] = filled["pos"]
+        del filled
+        check(bool(cache["k"][:, :, :SCORES_PROMPT].abs().amax() > 0), "the cache is zero")
+        got = {}
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            with layers.scores_dtype(dtype):
+                logits, _ = decode_step(params, nxt, cfg, dict(cache))
+            got[name] = logits.float()
+    check(all(bool(torch.isfinite(t).all()) for t in got.values()), "non-finite decode logits")
+    err = (got["bf16"] - got["f32"]).abs().max().item()
+    moved = int((got["bf16"].argmax(-1) != got["f32"].argmax(-1)).sum())
+    scale = got["f32"].abs().max().item()
+    print(f"[dryrun] --scores-bf16 decode logits, qwen3-4b full width, B {SCORES_BATCH} over a "
+          f"cache of {SCORES_PROMPT} prefilled tokens, seed {SEED}: max_abs_diff {err!r} against "
+          f"f32 scores (bound {SCORES_LOGIT_TOL}; largest |logit| {scale:.3f}), next tokens moved "
+          f"{moved}/{SCORES_BATCH} [{card}]", flush=True)
+    check(0 < err <= SCORES_LOGIT_TOL, f"bf16-scores decode logits: {err} outside (0, "
+          f"{SCORES_LOGIT_TOL}]")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
 def emitted_trace_check(rec: dict) -> None:
     """An executed dry-run record's ``--emit-trace`` fields: all five, the
     graph on disk reloading to the recorded digest and lowering to the
@@ -3294,6 +3419,11 @@ def dryrun_phase(micro_samples: list, micro_prof) -> None:
         times[cell] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    scores_bf16_cells(executed, card)
+    scores_logit_check(card)
+    times["bf16 scores"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     long_flash_check(card)
     logit_check(card)
     gc.collect()
@@ -3329,6 +3459,307 @@ def dryrun_phase(micro_samples: list, micro_prof) -> None:
     times["fit, roofline, histogram"] = time.perf_counter() - t0
     print(f"[time] dry-run phase {sum(times.values()):.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in times.items()), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 15b: the dry-run on a mesh, counted in a fake world (no card)
+# ---------------------------------------------------------------------------
+
+MESH_DRYRUN_DIR = HERE / "build" / "mesh_dryrun"
+# (arch, cell, meshes, knobs, tag): every cell of the main path's two
+# configs on both meshes, gemma's prefill on one, llama3-8b's train step
+# under each sharding knob (--no-zero1 changes nothing: it is not run)
+MESH_DRYRUN_JOBS = (
+    *((arch, cell, "both", (), "") for arch in ("llama3-8b", "qwen3-4b")
+      for cell in ("train_4k", "prefill_32k", "decode_32k")),
+    ("gemma-7b", "prefill_32k", "single", (), ""),
+    ("gemma2-9b", "prefill_32k", "single", (), ""),
+    ("llama3-8b", "train_4k", "single", ("--fsdp",), "fsdp"),
+    ("llama3-8b", "train_4k", "single", ("--legacy-sharding",), "legacy"),
+)
+# (kind, config, knob, flags): steps counted on a fake (2, 2) world and held
+# to a hand count (:func:`hand_collectives`): llama3-8b ``.reduced()`` (heads
+# whole) under each knob, and widened so that its query heads split
+MESH_HAND_JOBS = (
+    *(("prefill", "reduced", knob, flags) for knob, flags in (
+        ("default", ()), ("fsdp", ("--fsdp",)), ("legacy", ("--legacy-sharding",)))),
+    *(("train", "reduced", knob, flags) for knob, flags in (
+        ("default", ()), ("fsdp", ("--fsdp",)), ("fsdp", ("--fsdp", "--no-zero1")),
+        ("legacy", ("--legacy-sharding",)))),
+    ("train", "widened", "default", ()), ("train", "widened", "fsdp", ("--fsdp",)),
+)
+MESH_DRYRUN_WORKERS = 4
+MESH_DRYRUN_TIMEOUT_S = 600
+
+
+def start_mesh_dryrun() -> list:
+    """Start the mesh dry-run: MESH_DRYRUN_WORKERS processes of this script
+    with ``--mesh-dryrun I N``, each counting its share of the jobs on
+    ``meta`` in fake worlds, on the host alone (the card hidden from
+    them).  A fake world is its process's default group, which must not
+    meet phase 12b's gloo worlds; they start after the card's last timed
+    phase, so no timed phase shares the host with them."""
+    MESH_DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    for f in MESH_DRYRUN_DIR.glob("*"):
+        f.unlink()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for w in range(MESH_DRYRUN_WORKERS):
+        with open(MESH_DRYRUN_DIR / f"worker{w}.log", "w") as log:   # the child keeps a copy
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--mesh-dryrun", str(w),
+                 str(MESH_DRYRUN_WORKERS)], stdout=log, stderr=subprocess.STDOUT, env=env,
+                cwd=HERE))
+    return procs
+
+
+def _hand_cfg(variant: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3-8b").reduced()
+    if variant == "widened":
+        cfg = dataclasses.replace(cfg, d_model=512, n_heads=16, head_dim=32, d_ff=2048)
+    return cfg
+
+
+def _hand_cell(kind: str):
+    from repro_torch.configs.base import ShapeCell
+
+    return ShapeCell("t", 128 if kind == "prefill" else 64, 4, kind)
+
+
+def mesh_dryrun_worker(w: int, n: int) -> int:
+    """The ``--mesh-dryrun W N`` process: every N-th job of MESH_DRYRUN_JOBS
+    from the W-th through ``python -m repro_torch.launch.dryrun``'s
+    ``main`` into ``build/mesh_dryrun/ledger<W>.jsonl``, and likewise of
+    MESH_HAND_JOBS, each step's ``collective_bytes`` on a fake (2, 2)
+    world into ``hand<W>.json``; then its seconds."""
+    sys.path.insert(0, str(HERE / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
+
+    t0 = time.perf_counter()
+    rc = 0
+    for arch, cell, mesh, knobs, tag in MESH_DRYRUN_JOBS[w::n]:
+        rc |= dryrun.main(["--arch", arch, "--cell", cell, "--mesh", mesh, *knobs,
+                           "--tag", tag, "--out", str(MESH_DRYRUN_DIR / f"ledger{w}.jsonl")])
+    hand = []
+    for kind, variant, knob, flags in MESH_HAND_JOBS[w::n]:
+        opts = dryrun.knob_options(dryrun.parser().parse_args(list(flags)))
+        with fake_world(4), shd.options(**opts):
+            mesh = make_mesh((2, 2), ("data", "model"))
+            c = dryrun.count_cell(_hand_cfg(variant), _hand_cell(kind), mesh=mesh)
+        hand.append({"kind": kind, "config": variant, "knob": knob, "flags": list(flags),
+                     "collective_bytes": c.collective_bytes})
+    (MESH_DRYRUN_DIR / f"hand{w}.json").write_text(json.dumps(hand))
+    (MESH_DRYRUN_DIR / f"done{w}.json").write_text(json.dumps(
+        {"rc": rc, "seconds": time.perf_counter() - t0}))
+    return rc
+
+
+def hand_collectives(cfg, cell, knob: str) -> dict:
+    """The collectives of a prefill or a train step on a (2, 2) ("data",
+    "model") mesh, by hand (the copy of tests/test_torch_mesh_dryrun.py's
+    ``_hand_prefill_collectives`` / ``_hand_train_collectives``, whose
+    docstrings give the reckoning).  The production specs split heads over
+    a 16-wide "model" axis: ``.reduced()`` llama3-8b keeps its 4 query
+    heads whole, the widened config splits its 16 (not its 2 kv heads).
+    A train step is checkpointed (remat "minimal", the dry-run's default)."""
+    m = dp = 2
+    B, S, d, L = cell.global_batch // dp, cell.seq_len, cfg.d_model, cfg.n_layers
+    hd, Hq, Hkv, F, V = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, \
+        cfg.vocab_size
+    T, bf16, f32 = B * S, 2, 4
+    q_split = Hq % 16 == 0
+    out = dict.fromkeys(("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                         "collective-permute", "count"), 0)
+
+    def add(kind, nbytes, k=1):
+        out[kind] += k * nbytes
+        out["count"] += k
+
+    hq = Hq // m if q_split else Hq
+    attn = {"wq": d * hq * hd, "wk": d * Hkv * hd, "wv": d * Hkv * hd, "wo": hq * hd * d}
+    mlp = {"w_gate": d * F // m, "w_up": d * F // m, "w_down": F // m * d}
+    tables = {"embed": V // m * d, "lm_head": d * V // m}
+    if cell.kind == "prefill":
+        assert not q_split
+        add("all-reduce", T * d * bf16, 1 + L)                 # the lookup, w_down
+        if knob == "fsdp":
+            for w in (*attn.values(), *mlp.values()):
+                add("all-gather", w * bf16, L)
+            for w in tables.values():                         # the lookup, the logits
+                add("all-gather", w * bf16)
+        if knob == "legacy":
+            for w in attn.values():
+                add("all-gather", w * bf16, L)
+        return out
+    norms = (L * d, L * d, d)
+    add("all-reduce", T * d * bf16)                                   # the lookup
+    add("all-reduce", T * d * bf16, L * (2 if q_split else 1))        # w_down, wo
+    add("all-reduce", T * d * bf16, L if q_split else 0)              # wo recomputed
+    add("all-reduce", T * f32, 3)                                     # the loss
+    add("all-reduce", T * d * bf16, L * (3 if q_split else 2) + 1)    # input grads
+    add("all-reduce", B * S * Hkv * hd * bf16, 2 * L if q_split else 0)   # k, v grads
+    if knob == "fsdp":
+        for w in (*attn.values(), *mlp.values()):
+            add("all-gather", w * bf16, 2 * L)
+            add("reduce-scatter", w // dp * bf16, L)
+        for w in tables.values():
+            add("all-gather", w * bf16)
+            add("reduce-scatter", w // dp * bf16)
+        for w in norms:
+            add("all-reduce", w * bf16)
+        add("all-reduce", f32, 3)
+        return out
+    if knob == "legacy":
+        for w in attn.values():
+            add("all-gather", w * bf16, 2 * L)
+        attn = {k: w // m for k, w in attn.items()}
+    for w in (*(L * w for w in attn.values()), *(L * w for w in mlp.values()),
+              *tables.values(), *norms):
+        add("all-reduce", w * bf16)
+    add("all-reduce", f32)
+    return out
+
+
+def mesh_argument_bytes(rec: dict, knobs: tuple) -> int:
+    """Per-device argument bytes of a mesh record by reckoning: each leaf's
+    global bytes over its spec's shard count on the production mesh, the
+    optimizer's m/v (f32) as their params, the batch inputs' rows over the
+    batch axes, the cache by ``cache_specs``."""
+    from repro_torch.configs import SHAPE_CELLS, get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.dryrun import input_specs
+    from repro_torch.models.transformer import param_struct
+    from repro_torch.tree import leaves_with_paths
+
+    cfg, cell = get_config(rec["arch"]), SHAPE_CELLS[rec["cell"]]
+    multi = rec["mesh"] == "multi"
+    sizes = {"pod": 2 if multi else 1, "data": 16, "model": 16}
+    b = ("pod", "data") if multi else ("data",)
+
+    def share(t, spec) -> int:
+        n = 1
+        for e in spec:
+            for a in ((e,) if isinstance(e, str) else (e or ())):
+                n *= sizes[a]
+        return t.numel() * t.element_size() // n
+
+    fallback = "head_dim" if "--legacy-sharding" in knobs else "replicate"
+    with shd.options(fsdp="--fsdp" in knobs, attn_kv_fallback=fallback):
+        params = param_struct(cfg)
+        total = sum(share(t, shd.spec_for_param(path[-1], tuple(t.shape)))
+                    for path, t in leaves_with_paths(params))
+        specs = input_specs(cfg, cell)
+        if cell.kind == "train":
+            total += 2 * sum(share(t.float(), shd.spec_for_param(path[-1], tuple(t.shape)))
+                             for path, t in leaves_with_paths(params))
+            total += 4                                                   # step, int32
+            total += sum(share(t, (b,)) for t in specs["batch"].values())
+        elif cell.kind == "prefill":
+            total += sum(share(t, (b,)) for t in specs.values())
+        else:
+            batched = cell.global_batch >= 16 * (2 if multi else 1)
+            total += share(specs["tokens"], (b,) if batched else (None,))
+            cspecs = shd.cache_specs(cfg, cell, multi_pod=multi)
+            total += sum(share(t, cspecs.get(k, ())) for k, t in specs["cache"].items())
+    return total
+
+
+def mesh_dryrun_phase(procs: list) -> None:
+    """Wait for the mesh dry-run (:func:`start_mesh_dryrun`) and check its
+    records: no ``error``; ``chips`` 256 / 512; per-device argument bytes
+    equal to the reckoning (:func:`mesh_argument_bytes`); collective bytes
+    above 0 on every train cell; on a prefill, flash counted once a layer
+    at the per-device work of its ``wgmma`` plan (batch over the batch
+    axes, q heads over "model"), or not at all where the softcap keeps
+    prefill off flash (gemma2-9b).  Each step of MESH_HAND_JOBS must issue
+    the collectives of its hand count (:func:`hand_collectives`), kind by
+    kind and in number.  The counts are of one rank, on ``meta``: no card
+    time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import plans, work
+
+    t0 = time.perf_counter()
+    deadline = t0 + MESH_DRYRUN_TIMEOUT_S
+    rcs = []
+    for proc in procs:
+        try:
+            rcs.append(proc.wait(timeout=max(1.0, deadline - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise CheckFailed(f"the mesh dry-run ran past {MESH_DRYRUN_TIMEOUT_S} s")
+    waited = time.perf_counter() - t0
+    for w, rc in enumerate(rcs):
+        log = (MESH_DRYRUN_DIR / f"worker{w}.log").read_text()
+        check(rc == 0, f"mesh dry-run worker {w} exited {rc}: {log[-3000:]}")
+    seconds = [json.loads((MESH_DRYRUN_DIR / f"done{w}.json").read_text())["seconds"]
+               for w in range(len(procs))]
+    recs = [json.loads(l) for w in range(len(procs))
+            for l in (MESH_DRYRUN_DIR / f"ledger{w}.jsonl").read_text().splitlines()]
+    hands = [h for w in range(len(procs))
+             for h in json.loads((MESH_DRYRUN_DIR / f"hand{w}.json").read_text())]
+    want = sum(2 if mesh == "both" else 1 for _, _, mesh, _, _ in MESH_DRYRUN_JOBS)
+    check(len(recs) == want, f"the mesh dry-run wrote {len(recs)} records, want {want}")
+    check(len(hands) == len(MESH_HAND_JOBS), f"{len(hands)} hand-counted steps")
+    for h in hands:
+        hand = hand_collectives(_hand_cfg(h["config"]), _hand_cell(h["kind"]), h["knob"])
+        print(f"[mesh-dryrun] hand count on (2, 2): {h['kind']} {h['config']} "
+              f"{' '.join(h['flags']) or 'default'}: counted {json.dumps(h['collective_bytes'])}"
+              f", by hand {json.dumps(hand)}", flush=True)
+        check(h["collective_bytes"] == hand,
+              f"{h['kind']} {h['config']} {h['flags']}: collectives {h['collective_bytes']}, "
+              f"by hand {hand}")
+    knobs_of = {tag: knobs for _, _, _, knobs, tag in MESH_DRYRUN_JOBS}
+    for rec in recs:
+        check("error" not in rec, f"mesh dry-run record {rec}")
+        check(rec["chips"] == {"single": 256, "multi": 512}[rec["mesh"]], f"chips of {rec}")
+        args = mesh_argument_bytes(rec, knobs_of[rec["tag"]])
+        check(rec["argument_bytes"] == args, f"{rec['arch']} {rec['cell']} {rec['mesh']} "
+              f"{rec['tag']}: argument_bytes {rec['argument_bytes']}, reckoned {args}")
+        coll = rec["collective_bytes"]
+        if rec["kind"] == "train":
+            check(sum(v for k, v in coll.items() if k != "count") > 0 and coll["count"] > 0,
+                  f"{rec['arch']} {rec['cell']} {rec['mesh']}: no collective")
+        flash = {}
+        if rec["kind"] == "prefill":
+            cfg = get_config(rec["arch"])
+            calls = rec["kernel_calls"].get("flash_attention", 0)
+            if cfg.attn_softcap > 0:
+                check(calls == 0 and rec["kernel_flops"] == 0, f"{rec['arch']} prefill: flash")
+            else:
+                n_b = 16 * (2 if rec["mesh"] == "multi" else 1)
+                Hq = cfg.n_heads // 16 if cfg.n_heads % 16 == 0 else cfg.n_heads
+                G = cfg.n_heads // cfg.n_kv_heads
+                Hkv = cfg.n_kv_heads // 16 if cfg.n_kv_heads % 16 == 0 else -(-Hq // G)
+                B, S, hd = rec["global_batch"] // n_b, rec["seq_len"], cfg.resolved_head_dim
+                q = torch.empty(B, S, Hq, hd, dtype=torch.bfloat16, device="meta")
+                k = torch.empty(B, S, Hkv, hd, dtype=torch.bfloat16, device="meta")
+                plan = plans.fa_plan(B, S, S, Hq, Hkv, hd, torch.bfloat16, True, None,
+                                     work._align(q, k, k))
+                per_call = work.flash_attention(q, k, k, causal=True)["flops"]
+                flash = {"calls": calls, "variant": plan.variant, "local_q": [B, S, Hq, hd],
+                         "local_kv_heads": Hkv, "flops_per_call": per_call}
+                check(plan.variant == "wgmma" and calls == cfg.n_layers
+                      and rec["kernel_flops"] == cfg.n_layers * per_call,
+                      f"{rec['arch']} prefill {rec['mesh']}: flash {rec['kernel_calls']} "
+                      f"{rec['kernel_flops']}, want {cfg.n_layers} x {plan.variant} {per_call}")
+        line = {k: rec[k] for k in ("arch", "cell", "mesh", "tag", "chips", "global_batch",
+                                    "flops", "bytes_accessed", "argument_bytes", "temp_bytes",
+                                    "peak_bytes", "collective_bytes", "kernel_calls",
+                                    "kernel_flops", "lower_s")}
+        if flash:
+            line["flash_plan"] = flash
+        print(f"[mesh-dryrun] {json.dumps(line)}", flush=True)
+    print(f"[time] mesh-dryrun phase: {len(recs)} records and {len(hands)} hand-counted steps "
+          f"in {len(procs)} processes of their own (the card hidden) after the card's timed "
+          f"phases, {max(seconds):.1f}s the longest ({sum(seconds):.1f}s in all); waited "
+          f"{waited:.1f}s for them; counts of one rank on meta, no card time", flush=True)
 
 
 TRACE_SEQ, TRACE_BATCH, TRACE_IMG = 128, 1, 32
@@ -3455,6 +3886,7 @@ def main() -> int:
     libs = _build.build()
     print(f"[build] {len(libs)} kernels built from src/repro_torch/kernels/csrc in "
           f"{time.perf_counter() - t0:.1f}s: {sorted(libs)}", flush=True)
+    mesh_dryrun = []
 
     csrc, kdir = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     sources = {"flash_attention": ("cuda", f"{csrc}/flash_attention.cu",
@@ -3506,10 +3938,17 @@ def main() -> int:
         samples = microbench_phase()
         prof = cost_phase(samples, [qwen, llama, *later])
         dryrun_phase(samples, prof)
+        mesh_dryrun = start_mesh_dryrun()          # the last timed card phase is done
         trace_phase()
+        mesh_dryrun_phase(mesh_dryrun)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for proc in mesh_dryrun:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     kernels = []
     for name, (route, source, replaces) in sources.items():
@@ -3536,6 +3975,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-dryrun" in sys.argv:
+        at = sys.argv.index("--mesh-dryrun")
+        sys.exit(mesh_dryrun_worker(int(sys.argv[at + 1]), int(sys.argv[at + 2])))
     if "--mesh-rank" in sys.argv:
         sys.exit(mesh_rank(int(sys.argv[sys.argv.index("--mesh-rank") + 1]),
                            sys.argv[sys.argv.index("--mesh-case") + 1]))

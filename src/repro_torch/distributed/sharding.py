@@ -12,14 +12,19 @@ tuple of names), which compares with the reference's ``PartitionSpec``
 entry by entry: as ``PartitionSpec`` does, a one-name tuple is kept as
 the name and an empty tuple as None.
 
-The port runs in the *global view*: every rank of a mesh holds the same
+Two views run on a mesh.  In the *global view* every rank holds the same
 global tensors, and only the two mesh paths of
 :mod:`repro_torch.models.layers` (the expert-parallel MoE block and the
 sequence-parallel window attention) cut a rank's slice on entry by these
 specs and gather the global result on exit
-(:mod:`repro_torch.distributed.collectives`).  So :func:`maybe_shard`,
-a layout constraint, changes no value and is the identity here, as it
-changes none in the reference.  The mesh is a
+(:mod:`repro_torch.distributed.collectives`).  In the *partitioned view*
+(the dry-run on a mesh) the params, inputs and cache are DTensors
+placed by these specs (:func:`distribute`), each rank holds its shards,
+and DTensor's rules partition the ops (:mod:`.partition` those where
+they would gather).  :func:`maybe_shard`, a
+layout constraint, changes no value: it is the identity on a plain
+tensor and redistributes a ``DTensor`` to the spec, as the reference's
+``with_sharding_constraint`` sets XLA's partition.  The mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` activated by
 :func:`set_mesh`; :func:`active_mesh` is the counterpart of the
 reference's ``compat.get_abstract_mesh()`` (None where it is empty).
@@ -29,12 +34,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import sys
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 __all__ = ["P", "maybe_shard", "batch_axes", "spec_for_param", "tree_specs",
-           "tree_shardings", "batch_spec", "cache_specs", "logits_spec",
+           "tree_shardings", "batch_spec", "cache_specs", "logits_spec", "distribute",
+           "dtensor_type", "is_dtensor", "split_on", "local_shape", "replicated",
            "filter_spec", "ShardOpts", "get_options", "set_options", "options",
            "set_mesh", "active_mesh", "axis_names", "axis_size", "mesh_batch_axes",
            "coordinate", "local_shard", "layer_spec", "placements",
@@ -64,7 +71,9 @@ class P(tuple):
 @dataclasses.dataclass
 class ShardOpts:
     """Global sharding strategy knobs: the reference's, less ``zero1``
-    (optimizer-state sharding), which only its dry-run on a mesh reads.
+    (optimizer-state sharding), which changes no layout that any of its
+    flags can reach: it rides with ``fsdp``, whose params already take
+    the specs it would give m/v.
 
     fsdp            — additionally shard weights over the "data" axis on a
                       second (divisible) dimension; the expert path
@@ -220,11 +229,41 @@ def filter_spec(spec) -> Optional[P]:
     return P(*out)
 
 
+_DTENSOR = None
+
+
+def dtensor_type():
+    """``DTensor``, bound once ``torch.distributed.tensor`` is loaded (this
+    module does not load it: no DTensor exists until something has); None
+    before."""
+    global _DTENSOR
+    if _DTENSOR is None:
+        mod = sys.modules.get("torch.distributed.tensor")
+        _DTENSOR = None if mod is None else mod.DTensor
+    return _DTENSOR
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor``."""
+    dt = _DTENSOR or dtensor_type()
+    return dt is not None and isinstance(x, dt)
+
+
+def split_on(t, dim: int) -> bool:
+    """Whether ``t`` is a DTensor split along its dim ``dim`` over a mesh dim."""
+    return is_dtensor(t) and any(p.is_shard(dim % t.dim()) for p in t.placements)
+
+
 def maybe_shard(x: torch.Tensor, spec) -> torch.Tensor:
-    """The identity.  The reference's ``with_sharding_constraint`` sets a
-    layout and changes no value; in the port's global view every rank
-    holds the global tensor, so there is no layout to set."""
-    return x
+    """The reference's ``with_sharding_constraint``: where a mesh is active
+    and ``x`` is a ``DTensor``, ``x`` redistributed to ``spec`` (its axes
+    absent from the mesh dropped); else ``x``.  In the global view every
+    rank holds the global tensor, so there is no layout to set."""
+    mesh = active_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    want = placements(mesh, filter_spec(spec))
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
 
 
 def batch_axes() -> Any:
@@ -345,16 +384,79 @@ def placements(mesh, spec) -> Tuple[Any, ...]:
     for the tensor dim whose entry names it, else ``Replicate()``.  A dim
     split over several axes takes ``Shard(d)`` on each, in the entry's
     order (DTensor's default order is the mesh's: the reference's specs
-    list axes in mesh order)."""
+    list axes in mesh order).  A mesh dim of size 1 is ``Replicate()``: its
+    one rank holds the whole dim either way, and a replicated tensor runs
+    the plain ops with no redistribution."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = axis_names(mesh)
     out = [Replicate() for _ in names]
     for d, entry in enumerate(spec):
         for a in _entry_axes(entry):
-            if a in names:
+            if a in names and axis_size(mesh, a) > 1:
                 out[names.index(a)] = Shard(d)
     return tuple(out)
+
+
+def replicated(t: torch.Tensor, like) -> torch.Tensor:
+    """``t`` (a plain tensor every rank computes alike: positions, masks)
+    as a replicated DTensor on ``like``'s mesh where ``like`` is a DTensor,
+    else ``t``."""
+    if not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """A rank's shard shape of a tensor of ``shape`` placed by ``spec`` on
+    ``mesh``: each dim divided by the product of the mesh axes its entry
+    names (axes absent from the mesh ignored); raises where one does not
+    divide."""
+    names = axis_names(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        n = 1
+        for a in _entry_axes(entry):
+            if a in names:
+                n *= axis_size(mesh, a)
+        if out[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split over {entry} ({n})")
+        out[d] //= n
+    return tuple(out)
+
+
+def distribute(tree, mesh, specs) -> Any:
+    """The tensors of ``tree`` as DTensors on ``mesh``, each placed by its
+    spec in ``specs`` (a matching tree of :class:`P`), global shape and
+    stride the tensor's: a ``meta`` tensor's shard is an empty ``meta``
+    tensor of :func:`local_shape` (nothing is allocated), any other's the
+    copy of this rank's slice of its values."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    def place(t, spec):
+        spec = P(*spec, *([None] * (t.dim() - len(spec))))
+        pl = placements(mesh, spec)
+        shape = local_shape(t.shape, spec, mesh)
+        if t.is_meta:
+            local = torch.empty(shape, dtype=t.dtype, device="meta")
+        else:
+            off = compute_local_shape_and_global_offset(t.shape, mesh, pl)[1]
+            local = t[tuple(slice(o, o + n) for o, n in zip(off, shape))].clone()
+        return DTensor.from_local(local, mesh, pl, run_check=False, shape=t.shape,
+                                  stride=t.stride())
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, sv) for v, sv in zip(t, s))
+        return None if t is None else place(t, s)
+
+    return walk(tree, specs)
 
 
 def tree_shardings(mesh, template, fsdp: Optional[bool] = None) -> Any:

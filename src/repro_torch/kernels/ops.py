@@ -251,12 +251,32 @@ def aligned_rows(w: torch.Tensor) -> torch.Tensor:
 # Dispatch wrappers
 # ---------------------------------------------------------------------------
 
+def _on_shards(name: str, op: Callable, args, kwargs):
+    """``op`` on DTensor inputs (the partitioned view), run on each rank's
+    local shards and handed back as a DTensor.  Flash attention only, by
+    its batch and head split (:func:`~repro_torch.distributed.partition.
+    attention_shards`, which takes each rank's kv heads where k/v are
+    replicated; keys split by sequence raise): the other kernels run on
+    pruned params, which no cell on a mesh builds, and raise, naming the
+    op."""
+    from ..distributed import partition as part
+
+    if name != "flash_attention":
+        raise NotImplementedError(f"{name} on DTensors: no cell on a mesh reaches it (the "
+                                  "dry-run on a mesh builds no pruned params)")
+    sh = part.attention_shards(*args[:3], op=name, allow_seq=False)
+    out = op(sh.q, sh.k, sh.v, *args[3:], **kwargs)
+    return part.from_local(out, sh.mesh, sh.placements, sh.shape)
+
+
 def _counted(kernel: str, work: Callable[..., Dict[str, int]],
              out: Callable[..., Tuple[Tuple[int, ...], torch.dtype]]) -> Callable:
     """The op, under a count, as one launch of ``kernel`` doing ``work(*args,
     **kwargs)``; on ``meta``, an empty tensor of ``out(*args, **kwargs)``'s
     (shape, dtype) in place of the op (see the module docstring).  Off
-    ``meta`` and outside a count, the op unchanged."""
+    ``meta`` and outside a count, the op unchanged.  On DTensors, the op
+    on each rank's shards (:func:`_on_shards`), so a count reads one
+    rank's work."""
     def wrap(op: Callable) -> Callable:
         def on_meta(*args, **kwargs):
             shape, dtype = out(*args, **kwargs)
@@ -264,6 +284,8 @@ def _counted(kernel: str, work: Callable[..., Dict[str, int]],
 
         @functools.wraps(op)
         def counted(*args, **kwargs):
+            if hasattr(args[0], "device_mesh"):
+                return _on_shards(op.__name__, counted, args, kwargs)
             run = on_meta if args[0].is_meta else op
             if _hook.active() is None:
                 return run(*args, **kwargs)

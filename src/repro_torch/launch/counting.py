@@ -28,6 +28,22 @@ The dry-run counts on the ``meta`` device, where an op allocates nothing
 and computes nothing: shapes and dtypes are all there is, and they are all
 the counts need.
 
+On a mesh (the dry-run's partitioned view) the step runs on DTensors
+whose local shards are on ``meta``.  The counter steps aside for an op on
+DTensors (its ``__torch_dispatch__`` returns ``NotImplemented``), so
+DTensor's own dispatch runs it, and counts the local ops that dispatch
+issues: the work of this rank (rank 0 of the world), per device, as XLA's
+costs of the partitioned program are.  It counts nothing of DTensor's
+sharding propagation, which runs ops on FakeTensors of the global
+shapes.  The collectives a redistribution issues (``_c10d_functional``'s
+``all_gather_into_tensor``, ``all_reduce``, ``reduce_scatter_tensor``,
+``all_to_all_single`` and their ``c10d`` forms) add their result bytes to
+:attr:`Counter.collective_bytes`, under the reference's five kinds, and one
+to its ``count``, as the reference's ``collective_bytes`` reads the result
+shapes of the compiled HLO's collectives; they add nothing to
+``bytes_accessed`` or flops.  ``wait_tensor`` and ``_wrap_tensor_autograd``
+count nothing.  The arguments' and outputs' bytes are their local shards'.
+
 :func:`repro_torch.kernels.hook.kernel` is the hook of the port's CUDA
 kernels (``kernels/ops.py``; :func:`count` puts its counter where the hook
 finds it): inside it the counter adds the kernel's analytic flops and bytes once,
@@ -39,6 +55,7 @@ the route the card takes, as XLA's costs read the program it compiled.
 from __future__ import annotations
 
 import contextlib
+import sys
 import weakref
 from typing import Any, Callable, Dict, Iterator, List
 
@@ -47,11 +64,29 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+from ..distributed.sharding import dtensor_type
 from ..kernels import hook
 
-__all__ = ["Counter", "count", "FLOP_KINDS", "NO_TRAFFIC"]
+__all__ = ["Counter", "count", "FLOP_KINDS", "NO_TRAFFIC", "COLLECTIVES"]
 
 FLOP_KINDS = ("matmul", "pointwise", "reduction", "kernel")
+# the reference's collective kinds (``repro/launch/dryrun.py``'s ``_COLLECTIVES``)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# collective ops by (namespace, name) → kind; their result bytes are counted
+_COLLECTIVE_OPS = {
+    **{("_c10d_functional", n): k for n, k in (
+        ("all_gather_into_tensor", "all-gather"), ("all_reduce", "all-reduce"),
+        ("reduce_scatter_tensor", "reduce-scatter"), ("all_to_all_single", "all-to-all"))},
+    **{("c10d", n): k for n, k in (
+        ("allgather_", "all-gather"), ("_allgather_base_", "all-gather"),
+        ("allreduce_", "all-reduce"),
+        ("reduce_scatter_", "reduce-scatter"), ("_reduce_scatter_base_", "reduce-scatter"),
+        ("alltoall_", "all-to-all"), ("alltoall_base_", "all-to-all"))},
+}
+# a functional collective's companions: no work, no bytes
+_COLLECTIVE_NOOPS = {("_c10d_functional", "wait_tensor"),
+                     ("_c10d_functional", "_wrap_tensor_autograd")}
 
 _aten = torch.ops.aten
 # ops that make a storage without touching its bytes
@@ -68,7 +103,18 @@ _REDUCTION_TAG = getattr(torch.Tag, "reduction", None)
 _COPIES = {_aten.clone}
 
 def _tensors(tree) -> List[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors in ``tree``, a ``DTensor`` as its local shard."""
+    out = []
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            local = getattr(t, "_local_tensor", None)
+            out.append(t if local is None else local)
+    return out
+
+
+def _fake_type():
+    mod = sys.modules.get("torch._subclasses.fake_tensor")
+    return None if mod is None else mod.FakeTensor
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -94,6 +140,8 @@ class Counter(TorchDispatchMode):
         self.output_bytes = 0
         self._live: Dict[int, Any] = {}       # storage key -> its finalizer
         self._paused = 0
+        self.collective_bytes: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
+        self.collective_bytes["count"] = 0
         for t in _tensors(args):
             self._adopt(t)
         self.argument_bytes = self.live_bytes
@@ -144,11 +192,26 @@ class Counter(TorchDispatchMode):
     # -- dispatch -----------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        dt = dtensor_type()
+        if dt is not None and any(issubclass(t, dt) for t in types):
+            return NotImplemented          # DTensor's dispatch issues the local ops
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if self._paused:
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        fake = _fake_type()
+        if fake is not None and any(isinstance(t, fake) for t in ins + outs):
+            return out                     # DTensor's sharding propagation
+        key = (func.namespace, func.overloadpacket.__name__)
+        if key in _COLLECTIVE_NOOPS:
+            return out
+        if key in _COLLECTIVE_OPS:
+            for t in outs:
+                self._adopt(t)
+            self.collective_bytes[_COLLECTIVE_OPS[key]] += sum(_nbytes(t) for t in outs)
+            self.collective_bytes["count"] += 1
+            return out
         in_storages = {t.untyped_storage()._cdata for t in ins}
         for t in outs:
             if t.untyped_storage()._cdata not in in_storages:

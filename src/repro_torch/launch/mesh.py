@@ -4,18 +4,27 @@
 Functions, never module-level constants, so importing this module starts
 no process group.  A mesh is a ``DeviceMesh`` over every rank of the
 initialised world, with named dims; its device type is the card's
-(``cuda``) where one is present, else ``cpu``.
+(``cuda``) where one is present, else ``cpu``, and ``cpu`` in a fake
+world.
+
+:func:`fake_world` stands up a world of any size in one process, with no
+devices and no peers: the ``"fake"`` backend of
+``torch.testing._internal.distributed.fake_pg``, whose collectives return
+at once.  This process is rank 0 of it.  The dry-run counts a cell on the
+production mesh in such a world, its shards on ``meta``.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_world", "make_mesh", "make_local_mesh", "make_production_mesh"]
+__all__ = ["init_world", "init_fake_world", "close_world", "fake_world", "make_mesh",
+           "make_local_mesh", "make_production_mesh"]
 
 # A group's collective waits this long for a peer before it fails.
 TIMEOUT_S = 120
@@ -32,9 +41,39 @@ def init_world(rank: int, world_size: int, init_method: str, *,
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
+def init_fake_world(world_size: int) -> None:
+    """Make this process rank 0 of a fake world of ``world_size`` ranks (the
+    ``"fake"`` backend on a ``FakeStore``): no peer, no device, and every
+    collective returns at once with its result's shape.  Raises if a
+    default group is already up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is already up; close it first")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(world_size))
+
+
+def close_world() -> None:
+    """Destroy the default group (and with it every mesh over it), if any."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int) -> Iterator[None]:
+    """:func:`init_fake_world` for the block, :func:`close_world` after it."""
+    init_fake_world(world_size)
+    try:
+        yield
+    finally:
+        close_world()
+
+
 def _device_type(device_type: Optional[str]) -> str:
     if device_type is not None:
         return device_type
+    if dist.get_backend() == "fake":        # no devices: its shards live on meta
+        return "cpu"
     return "cuda" if torch.cuda.is_available() else "cpu"
 
 

@@ -12,7 +12,9 @@ The two mesh paths run in the global view of
 tensors, a path cuts its rank's slice on entry, computes with explicit
 collectives (:mod:`repro_torch.distributed.collectives`) and gathers the
 global result on exit, so every rank's value at a layer boundary is the
-reference's.
+reference's.  On DTensors (the dry-run's partitioned view of the dense
+decoders) projections, attention and the cache write run on each rank's
+shards (:mod:`repro_torch.distributed.partition`).
 
 Projections are either dense weights in the reference layout (``wq``
 (d, Hq, hd), ``wo`` (Hq, hd, d), ``w_up`` (d, F), ...) or compressed
@@ -23,14 +25,16 @@ the row-aligned IntraBlock layout and runs through the
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..distributed import collectives as coll
+from ..distributed import partition as part
 from ..distributed import sharding as shd
 from ..distributed.sharding import P
 from ..kernels import ops
@@ -119,11 +123,15 @@ COMPRESSED = (BlockSparseLinear, IntraBlockLinear)
 def project(x: torch.Tensor, w, impl: str = "auto", n_in: int = 1) -> torch.Tensor:
     """Contract the last ``n_in`` dims of ``x`` with the leading ``n_in``
     dims of a dense weight (e.g. ``wo`` (Hq, hd, d) takes ``n_in=2``), or
-    run a compressed one."""
+    run a compressed one.  On DTensors each rank multiplies its shards
+    (:func:`~repro_torch.distributed.partition.matmul`)."""
     lead = x.shape[:x.dim() - n_in]
     x2 = x.reshape(math.prod(lead), -1)
     if isinstance(w, COMPRESSED):
         return w(x2, impl).reshape(*lead, *w.out_shape)
+    if shd.is_dtensor(w):
+        return part.matmul(x2, part.mergeable(w, n_in).reshape(x2.shape[1], -1)).reshape(
+            *lead, *w.shape[n_in:])
     y = x2 @ w.reshape(x2.shape[1], -1)
     return y.reshape(*lead, *w.shape[n_in:])
 
@@ -144,6 +152,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     hd = x.shape[-1]
     half = hd // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    freqs = shd.replicated(freqs, positions)
     ang = positions[..., None].float() * freqs                      # (..., S, half)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -165,6 +174,30 @@ def _as_batch(v, B: int, device) -> torch.Tensor:
     return t.expand(B) if t.dim() == 0 else t
 
 
+# The dtype of the attention score tiles in :func:`chunked_attention`
+# (the reference's ``_SCORES_DTYPE``, ``repro/models/layers.py:41-52``).
+# f32, the default, is the exact softmax; bf16 halves every score-sized
+# tensor, approximating a fused flash kernel's traffic (``--scores-bf16``).
+_SCORES_DTYPE = torch.float32
+
+
+def set_scores_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Set the score tiles' dtype; returns the one it replaces."""
+    global _SCORES_DTYPE
+    prev, _SCORES_DTYPE = _SCORES_DTYPE, dtype
+    return prev
+
+
+@contextlib.contextmanager
+def scores_dtype(dtype: torch.dtype) -> Iterator[None]:
+    """:func:`set_scores_dtype` for the block, the previous dtype after."""
+    prev = set_scores_dtype(dtype)
+    try:
+        yield
+    finally:
+        set_scores_dtype(prev)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[Any] = None,
                       q_offset: Any = 0, kv_len: Optional[Any] = None,
@@ -181,16 +214,54 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``prefix`` also sees every key before it (bidirectional within the
     prefix); without ``causal`` it changes nothing.  ``attn_cap > 0`` caps
     the scores as the reference's ``_attn_tile`` does: scores x scale,
-    then ``cap * tanh(s / cap)``, then the additive mask.  Scores and the
-    running max/sum/accumulator are f32; P is cast to the value dtype
-    before P·V, as in the reference.
+    then ``cap * tanh(s / cap)``, then the additive mask.
+
+    Every score-sized tensor (the scores, scaled, capped and masked, and
+    ``p``) is in the scores dtype (:func:`set_scores_dtype`, f32 by
+    default), the mask cast to it; the running max, the sum (summed in
+    f32) and the accumulator are f32; P is cast to the value dtype and
+    P·V accumulates in f32.  These are the reference's rounding points
+    (``_gqa_scores``, ``_attn_tile``).  In f32 the score product is of q
+    and k widened to f32; in another dtype it is the product of the
+    operands as given, rounded to that dtype.
+
+    On DTensors (the partitioned view) each rank attends its shards
+    (:func:`~repro_torch.distributed.partition.attention_shards`); keys
+    split by sequence combine their statistics by all-reduce, and there a
+    ``chunk`` that covers every key covers every local key.
     """
+    if shd.is_dtensor(q):
+        sh = part.attention_shards(q, k, v, op="chunked_attention")
+        if sh.seq and chunk >= k.shape[1]:
+            chunk = sh.k.shape[1]
+        m, l, acc = _attention_stats(sh.q, sh.k, sh.v, causal=causal, window=window,
+                                     q_offset=part.local(q_offset), kv_len=part.local(kv_len),
+                                     attn_cap=attn_cap, prefix=prefix, chunk=chunk,
+                                     k_start=sh.k_start)
+        m, l, acc = part.combine_stats(m, l, acc, sh)
+        return part.from_local(_attention_out(acc, l, sh.q), sh.mesh, sh.placements, sh.shape)
+    m, l, acc = _attention_stats(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                 kv_len=kv_len, attn_cap=attn_cap, prefix=prefix, chunk=chunk)
+    return _attention_out(acc, l, q)
+
+
+def _attention_stats(q, k, v, *, causal, window, q_offset, kv_len, attn_cap, prefix, chunk,
+                     k_start: int = 0):
+    """The online softmax of :func:`chunked_attention` over k/v whose first
+    key sits at position ``k_start``: returns the running max ``m``, sum
+    ``l`` (B, Hkv, G, Sq) and accumulator ``acc`` (B, Hkv, G, Sq, hd), f32."""
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
-    qg = q.reshape(B, Sq, Hkv, G, hd).float()
+    sdt = _SCORES_DTYPE
+    if sdt == torch.float32:
+        qg = q.reshape(B, Sq, Hkv, G, hd).float()
+    else:
+        cdt = torch.promote_types(q.dtype, k.dtype)
+        qg = q.reshape(B, Sq, Hkv, G, hd).to(cdt)
+        scale = torch.full((), scale, dtype=sdt, device=dev)    # scale rounded, as the reference's
     nchunks = max(1, math.ceil(Skv / chunk))
     pad = nchunks * chunk - Skv
     if pad:
@@ -206,7 +277,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for ci in range(nchunks):
         k_i = k[:, ci * chunk:(ci + 1) * chunk]
         v_i = v[:, ci * chunk:(ci + 1) * chunk]
-        k_idx = ci * chunk + torch.arange(chunk, device=dev)
+        k_idx = k_start + ci * chunk + torch.arange(chunk, device=dev)
         ok = torch.ones((B, Sq, chunk), dtype=torch.bool, device=dev)
         if causal:
             seen = k_idx[None, None, :] <= q_idx[:, :, None]
@@ -218,18 +289,27 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kvl is not None:
             ok &= k_idx[None, None, :] < kvl[:, None, None]
         if pad:
-            ok &= (k_idx < Skv)[None, None, :]
-        bias = torch.zeros(ok.shape, device=dev).masked_fill(~ok, float("-inf"))
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_i.float()) * scale
+            ok &= (k_idx < k_start + Skv)[None, None, :]
+        bias = torch.zeros(ok.shape, dtype=sdt, device=dev).masked_fill(~ok, float("-inf"))
+        if sdt == torch.float32:
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_i.float()) * scale
+        else:
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_i.to(qg.dtype)).to(sdt) * scale
         s = softcap(s, attn_cap) + bias[:, None, None]
-        m_cur = torch.maximum(m, s.amax(dim=-1))
+        m_cur = torch.maximum(m, s.amax(dim=-1).float())
         m_safe = torch.where(torch.isinf(m_cur), torch.zeros_like(m_cur), m_cur)
-        p = torch.exp(s - m_safe[..., None])
+        p = torch.exp(s - m_safe[..., None].to(sdt))
         corr = torch.where(torch.isinf(m), torch.zeros_like(m), torch.exp(m - m_safe))
-        l = l * corr + p.sum(dim=-1)
+        l = l * corr + p.sum(dim=-1, dtype=torch.float32)
         pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_i.dtype).float(), v_i.float())
         acc = acc * corr[..., None] + pv
         m = m_cur
+    return m, l, acc
+
+
+def _attention_out(acc: torch.Tensor, l: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, Hq, hd) in q's dtype from the final accumulator and sum."""
+    B, Sq, Hq, hd = q.shape
     out = acc / torch.clamp(l[..., None], min=1e-20)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
 
@@ -423,6 +503,9 @@ def write_cache(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None
     ``pos[b] >= Smax`` (``.at[b, pos].set``): the old slot is written back."""
     Smax, S = buf.shape[1], new.shape[1]
     new = new.to(buf.dtype)
+    if shd.is_dtensor(buf):
+        part.write_cache(buf, new, pos, write_cache)
+        return
     if pos.dim() == 0:
         start = pos.long().clamp(0, Smax - S)
         buf.index_copy_(1, start + torch.arange(S, device=buf.device), new)

@@ -50,6 +50,9 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
+from ..distributed import partition as part
+from ..distributed import sharding as shd
+from ..distributed.sharding import P
 from ..kernels import hook
 from .layers import (COMPRESSED, attention_block, chunked_attention, mlp_block, moe_block,
                      project, rms_norm, ssm_block)
@@ -61,6 +64,9 @@ Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
 _VOCAB_CHUNK = 16384      # lm_head columns widened to f32 at a time
+# the residual stream's spec on a mesh (the reference's constraints,
+# ``repro/models/transformer.py:230, 248, 276``): rows over the batch axes
+_ROWS = P(("pod", "data"), None, None)
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -346,7 +352,7 @@ def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None
         mix = ys if cfg.attention == "none" else ya
     if cfg.post_norms:
         mix = rms_norm(mix, lp["post_ln1"], cfg.norm_eps)
-    x = x + mix
+    x = shd.maybe_shard(x + mix, _ROWS)
     if cross is not None:
         x = x + _cross_attention(x, cross, cfg, impl)
     if cfg.d_ff == 0:
@@ -357,7 +363,7 @@ def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None
     ff = moe_block(h, lp, cfg) if cfg.n_experts > 1 else mlp_block(h, lp, cfg, impl, tap)
     if cfg.post_norms:
         ff = rms_norm(ff, lp["post_ln2"], cfg.norm_eps)
-    return x + ff, new
+    return shd.maybe_shard(x + ff, _ROWS), new
 
 
 def _cross_attention(x, cross, cfg: ArchConfig, impl: str = "auto") -> torch.Tensor:
@@ -419,17 +425,30 @@ def _unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     # weight is widened one vocab chunk at a time, so no f32 copy of the
     # whole matrix (2 GB for llama3-8b's lm_head) is ever held.
     # (split, not slicing: under autograd one backward joins the chunks' grads)
-    x2 = x.reshape(-1, x.shape[-1]).float()
-    if hook.capturing() is not None:
+    x2 = x.reshape(-1, x.shape[-1])
+    if shd.split_on(w, 1):
+        # a rank of a vocab-split weight widens its own columns whole
+        logits = part.matmul(x2, w, dtype=torch.float32)
+    elif hook.capturing() is not None:
         # a capture records the product once: the chunks are a memory
         # schedule, and each would be priced with the whole weight's size
-        logits = x2 @ w.float()
+        logits = x2.float() @ w.float()
     else:
-        logits = torch.cat([x2 @ wc.float() for wc in w.split(_VOCAB_CHUNK, dim=1)], dim=1)
+        x2 = x2.float()
+        mm = part.matmul if shd.is_dtensor(w) else torch.matmul
+        logits = torch.cat([mm(x2, wc.float()) for wc in w.split(_VOCAB_CHUNK, dim=1)], dim=1)
     logits = logits.reshape(*x.shape[:-1], -1)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    return shd.maybe_shard(logits, P(("pod", "data"), None, "model"))
+
+
+def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings, rows over the batch axes on a mesh (a DTensor
+    table split by vocab: :func:`~repro_torch.distributed.partition.embed`)."""
+    table = params["embed"]
+    x = part.embed(table, tokens) if shd.split_on(table, 0) else table[tokens]
+    return shd.maybe_shard(x, _ROWS)
 
 
 # Activation rematerialisation (``forward(remat=True)``): the aten ops whose
@@ -489,11 +508,11 @@ def _run(params: Params, tokens: torch.Tensor, cfg: ArchConfig, impl: str,
     if tap is not None and cfg.ssm_state:
         raise NotImplementedError(f"{cfg.name}: the activation tap does not cover the SSM "
                                   "mixer (w_in/w_out)")
-    x = params["embed"][tokens]
+    x = _embed(params, tokens)
     if prefix_embed is not None:
         x = torch.cat([prefix_embed.to(device=x.device, dtype=x.dtype), x], dim=1)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    positions = shd.replicated(torch.arange(S, device=x.device), x).expand(B, S)
     prefix = 0 if prefix_embed is None else prefix_embed.shape[1]
     caches: Dict[str, list] = {}
     ck = cv = None
@@ -601,7 +620,7 @@ def decode_step(params: Params, tokens: torch.Tensor, cfg: ArchConfig, cache: Ca
     _check_supported(cfg)
     if tokens.dim() == 1:
         tokens = tokens[:, None]
-    x = params["embed"][tokens]
+    x = _embed(params, tokens)
     B = x.shape[0]
     pos = torch.as_tensor(cache["pos"], device=x.device)
     positions = (pos if pos.dim() == 0 else pos[:, None]).expand(B, 1)

@@ -17,6 +17,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..distributed import partition as part
+from ..distributed import sharding as shd
 from ..tree import leaves, map_with_path
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
@@ -58,10 +60,13 @@ def _chunks(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32 (0-dim tensor)."""
-    per_leaf = [torch.stack([c.float().square().sum() for c in _chunks(l)]).sum()
-                for l in leaves(tree)]
-    return torch.sqrt(sum(per_leaf))
+    """sqrt of the sum of every leaf's squares, in f32 (0-dim tensor); of
+    DTensor leaves, over every rank's shards
+    (:func:`~repro_torch.distributed.partition.sum_over_shards`)."""
+    ls = leaves(tree)
+    per_leaf = [torch.stack([c.float().square().sum() for c in _chunks(part.local(l))]).sum()
+                for l in ls]
+    return torch.sqrt(part.sum_over_shards(per_leaf, ls))
 
 
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -80,7 +85,16 @@ def adamw_update(grads, opt_state: Dict[str, Any], params, cfg: AdamWConfig
     """One AdamW step, written in place into ``params`` and ``opt_state``;
     returns (params, opt_state, metrics) with metrics ``grad_norm`` and
     ``lr`` (0-dim f32 tensors).  ``grads`` mirrors ``params`` (any float
-    dtype)."""
+    dtype).
+
+    On DTensors (the dry-run on a mesh) each grad is first brought to its
+    param's layout (a partial sum reduced: an all-reduce, or a
+    reduce-scatter where the param is split), and each rank updates its
+    shards; ``m`` and ``v`` are laid out as the param."""
+    if shd.is_dtensor(leaves(params)[0]):
+        grads = {i: g if tuple(g.placements) == tuple(p.placements)
+                 else g.redistribute(p.device_mesh, p.placements)
+                 for i, (g, p) in enumerate(zip(leaves(grads), leaves(params)))}
     step = opt_state["step"] + 1
     gnorm = global_norm(grads)
     scale = (torch.clamp(gnorm.new_tensor(cfg.clip_norm) / torch.clamp(gnorm, min=1e-9),
@@ -90,15 +104,17 @@ def adamw_update(grads, opt_state: Dict[str, Any], params, cfg: AdamWConfig
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1.0 - torch.pow(b1, step.float())
     bc2 = 1.0 - torch.pow(b2, step.float())
+    lr_l, bc1, bc2 = part.local(lr), part.local(bc1), part.local(bc2)
     with torch.no_grad():
         for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt_state["m"]),
                               leaves(opt_state["v"])):
+            p, g, m, v = (part.local(t) for t in (p, g, m, v))
             for pc, gc, mc, vc in zip(_chunks(p), _chunks(g), _chunks(m), _chunks(v)):
                 g32 = gc.float() * scale
                 mc.mul_(b1).add_((1 - b1) * g32)
                 vc.mul_(b2).add_((1 - b2) * g32.square())
                 delta = (mc / bc1) / (torch.sqrt(vc / bc2) + cfg.eps)
                 p32 = pc.float()
-                pc.copy_(p32 - lr * (delta + cfg.weight_decay * p32))
+                pc.copy_(p32 - lr_l * (delta + cfg.weight_decay * p32))
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -26,6 +26,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed import partition as part
+from ..distributed import sharding as shd
 from ..distributed.compress import compress_decompress_grads
 from ..models.transformer import forward
 from ..tree import leaves, leaves_with_paths, map_with_path
@@ -37,11 +39,16 @@ __all__ = ["cross_entropy_loss", "make_loss_fn", "make_train_step", "TrainStep"]
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean softmax cross entropy in f32; logits (B, S, V), labels
-    (B, S); with ``mask`` a masked mean, its denominator floored at 1."""
+    (B, S); with ``mask`` a masked mean, its denominator floored at 1.
+    Logits that are a DTensor split by vocab take
+    :func:`~repro_torch.distributed.partition.vocab_split_nll`."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    if shd.split_on(logits, -1):
+        nll = part.vocab_split_nll(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = logz - gold
     if mask is None:
         return nll.mean()
     mask = mask.float()
