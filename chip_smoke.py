@@ -186,21 +186,31 @@ Phases, each reported on its own line(s):
    f32 score tiles (:func:`scores_logit_check`, the logits within
    SCORES_LOGIT_TOL);
 15b. mesh-dryrun — the dry-run on a mesh (:func:`mesh_dryrun_phase`),
-   counted in four processes of their own started once phase 15 is done,
+   counted in six processes of their own started once phase 15 is done,
    so that no timed phase shares the host with them
    (:func:`start_mesh_dryrun`; the card hidden from them, a fake world
-   their default group), and read after phase 16: llama3-8b's and
-   qwen3-4b's three cells on both meshes (256 / 512 ranks), gemma-7b's
-   and gemma2-9b's prefill_32k on the single-pod one, llama3-8b's
-   train_4k under ``--fsdp`` and ``--legacy-sharding``; no ``error``,
-   per-device argument bytes equal to the specs' reckoning, collective
-   bytes on every train cell, prefill's flash counted once a layer at its
-   per-device ``wgmma`` work.  On a fake (2, 2) world, llama3-8b
-   ``.reduced()``'s prefill and train step under each knob (and
-   ``--fsdp --no-zero1``, which changes nothing) and its widened train
-   step must issue the collectives of a hand count
-   (:func:`hand_collectives`), by kind, bytes and number.  Counts of one
-   rank on ``meta``, no card time; each record on a ``[mesh-dryrun]`` line;
+   their default group; the jobs spread longest first, :func:`_jobs_of`),
+   and read after phase 16: llama3-8b's, qwen3-4b's and
+   qwen3-moe-30b-a3b's three cells on both meshes (256 / 512 ranks),
+   gemma-7b's, gemma2-9b's and dbrx-132b's prefill_32k on the single-pod
+   one, llama3-8b's train_4k under ``--fsdp`` and ``--legacy-sharding``,
+   qwen3-moe's train_4k under ``--fsdp`` and prefill_32k under
+   ``--no-ep``, every cell of mamba2-130m and hymba-1.5b (long_500k too)
+   on the single-pod mesh and their prefill_32k on the multi-pod one; no
+   ``error``, per-device argument bytes equal to the specs' reckoning,
+   collective bytes on every train cell, all-to-all on every MoE record
+   of the expert-parallel path and none under ``--no-ep`` (whose flops
+   must exceed the expert-parallel path's), prefill's flash counted once
+   a layer at its per-device ``wgmma`` work (hymba-1.5b's on the window
+   path's block of rank 0: S/16 queries, every head), none for mamba2 or
+   gemma2.  On a fake (2, 2) world, llama3-8b ``.reduced()``'s prefill
+   and train step under each knob (and ``--fsdp --no-zero1``, which
+   changes nothing), its widened train step, qwen3-moe ``.reduced()``'s
+   prefill and train step (default and ``--fsdp``) and hymba
+   ``.reduced()``'s window-path prefill must issue the collectives of a
+   hand count (:func:`hand_collectives`), by kind, bytes and number.
+   Counts of one rank on ``meta``, no card time; each record on a
+   ``[mesh-dryrun]`` line;
 16. trace   — the modeling plane's front end (:func:`trace_phase`), on
    ``meta`` tensors and the host, no launch: every config's forward,
    prefill and decode at published width and depth (S 128, B 1) captured
@@ -3468,7 +3478,11 @@ def dryrun_phase(micro_samples: list, micro_prof) -> None:
 MESH_DRYRUN_DIR = HERE / "build" / "mesh_dryrun"
 # (arch, cell, meshes, knobs, tag): every cell of the main path's two
 # configs on both meshes, gemma's prefill on one, llama3-8b's train step
-# under each sharding knob (--no-zero1 changes nothing: it is not run)
+# under each sharding knob (--no-zero1 changes nothing: it is not run);
+# qwen3-moe-30b-a3b's cells on both meshes, its train step under --fsdp and
+# its prefill under --no-ep, dbrx-132b's prefill; every cell of mamba2-130m
+# and hymba-1.5b (long_500k too) on the single-pod mesh, their prefill on the
+# multi-pod one
 MESH_DRYRUN_JOBS = (
     *((arch, cell, "both", (), "") for arch in ("llama3-8b", "qwen3-4b")
       for cell in ("train_4k", "prefill_32k", "decode_32k")),
@@ -3476,10 +3490,21 @@ MESH_DRYRUN_JOBS = (
     ("gemma2-9b", "prefill_32k", "single", (), ""),
     ("llama3-8b", "train_4k", "single", ("--fsdp",), "fsdp"),
     ("llama3-8b", "train_4k", "single", ("--legacy-sharding",), "legacy"),
+    *(("qwen3-moe-30b-a3b", cell, "both", (), "")
+      for cell in ("train_4k", "prefill_32k", "decode_32k")),
+    ("qwen3-moe-30b-a3b", "train_4k", "single", ("--fsdp",), "fsdp"),
+    ("qwen3-moe-30b-a3b", "prefill_32k", "single", ("--no-ep",), "noep"),
+    ("dbrx-132b", "prefill_32k", "single", (), ""),
+    *((arch, cell, "single", (), "") for arch in ("mamba2-130m", "hymba-1.5b")
+      for cell in ("train_4k", "prefill_32k", "decode_32k", "long_500k")),
+    *((arch, "prefill_32k", "multi", (), "") for arch in ("mamba2-130m", "hymba-1.5b")),
 )
 # (kind, config, knob, flags): steps counted on a fake (2, 2) world and held
 # to a hand count (:func:`hand_collectives`): llama3-8b ``.reduced()`` (heads
-# whole) under each knob, and widened so that its query heads split
+# whole) under each knob, and widened so that its query heads split;
+# qwen3-moe-30b-a3b ``.reduced()``'s expert-parallel prefill and train step
+# (default and --fsdp); hymba-1.5b ``.reduced()`` with 5 query heads, whose
+# prefill at S 2048 takes the window path
 MESH_HAND_JOBS = (
     *(("prefill", "reduced", knob, flags) for knob, flags in (
         ("default", ()), ("fsdp", ("--fsdp",)), ("legacy", ("--legacy-sharding",)))),
@@ -3487,8 +3512,11 @@ MESH_HAND_JOBS = (
         ("default", ()), ("fsdp", ("--fsdp",)), ("fsdp", ("--fsdp", "--no-zero1")),
         ("legacy", ("--legacy-sharding",)))),
     ("train", "widened", "default", ()), ("train", "widened", "fsdp", ("--fsdp",)),
+    *((kind, "moe", knob, flags) for kind in ("prefill", "train")
+      for knob, flags in (("default", ()), ("fsdp", ("--fsdp",)))),
+    ("prefill", "hymba", "default", ()),
 )
-MESH_DRYRUN_WORKERS = 4
+MESH_DRYRUN_WORKERS = 6
 MESH_DRYRUN_TIMEOUT_S = 600
 
 
@@ -3516,21 +3544,47 @@ def start_mesh_dryrun() -> list:
 def _hand_cfg(variant: str):
     from repro_torch.configs import get_config
 
+    if variant == "moe":
+        return get_config("qwen3-moe-30b-a3b").reduced()
+    if variant == "hymba":
+        return dataclasses.replace(get_config("hymba-1.5b").reduced(), n_heads=5, n_kv_heads=1)
     cfg = get_config("llama3-8b").reduced()
     if variant == "widened":
         cfg = dataclasses.replace(cfg, d_model=512, n_heads=16, head_dim=32, d_ff=2048)
     return cfg
 
 
-def _hand_cell(kind: str):
+def _hand_cell(kind: str, variant: str = "reduced"):
     from repro_torch.configs.base import ShapeCell
 
+    if variant == "hymba":
+        return ShapeCell("t", 2048, 2, kind)
+    if variant == "moe":
+        return ShapeCell("t", 128, 4, kind)
     return ShapeCell("t", 128 if kind == "prefill" else 64, 4, kind)
 
 
+def _job_weight(job) -> float:
+    """A rough count time of a MESH_DRYRUN_JOBS entry (a train cell several
+    times a prefill or decode; both meshes twice one), to spread them."""
+    arch, cell, mesh, _, _ = job
+    return (4.0 if cell == "train_4k" else 1.0) * (2 if mesh == "both" else 1)
+
+
+def _jobs_of(w: int, n: int) -> list:
+    """Worker ``w``'s share of MESH_DRYRUN_JOBS: the longest first, each to
+    the worker with the least so far."""
+    loads, share = [0.0] * n, [[] for _ in range(n)]
+    for job in sorted(MESH_DRYRUN_JOBS, key=_job_weight, reverse=True):
+        i = loads.index(min(loads))
+        loads[i] += _job_weight(job)
+        share[i].append(job)
+    return share[w]
+
+
 def mesh_dryrun_worker(w: int, n: int) -> int:
-    """The ``--mesh-dryrun W N`` process: every N-th job of MESH_DRYRUN_JOBS
-    from the W-th through ``python -m repro_torch.launch.dryrun``'s
+    """The ``--mesh-dryrun W N`` process: its share of MESH_DRYRUN_JOBS
+    (:func:`_jobs_of`) through ``python -m repro_torch.launch.dryrun``'s
     ``main`` into ``build/mesh_dryrun/ledger<W>.jsonl``, and likewise of
     MESH_HAND_JOBS, each step's ``collective_bytes`` on a fake (2, 2)
     world into ``hand<W>.json``; then its seconds."""
@@ -3542,7 +3596,7 @@ def mesh_dryrun_worker(w: int, n: int) -> int:
 
     t0 = time.perf_counter()
     rc = 0
-    for arch, cell, mesh, knobs, tag in MESH_DRYRUN_JOBS[w::n]:
+    for arch, cell, mesh, knobs, tag in _jobs_of(w, n):
         rc |= dryrun.main(["--arch", arch, "--cell", cell, "--mesh", mesh, *knobs,
                            "--tag", tag, "--out", str(MESH_DRYRUN_DIR / f"ledger{w}.jsonl")])
     hand = []
@@ -3550,13 +3604,125 @@ def mesh_dryrun_worker(w: int, n: int) -> int:
         opts = dryrun.knob_options(dryrun.parser().parse_args(list(flags)))
         with fake_world(4), shd.options(**opts):
             mesh = make_mesh((2, 2), ("data", "model"))
-            c = dryrun.count_cell(_hand_cfg(variant), _hand_cell(kind), mesh=mesh)
+            c = dryrun.count_cell(_hand_cfg(variant), _hand_cell(kind, variant), mesh=mesh)
         hand.append({"kind": kind, "config": variant, "knob": knob, "flags": list(flags),
                      "collective_bytes": c.collective_bytes})
     (MESH_DRYRUN_DIR / f"hand{w}.json").write_text(json.dumps(hand))
     (MESH_DRYRUN_DIR / f"done{w}.json").write_text(json.dumps(
         {"rc": rc, "seconds": time.perf_counter() - t0}))
     return rc
+
+
+def _hand_family_collectives(cfg, cell, knob: str) -> dict:
+    """The collectives of a step of qwen3-moe-30b-a3b, hymba-1.5b or
+    mamba2-130m at ``.reduced()`` on (2, 2), by hand: the copy of
+    tests/test_torch_mesh_dryrun_families.py's ``_hand_collectives``, whose
+    docstring gives the reckoning."""
+    m = dp = 2
+    B, S, d, L = cell.global_batch, cell.seq_len, cfg.d_model, cfg.n_layers
+    B_loc = B // dp
+    T = B_loc * S
+    hd, Hq, Hkv, F, V = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, \
+        cfg.vocab_size
+    bf16, f32 = 2, 4
+    train = cell.kind == "train"
+    out = dict.fromkeys(("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                         "collective-permute", "count"), 0)
+
+    def add(kind, nbytes, n=1):
+        out[kind] += n * nbytes
+        out["count"] += n
+
+    def adamw(leaves):
+        for w in leaves:
+            add("all-reduce", w * bf16)
+        add("all-reduce", f32)
+
+    add("all-reduce", (B_loc if cell.kind == "decode" else T) * d * bf16)        # the lookup
+    if cfg.ssm_state:
+        din, N, H = cfg.ssm_inner(), cfg.ssm_state, cfg.ssm_heads
+        e = 2 * din + 2 * N + H
+    if cfg.family == "moe":
+        E, K, cf = cfg.n_experts, cfg.top_k, cfg.capacity_factor
+        E_loc = E // m
+        if knob == "noep":
+            assert not train
+            C = max(1, math.ceil(B * S * K / E * cf))
+            add("all-gather", B * S * d * bf16, L)
+            add("all-gather", E * C * d * bf16, L)
+            return out
+        Ts = -(-T // m)
+        C = max(1, math.ceil(Ts * K / E * cf))
+        add("all-to-all", m * E_loc * C * d * bf16, 2 * L * (3 if train else 1))
+        add("all-gather", m * Ts * d * bf16, L)
+        attn = (d * Hq * hd, d * Hkv * hd, d * Hkv * hd, Hq * hd * d)
+        weights = (*attn, d * E, E_loc * d * F, E_loc * d * F, E_loc * F * d)
+        tables = (V // m * d, d * V // m)
+        if knob == "fsdp":
+            for w in weights:
+                add("all-gather", w * bf16, (2 if train else 1) * L)
+            for w in tables:
+                add("all-gather", w * bf16)
+        if not train:
+            return out
+        add("all-reduce", T * f32, 3)                                   # the loss
+        add("all-reduce", T * d * bf16)                                 # lm_head's input grad
+        add("reduce-scatter", Ts * d * bf16, L)                         # the exit, transposed
+        add("all-reduce", d * E * bf16, L)                              # the router's grad
+        add("all-reduce", T * d * bf16, L)                              # the block's input grad
+        norms = (d, L * d, L * d, L * hd, L * hd)
+        if knob == "fsdp":
+            for w in weights:
+                add("reduce-scatter", w // dp * bf16, L)
+            for w in tables:
+                add("reduce-scatter", w // dp * bf16)
+            for w in norms:
+                add("all-reduce", w * bf16)
+            add("all-reduce", f32, 3)
+            return out
+        adamw((*tables, *norms, *(L * w for w in weights)))
+        return out
+    if cfg.family == "hybrid":
+        assert knob == "default"
+        add("all-gather", T * d * bf16, L * (2 if train else 1))        # y over "model"
+        add("all-reduce", T * d * bf16, L * (2 if train else 1))        # w_out
+        add("all-reduce", T * d * bf16, L)                              # w_down
+        if not train:
+            add("all-gather", T * Hkv * hd * bf16, 2 * L)               # the cache's k, v
+            return out
+        attn = (d * Hq * hd, d * Hkv * hd, d * Hkv * hd, Hq * hd * d)
+        add("all-reduce", T * f32, 3)
+        add("all-reduce", T * d * bf16, 2 * L + 1)                      # w_gate, w_up, lm_head
+        add("reduce-scatter", T // m * d * bf16, L)                     # y's gather, transposed
+        add("all-reduce", T * d * bf16, 2 * L)                          # x's grad: window, mixer
+        for w in (*attn, H, H, H, d * e):
+            add("all-reduce", w * bf16, L)
+        adamw((V // m * d, d * V // m, d, *(L * d,) * 4, *(L * H,) * 3, L * 4 * din // m,
+               *(L * w for w in attn), L * d * e, L * d * F // m, L * d * F // m,
+               L * F // m * d, L * din // m * d))
+        return out
+    # mamba2
+    assert cfg.family == "ssm" and knob == "default"
+    if cell.kind == "decode":
+        if B >= 16:
+            add("all-gather", B_loc * din * bf16, L)
+            add("all-reduce", B_loc * din * f32, L)
+            add("all-reduce", B_loc * d * bf16, L)
+        else:
+            add("all-gather", B * d * bf16, L)
+            add("all-gather", 4 * din * bf16, L)
+            add("all-reduce", B * d * bf16, L)
+        return out
+    add("all-reduce", T * d * bf16, L)                                  # w_out
+    if not train:
+        return out
+    add("all-reduce", T * f32, 3)
+    add("all-reduce", T * d * bf16, 1 + L)                              # unembed; x's grad
+    for w in (H, H, H, d * e):
+        add("all-reduce", w * bf16, L)
+    adamw((V // m * d, d, L * d, *(L * H,) * 3, L * 4 * din // m, L * d * e,
+           L * din // m * d))
+    return out
 
 
 def hand_collectives(cfg, cell, knob: str) -> dict:
@@ -3566,7 +3732,10 @@ def hand_collectives(cfg, cell, knob: str) -> dict:
     docstrings give the reckoning).  The production specs split heads over
     a 16-wide "model" axis: ``.reduced()`` llama3-8b keeps its 4 query
     heads whole, the widened config splits its 16 (not its 2 kv heads).
-    A train step is checkpointed (remat "minimal", the dry-run's default)."""
+    A train step is checkpointed (remat "minimal", the dry-run's default).
+    The MoE, SSM and hybrid configs: :func:`_hand_family_collectives`."""
+    if cfg.family != "dense":
+        return _hand_family_collectives(cfg, cell, knob)
     m = dp = 2
     B, S, d, L = cell.global_batch // dp, cell.seq_len, cfg.d_model, cfg.n_layers
     hd, Hq, Hkv, F, V = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, \
@@ -3673,13 +3842,15 @@ def mesh_dryrun_phase(procs: list) -> None:
     """Wait for the mesh dry-run (:func:`start_mesh_dryrun`) and check its
     records: no ``error``; ``chips`` 256 / 512; per-device argument bytes
     equal to the reckoning (:func:`mesh_argument_bytes`); collective bytes
-    above 0 on every train cell; on a prefill, flash counted once a layer
-    at the per-device work of its ``wgmma`` plan (batch over the batch
-    axes, q heads over "model"), or not at all where the softcap keeps
-    prefill off flash (gemma2-9b).  Each step of MESH_HAND_JOBS must issue
-    the collectives of its hand count (:func:`hand_collectives`), kind by
-    kind and in number.  The counts are of one rank, on ``meta``: no card
-    time."""
+    above 0 on every train cell; all-to-all on every MoE record but the
+    ``--no-ep`` one, whose flops must exceed the expert-parallel path's;
+    on a prefill, flash counted once a layer at the per-device work of its
+    ``wgmma`` plan (batch over the batch axes, q heads over "model"; the
+    window path's block of rank 0 for hymba), or not at all where the
+    softcap keeps prefill off flash (gemma2-9b) or there is no attention
+    (mamba2-130m).  Each step of MESH_HAND_JOBS must issue the collectives
+    of its hand count (:func:`hand_collectives`), kind by kind and in
+    number.  The counts are of one rank, on ``meta``: no card time."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import plans, work
 
@@ -3708,7 +3879,8 @@ def mesh_dryrun_phase(procs: list) -> None:
     check(len(recs) == want, f"the mesh dry-run wrote {len(recs)} records, want {want}")
     check(len(hands) == len(MESH_HAND_JOBS), f"{len(hands)} hand-counted steps")
     for h in hands:
-        hand = hand_collectives(_hand_cfg(h["config"]), _hand_cell(h["kind"]), h["knob"])
+        hand = hand_collectives(_hand_cfg(h["config"]), _hand_cell(h["kind"], h["config"]),
+                                h["knob"])
         print(f"[mesh-dryrun] hand count on (2, 2): {h['kind']} {h['config']} "
               f"{' '.join(h['flags']) or 'default'}: counted {json.dumps(h['collective_bytes'])}"
               f", by hand {json.dumps(hand)}", flush=True)
@@ -3726,25 +3898,37 @@ def mesh_dryrun_phase(procs: list) -> None:
         if rec["kind"] == "train":
             check(sum(v for k, v in coll.items() if k != "count") > 0 and coll["count"] > 0,
                   f"{rec['arch']} {rec['cell']} {rec['mesh']}: no collective")
+        cfg = get_config(rec["arch"])
+        if cfg.family == "moe":
+            # the expert-parallel path exchanges capacity blocks; --no-ep's
+            # global dispatch none
+            a2a = coll["all-to-all"]
+            check(a2a == 0 if rec["tag"] == "noep" else a2a > 0,
+                  f"{rec['arch']} {rec['cell']} {rec['mesh']} {rec['tag']}: all-to-all {a2a}")
         flash = {}
         if rec["kind"] == "prefill":
-            cfg = get_config(rec["arch"])
             calls = rec["kernel_calls"].get("flash_attention", 0)
-            if cfg.attn_softcap > 0:
+            if cfg.attn_softcap > 0 or cfg.attention == "none":
                 check(calls == 0 and rec["kernel_flops"] == 0, f"{rec['arch']} prefill: flash")
             else:
                 n_b = 16 * (2 if rec["mesh"] == "multi" else 1)
-                Hq = cfg.n_heads // 16 if cfg.n_heads % 16 == 0 else cfg.n_heads
-                G = cfg.n_heads // cfg.n_kv_heads
-                Hkv = cfg.n_kv_heads // 16 if cfg.n_kv_heads % 16 == 0 else -(-Hq // G)
                 B, S, hd = rec["global_batch"] // n_b, rec["seq_len"], cfg.resolved_head_dim
+                window = None
+                if cfg.attention == "sliding":
+                    # the window path: rank 0's block, its S/16 queries and no
+                    # key-only rows before them, every head
+                    Hq, Hkv, S, window = cfg.n_heads, cfg.n_kv_heads, S // 16, cfg.window
+                else:
+                    Hq = cfg.n_heads // 16 if cfg.n_heads % 16 == 0 else cfg.n_heads
+                    G = cfg.n_heads // cfg.n_kv_heads
+                    Hkv = cfg.n_kv_heads // 16 if cfg.n_kv_heads % 16 == 0 else -(-Hq // G)
                 q = torch.empty(B, S, Hq, hd, dtype=torch.bfloat16, device="meta")
                 k = torch.empty(B, S, Hkv, hd, dtype=torch.bfloat16, device="meta")
-                plan = plans.fa_plan(B, S, S, Hq, Hkv, hd, torch.bfloat16, True, None,
+                plan = plans.fa_plan(B, S, S, Hq, Hkv, hd, torch.bfloat16, True, window,
                                      work._align(q, k, k))
-                per_call = work.flash_attention(q, k, k, causal=True)["flops"]
+                per_call = work.flash_attention(q, k, k, causal=True, window=window)["flops"]
                 flash = {"calls": calls, "variant": plan.variant, "local_q": [B, S, Hq, hd],
-                         "local_kv_heads": Hkv, "flops_per_call": per_call}
+                         "local_kv_heads": Hkv, "window": window, "flops_per_call": per_call}
                 check(plan.variant == "wgmma" and calls == cfg.n_layers
                       and rec["kernel_flops"] == cfg.n_layers * per_call,
                       f"{rec['arch']} prefill {rec['mesh']}: flash {rec['kernel_calls']} "
@@ -3756,6 +3940,13 @@ def mesh_dryrun_phase(procs: list) -> None:
         if flash:
             line["flash_plan"] = flash
         print(f"[mesh-dryrun] {json.dumps(line)}", flush=True)
+    by = {(r["arch"], r["cell"], r["mesh"], r["tag"]): r for r in recs}
+    ep, noep = (by[("qwen3-moe-30b-a3b", "prefill_32k", "single", t)] for t in ("", "noep"))
+    check(noep["flops"] > ep["flops"], f"--no-ep prefill flops {noep['flops']} not above the "
+          f"expert-parallel path's {ep['flops']}")
+    ratio = noep["flops"] / ep["flops"]
+    print(f"[mesh-dryrun] qwen3-moe-30b-a3b prefill_32k single: --no-ep flops "
+          f"{noep['flops']!r} / expert-parallel {ep['flops']!r} = {ratio:.3f}", flush=True)
     print(f"[time] mesh-dryrun phase: {len(recs)} records and {len(hands)} hand-counted steps "
           f"in {len(procs)} processes of their own (the card hidden) after the card's timed "
           f"phases, {max(seconds):.1f}s the longest ({sum(seconds):.1f}s in all); waited "

@@ -34,11 +34,21 @@ kernels counted (not launched).  ``--fsdp``, ``--no-ep`` and
 ``--legacy-sharding`` set the options as the reference's flags do, for
 the run only.  ``--no-zero1`` is accepted and changes nothing, in the
 reference as here: ZeRO-1 rides with FSDP there, and FSDP's params already
-take the specs it gives m/v.  ``--no-ep`` reaches no dense decoder.  GSPMD and DTensor pick their
-collectives each its own way, so these bytes are the port's program's,
-not the reference's.  A mesh takes the dense decoders only (llama3-8b,
-qwen3-4b, gemma-7b, gemma2-9b), and no ``--execute``: any other family
-on a mesh, or an execution, writes an ``error`` record.
+take the specs it gives m/v.  ``--no-ep`` reaches the MoE block: its
+global dispatch replaces the expert-parallel path, as in the reference
+(no dense decoder, SSM or hybrid config takes either).  GSPMD and DTensor
+pick their collectives each its own way, so these bytes are the port's
+program's, not the reference's.  A mesh takes the dense decoders
+(llama3-8b, qwen3-4b, gemma-7b, gemma2-9b), the MoE decoders
+(qwen3-moe-30b-a3b, dbrx-132b: the expert-parallel block or ``--no-ep``'s
+global dispatch), the SSM and hybrid families (mamba2-130m, hymba-1.5b:
+the Mamba-2 mixer by channels and heads, or by the state's N in decode,
+and hymba's sequence-parallel window attention in a prefill whose length
+divides into 16 x 1024; long_500k too), each of the reference's
+shard_map paths on this rank's shards
+(:mod:`repro_torch.distributed.partition`).  The encoder-decoder and
+prefix-LM families (whisper-medium, paligemma-3b) and ``--execute`` on a
+mesh write an ``error`` record.
 
 ``--scores-bf16`` materialises ``chunked_attention``'s score tiles in bf16
 (:func:`repro_torch.models.layers.set_scores_dtype`) for the run, and puts
@@ -62,10 +72,9 @@ Results append to a JSONL ledger (``--out``), one record per cell and one
 ``error`` record per failed cell (exit 1 on any), so an interrupted
 matrix run resumes where it stopped (``--skip-done``).
 
-Not ported here: the dry-run on a mesh of the MoE, SSM / hybrid,
-encoder-decoder and prefix-LM families, whose mesh paths
-(``_moe_block_ep``, ``_swa_seqpar_attention``) run the global view of
-:mod:`repro_torch.distributed.sharding`, not on DTensors.
+Not ported here: the dry-run on a mesh of the encoder-decoder and
+prefix-LM families (their attention variants: bidirectional, cross and
+prefix).
 
 ``--emit-trace`` also captures each cell's modeling-plane DAG
 (:mod:`repro_torch.trace`, on ``meta``: a train cell as the forward trace)
@@ -108,8 +117,9 @@ __all__ = ["param_struct", "input_specs", "place_structs", "count_cell", "run_ce
 
 META = torch.device("meta")
 # the families whose dry-run on a mesh is ported: the dense decoders, which
-# take no shard_map path in the reference
-MESH_FAMILIES = ("dense",)
+# take no shard_map path in the reference, and the MoE, SSM and hybrid
+# families, whose shard_map paths run on local shards
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 MESH_CHIPS = {"single": 256, "multi": 512}
 # the port's CUDA kernels, as the counter logs them
 KERNELS = ("flash_attention", "block_sparse_matmul", "block_importance",
@@ -326,8 +336,8 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str = "local", *,
     256 / 512 ranks started for the cell and closed after it, the
     arguments placed by the sharding options of
     :mod:`repro_torch.distributed.sharding`: per-device flops, bytes and
-    memory, and ``collective_bytes`` by kind.  A mesh takes the dense
-    decoders only (:data:`MESH_FAMILIES`), and no ``execute``."""
+    memory, and ``collective_bytes`` by kind.  A mesh takes the families
+    of :data:`MESH_FAMILIES`, and no ``execute``."""
     cfg = get_config(arch)
     if mesh_kind not in ("local", *MESH_CHIPS):
         raise ValueError(f"mesh {mesh_kind!r}: one of local, single, multi")
@@ -335,7 +345,7 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str = "local", *,
         if cfg.family not in MESH_FAMILIES:
             raise NotImplementedError(
                 f"mesh {mesh_kind!r}: the dry-run on a mesh of the {cfg.family} family "
-                f"({arch}) is not ported; only {', '.join(MESH_FAMILIES)} decoders are")
+                f"({arch}) is not ported; only the {', '.join(MESH_FAMILIES)} families are")
         if execute:
             raise NotImplementedError(f"mesh {mesh_kind!r}: --execute on a mesh is not ported "
                                       "(the fake world has no devices)")
@@ -458,7 +468,8 @@ def parser() -> argparse.ArgumentParser:
                     help="the reference's flag; no effect in either package (ZeRO-1 rides "
                          "with --fsdp, whose params already take its specs)")
     ap.add_argument("--no-ep", action="store_true",
-                    help="disable the expert-parallel MoE path (no dense decoder takes it)")
+                    help="disable the expert-parallel MoE path: the MoE block takes the "
+                         "global dispatch (no other family takes either)")
     ap.add_argument("--legacy-sharding", action="store_true",
                     help="legacy head_dim attention fallback sharding")
     ap.add_argument("--remat-policy", default="minimal", choices=["minimal", "dots", "nothing"],

@@ -26,7 +26,9 @@ the row-aligned IntraBlock layout and runs through the
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
+import types
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -363,7 +365,9 @@ def _swa_seqpar_attention(x: torch.Tensor, p: Params, cfg, mesh, *, window: int,
     P(batch axes) cut it.  The projections run inside on the slice,
     through :func:`project` (a compressed weight runs its kernel).  On
     exit every rank gathers the output and the rank's own k/v (the
-    prefill cache) over the mesh.  Returns (y, k, v), each global.
+    prefill cache) over the mesh.  Returns (y, k, v), each global.  On
+    DTensors each rank runs its block on its shards
+    (:func:`~repro_torch.distributed.partition.swa_seqpar`).
 
     The attention is causal self-attention over the block, windowed by W,
     with the block's first ``start - lo`` query rows zero (they only hold
@@ -375,29 +379,21 @@ def _swa_seqpar_attention(x: torch.Tensor, p: Params, cfg, mesh, *, window: int,
     reference, RoPE comes from ``start + arange``, so the path is right for
     a prefill from position 0.
     """
+    if shd.is_dtensor(x):
+        shd.count_path("swa_seqpar")
+        return part.swa_seqpar(x, p, functools.partial(
+            _swa_block, cfg=cfg, S_loc=x.shape[1] // shd.axis_size(mesh, "model"), W=window,
+            impl=impl))
     B, S, D = x.shape
     M = shd.axis_size(mesh, "model")
     S_loc = S // M
-    W = window
     baxes = shd.mesh_batch_axes(mesh)
-    dev = x.device
     shd.count_path("swa_seqpar")
 
     xl = coll.enter(x, P(baxes, None, None), mesh)
     wq, wk, wv, wo = (coll.enter(p[k], P(), mesh) for k in ("wq", "wk", "wv", "wo"))
-    B_loc = xl.shape[0]
     start = shd.coordinate(mesh, "model")[0] * S_loc
-    lo = max(0, start - W)
-    off, L = start - lo, start + S_loc - lo
-    xb = xl[:, lo:start + S_loc]
-    q = project(xb[:, off:], wq, impl).to(x.dtype)
-    k = project(xb, wk, impl).to(x.dtype)
-    v = project(xb, wv, impl).to(x.dtype)
-    q = rope(q, (start + torch.arange(S_loc, device=dev)).expand(B_loc, S_loc), cfg.rope_theta)
-    k = rope(k, (lo + torch.arange(L, device=dev)).expand(B_loc, L), cfg.rope_theta)
-    q = F.pad(q, (0, 0, 0, 0, off, 0))
-    out = _causal_self_attention(q, k, v, cfg, window=W, impl=impl)[:, off:]
-    y = project(out, wo, impl, n_in=2).to(x.dtype)
+    y, k, v = _swa_block(xl, wq, wk, wv, wo, start, cfg=cfg, S_loc=S_loc, W=window, impl=impl)
     groups = (baxes, ("model",))
 
     def gathered(piece):
@@ -406,7 +402,29 @@ def _swa_seqpar_attention(x: torch.Tensor, p: Params, cfg, mesh, *, window: int,
         g = g.transpose(1, 2)
         return g.reshape(B, S, *piece.shape[2:])
 
-    return gathered(y), gathered(k[:, off:]), gathered(v[:, off:])
+    return gathered(y), gathered(k), gathered(v)
+
+
+def _swa_block(xl: torch.Tensor, wq, wk, wv, wo, start: int, *, cfg, S_loc: int, W: int,
+               impl: str = "auto"):
+    """One rank's block of the sequence-parallel window attention on local
+    tensors: the queries of its slice ``[start, start + S_loc)`` of
+    ``xl`` (B_loc, S, D) against the keys of ``[max(0, start - W), start +
+    S_loc)``; returns this rank's y (B_loc, S_loc, D) and its slice's k/v."""
+    dev = xl.device
+    B_loc = xl.shape[0]
+    lo = max(0, start - W)
+    off, L = start - lo, start + S_loc - lo
+    xb = xl[:, lo:start + S_loc]
+    q = project(xb[:, off:], wq, impl).to(xl.dtype)
+    k = project(xb, wk, impl).to(xl.dtype)
+    v = project(xb, wv, impl).to(xl.dtype)
+    q = rope(q, (start + torch.arange(S_loc, device=dev)).expand(B_loc, S_loc), cfg.rope_theta)
+    k = rope(k, (lo + torch.arange(L, device=dev)).expand(B_loc, L), cfg.rope_theta)
+    q = F.pad(q, (0, 0, 0, 0, off, 0))
+    out = _causal_self_attention(q, k, v, cfg, window=W, impl=impl)[:, off:]
+    y = project(out, wo, impl, n_in=2).to(xl.dtype)
+    return y, k[:, off:], v[:, off:]
 
 
 def _takes_seqpar(cfg, S: int, *, causal: bool, window, prefix: int) -> bool:
@@ -623,6 +641,8 @@ def _moe_block_global(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     """The global-dispatch path over the B·S tokens of ``x`` (B, S, D):
     the reference's ``_moe_block_global``.  The expert leaves are dense
     (masked) weights, so no kernel runs here."""
+    if shd.is_dtensor(x):
+        return part.moe_global(x, p, cfg, _moe_dispatch, _expert_ffn, _moe_combine)
     B, S, D = x.shape
     T = B * S
     if p["w_up"].shape[0] != cfg.n_experts:
@@ -671,12 +691,15 @@ def _moe_block_ep(x: torch.Tensor, p: Params, cfg, mesh, baxes) -> torch.Tensor:
     from every source, the blocks go back by the reverse exchange, and
     each rank combines its own tokens.  On exit every rank gathers the
     tokens of every rank.  Capacity drops are per slice, so at a dropping
-    capacity they differ from the global path's, as in the reference.
+    capacity they differ from the global path's, as in the reference.  On
+    DTensors each rank runs its slice on its shards and gathers over
+    "model" only (:func:`~repro_torch.distributed.partition.moe_ep`).
     """
+    if shd.is_dtensor(x):
+        shd.count_path("moe_ep")
+        return part.moe_ep(x, p, functools.partial(_ep_body, cfg=cfg, dtype=x.dtype))
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
     M = shd.axis_size(mesh, "model")
-    E_loc = E // M
     fsdp = shd.get_options().fsdp
     shd.count_path("moe_ep")
 
@@ -692,18 +715,32 @@ def _moe_block_ep(x: torch.Tensor, p: Params, cfg, mesh, baxes) -> torch.Tensor:
     if pad:
         xt = torch.cat([xt, xt.new_zeros((pad, D))])
     mi = shd.coordinate(mesh, "model")[0]
-    xs = xt[mi * Ts:(mi + 1) * Ts]
-    eb, top_p, keep, dest, tok_idx, C = _moe_dispatch(xs, wr, E, K, cfg.capacity_factor,
-                                                      x.dtype)
-    ex = coll.all_to_all(eb.reshape(M, E_loc, C, D), mesh, "model")   # dim 0: source rank
-    ex = ex.transpose(0, 1).reshape(E_loc, M * C, D)
-    eo = _expert_ffn(ex, lp, cfg, x.dtype)                             # (E_loc, M·C, D)
-    eo = eo.reshape(E_loc, M, C, D).transpose(0, 1)
-    eo = coll.all_to_all(eo, mesh, "model").reshape(E, C, D)           # back to the sources
-    ys = _moe_combine(eo, top_p, keep, dest, tok_idx, Ts, D, x.dtype)
+    ys = _ep_body(xt[mi * Ts:(mi + 1) * Ts], wr, lp,
+                  lambda t: coll.all_to_all(t, mesh, "model"), cfg=cfg, dtype=x.dtype)
     nb = math.prod(shd.axis_size(mesh, a) for a in baxes)
     y = coll.gather_grid(ys, mesh, (baxes, ("model",)))                # (nb, M, Ts, D)
     return y.reshape(nb, M * Ts, D)[:, :T_loc].reshape(B, S, D)
+
+
+def _ep_body(xs: torch.Tensor, wr: torch.Tensor, lp: Params, exchange: Callable, *, cfg,
+             dtype: torch.dtype) -> torch.Tensor:
+    """One model rank's part of the expert-parallel block on local tensors:
+    route its Ts tokens ``xs`` with capacity C from them, send each
+    expert's (C, D) block to the rank that holds it (``exchange``, an
+    all-to-all of (M, E/M, C, D) over "model"; dim 0 of the result is the
+    source rank), run the resident experts ``lp`` over the M·C rows from
+    every source, send the blocks back and combine the rank's tokens."""
+    E, K = cfg.n_experts, cfg.top_k
+    E_loc = lp["w_up"].shape[0]
+    M = E // E_loc
+    D = xs.shape[1]
+    eb, top_p, keep, dest, tok_idx, C = _moe_dispatch(xs, wr, E, K, cfg.capacity_factor, dtype)
+    ex = exchange(eb.reshape(M, E_loc, C, D))                          # dim 0: source rank
+    ex = ex.transpose(0, 1).reshape(E_loc, M * C, D)
+    eo = _expert_ffn(ex, lp, cfg, dtype)                               # (E_loc, M·C, D)
+    eo = eo.reshape(E_loc, M, C, D).transpose(0, 1)
+    eo = exchange(eo).reshape(E, C, D)                                 # back to the sources
+    return _moe_combine(eo, top_p, keep, dest, tok_idx, xs.shape[0], D, dtype)
 
 
 def moe_block(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
@@ -757,9 +794,13 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.
     cum = torch.cumsum(dtq * A, dim=2)                              # (B,nc,Q,H) f32
     total = cum[:, :, -1, :]                                        # (B,nc,H)
 
-    # intra-chunk: scores[i,j] = C_i·B_j · exp(cum_i - cum_j) for j <= i
+    # intra-chunk: scores[i,j] = C_i·B_j · exp(cum_i - cum_j) for j <= i.  The
+    # exponent is clamped at 0, which changes no kept entry (cum only falls)
+    # and keeps the masked ones (j > i) finite: exp of their rise overflows
+    # past a chunk's worth of decay, and an inf there makes the backward NaN
+    # (the mask's zero grad times inf)
     cb = torch.einsum("bcqn,bckn->bcqk", Cq, Bq)
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])   # (B,nc,Q,Q,H)
+    decay = torch.exp((cum[:, :, :, None, :] - cum[:, :, None, :, :]).clamp(max=0))  # (B,nc,Q,Q,H)
     tri = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
     scores = torch.where(tri[None, None, :, :, None], cb[..., None] * decay,
                          torch.zeros((), device=xh.device)).to(dtype)
@@ -802,9 +843,15 @@ def ssm_block(x: torch.Tensor, p: Params, cfg, *, state: Optional[torch.Tensor] 
     multiplies the f32 decode output by ``w_out`` in f32, the port rounds
     it to x's dtype first, so that a compressed ``w_out`` runs its kernel
     in the weight's dtype (no difference in f32).
+
+    On DTensors each rank runs its channels and heads (prefill) or its
+    slice of the state (decode) on its shards
+    (:func:`~repro_torch.distributed.partition.ssm_block`).
     """
+    if shd.is_dtensor(x):
+        return part.ssm_block(x, p, cfg, state=state, conv_state=conv_state, local=_SSM_LOCAL,
+                              impl=impl)
     B, S, D = x.shape
-    chunk = cfg.ssm_chunk
     din = cfg.ssm_inner(D)
     N, H = cfg.ssm_state, cfg.ssm_heads
     Pd = din // H
@@ -815,36 +862,61 @@ def ssm_block(x: torch.Tensor, p: Params, cfg, *, state: Optional[torch.Tensor] 
     dt = torch.logaddexp(dt_raw.float() + p["dt_bias"], torch.zeros((), device=x.device))
     A = -torch.exp(p["A_log"].float())                                  # (H,) < 0
 
-    kern = p["conv_w"]                                                  # (4, din)
     decode = state is not None and S == 1
-    if not decode:
-        xpad = F.pad(xs, (0, 0, 3, 0))
-        xc = xpad[:, 0:S] * kern[3]
-        for i in range(1, 4):                      # the reference's sum(), in its order
-            xc = xc + xpad[:, i:i + S] * kern[3 - i]
-        new_conv = xpad[:, -3:]
-    else:
-        hist = torch.cat([conv_state, xs], dim=1)                       # (B, 4, din)
-        xc = (hist * kern.flip(0)[None]).sum(dim=1, keepdim=True)
-        new_conv = hist[:, 1:]
+    xc, new_conv = _ssm_conv(xs, p["conv_w"], conv_state if decode else None)
     xc = F.silu(xc.float()).to(x.dtype)
     xh = xc.reshape(B, S, H, Pd)
-
     if not decode:
-        pad = (-S) % chunk
-        xp, dtp, Bp, Cp = xh, dt, Bm, Cm
-        if pad:
-            xp = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, Cm))
-        y, hT = _ssd_chunked(xp, dtp, A, Bp, Cp, min(chunk, xp.shape[1]))
-        y = y[:, :S]
+        y, hT = _ssm_scan(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
     else:
-        # h' = exp(dt·A)·h + dt·(B ⊗ x);  y = C·h'
-        a = torch.exp(dt[:, 0] * A[None])                               # (B, H)
-        upd = torch.einsum("bn,bhp->bhpn", Bm[:, 0].float(), xh[:, 0].float() * dt[:, 0, :, None])
-        hT = state * a[:, :, None, None] + upd
-        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), hT)[:, None]   # (B, 1, H, Pd) f32
+        y, hT = _ssm_step(state, xh, dt, A, Bm, Cm)
     y = y + xh * p["D_skip"][None, None, :, None]
     y = y.reshape(B, S, din) * F.silu(z.float()).to(x.dtype)
     out = project(y.to(x.dtype), p["w_out"], impl).to(x.dtype)
     return out, hT, new_conv
+
+
+def _ssm_conv(xs: torch.Tensor, kern: torch.Tensor, conv_state: Optional[torch.Tensor]):
+    """The 4-tap depthwise causal conv of :func:`ssm_block` on ``xs`` (B, S,
+    C) by ``kern`` (4, C): over the sequence, its first rows padded with
+    zeros (``conv_state`` None), or one step after the 3 rows of
+    ``conv_state`` (B, 3, C).  Returns (the conv before its SiLU, the new
+    conv state: the last 3 rows)."""
+    if conv_state is None:
+        S = xs.shape[1]
+        xpad = F.pad(xs, (0, 0, 3, 0))
+        xc = xpad[:, 0:S] * kern[3]
+        for i in range(1, 4):                      # the reference's sum(), in its order
+            xc = xc + xpad[:, i:i + S] * kern[3 - i]
+        return xc, xpad[:, -3:]
+    hist = torch.cat([conv_state, xs], dim=1)                           # (B, 4, C)
+    return (hist * kern.flip(0)[None]).sum(dim=1, keepdim=True), hist[:, 1:]
+
+
+def _ssm_scan(xh, dt, A, Bm, Cm, chunk: int):
+    """The chunked SSD of a prefill over ``xh`` (B, S, H, Pd), the sequence
+    padded to a multiple of ``chunk``: (y (B, S, H, Pd), final state)."""
+    S = xh.shape[1]
+    pad = (-S) % chunk
+    xp, dtp, Bp, Cp = xh, dt, Bm, Cm
+    if pad:
+        xp = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dtp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bm, Cm))
+    y, hT = _ssd_chunked(xp, dtp, A, Bp, Cp, min(chunk, xp.shape[1]))
+    return y[:, :S], hT
+
+
+def _ssm_step(state, xh, dt, A, Bm, Cm):
+    """The single-step recurrence of decode: h' = exp(dt·A)·h + dt·(B ⊗ x),
+    y = C·h'.  Returns (y (B, 1, H, Pd) f32, h').  Over a slice of the
+    state dim N (``state``, ``Bm`` and ``Cm`` alike), y is that slice's
+    part of the sum."""
+    a = torch.exp(dt[:, 0] * A[None])                                   # (B, H)
+    upd = torch.einsum("bn,bhp->bhpn", Bm[:, 0].float(), xh[:, 0].float() * dt[:, 0, :, None])
+    hT = state * a[:, :, None, None] + upd
+    return torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), hT)[:, None], hT
+
+
+# the mixer's local math, for its partitioned view
+_SSM_LOCAL = types.SimpleNamespace(conv=_ssm_conv, scan=_ssm_scan, step=_ssm_step,
+                                   project=project)

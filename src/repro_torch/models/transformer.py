@@ -445,9 +445,11 @@ def _unembed(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """The token embeddings, rows over the batch axes on a mesh (a DTensor
-    table split by vocab: :func:`~repro_torch.distributed.partition.embed`)."""
+    table split by vocab or by width: :func:`~repro_torch.distributed.
+    partition.embed`)."""
     table = params["embed"]
-    x = part.embed(table, tokens) if shd.split_on(table, 0) else table[tokens]
+    split = shd.split_on(table, 0) or shd.split_on(table, 1)
+    x = part.embed(table, tokens) if split else table[tokens]
     return shd.maybe_shard(x, _ROWS)
 
 

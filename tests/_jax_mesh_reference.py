@@ -11,8 +11,9 @@ the cell on a ("data", "model") = (2, 2) mesh with every layer and kv
 chunk unrolled (so that XLA's cost analysis counts each one) and no
 remat, and compiles it; OUT.json gets, per case, the per-device
 ``memory_analysis()`` sizes, ``cost_analysis()`` flops, the elements of
-the compiled module's converts, and ``collective_bytes`` of its
-text.  The JAX package is loaded through tests/_jax_reference.py.  Its
+the compiled module's converts, the flops of its dots (2 x the result's
+elements x the contracted extent, each ``dot`` of the text), and
+``collective_bytes`` of its text.  The JAX package is loaded through tests/_jax_reference.py.  Its
 own interpreter: jax fixes the device count when it starts.
 """
 from __future__ import annotations
@@ -30,9 +31,28 @@ import _jax_reference
 _HLO_CONVERT = re.compile(r"^\s*(?:ROOT )?%[\w.\-]+ = \w+\[([\d,]*)\]\S* convert\(", re.M)
 
 
+_HLO_SHAPE = re.compile(r"%([\w.\-]+) = \(?\w+\[([\d,]*)\]")
+_HLO_DOT = re.compile(r"= \w+\[([\d,]*)\]\S* dot\(%([\w.\-]+), %[\w.\-]+\).*?"
+                      r"lhs_contracting_dims=\{([\d,]*)\}")
+
+
+def _dims(text: str):
+    return [int(d) for d in text.split(",") if d]
+
+
 def _converts(hlo_text: str) -> int:
-    return sum(int(np.prod([int(d) for d in m.group(1).split(",") if d]))
-               for m in _HLO_CONVERT.finditer(hlo_text))
+    return sum(int(np.prod(_dims(m.group(1)))) for m in _HLO_CONVERT.finditer(hlo_text))
+
+
+def _dot_flops(hlo_text: str) -> int:
+    """2 x result elements x contracted extent, summed over the dots."""
+    shapes = {m.group(1): _dims(m.group(2)) for m in _HLO_SHAPE.finditer(hlo_text)}
+    total = 0
+    for m in _HLO_DOT.finditer(hlo_text):
+        lhs = shapes[m.group(2)]
+        k = int(np.prod([lhs[d] for d in _dims(m.group(3))]))
+        total += 2 * int(np.prod(_dims(m.group(1)))) * k
+    return total
 
 
 def main() -> int:
@@ -66,6 +86,7 @@ def main() -> int:
             "temp_bytes": int(mem.temp_size_in_bytes),
             "flops": float(cost["flops"]),
             "converts": _converts(text),
+            "dot_flops": _dot_flops(text),
             "bytes_accessed": float(cost["bytes accessed"]),
             "collective_bytes": R.dryrun.collective_bytes(text),
         }

@@ -2,12 +2,18 @@
 and the ranks of tests/_torch_partition_worker.py): configs, numpy inputs,
 and the single-process run the ranks are held to.
 
-The configs are ``.reduced()`` decoders widened so that the production
-specs split them over the "model" axis (they divide by 16): 16 query
-heads of 32 (split), 2 kv heads (replicated: each rank takes its query
-heads' kv head), d_ff 2048 and the vocab of 512 (split).  Everything is
-f32, so a rank's shards sum in another order than one process and agree
-to rounding.
+The dense configs are ``.reduced()`` decoders widened so that the
+production specs split them over the "model" axis (they divide by 16): 16
+query heads of 32 (split), 2 kv heads (replicated: each rank takes its
+query heads' kv head), d_ff 2048 and the vocab of 512 (split).
+qwen3-moe-30b-a3b ``.reduced()`` runs the expert-parallel block (4
+experts, 2 a rank, at its dropless capacity 4.0, so each rank's slice
+routes as one process does); hymba-1.5b ``.reduced()`` with 5 query heads
+and 1 kv head, at S 2048, runs the window path (5 heads do not divide 2,
+2048 = 2 x 1024) and the Mamba-2 mixer on its channels, and decodes over
+a cache split by sequence over both axes, the SSM state whole.
+Everything is f32, so a rank's shards sum in another order than one
+process and agree to rounding.
 """
 from __future__ import annotations
 
@@ -28,15 +34,34 @@ B, S, MAX_LEN = 2, 64, 96
 KNOBS = {"default": {}, "fsdp": dict(fsdp=True),
          "legacy": dict(attn_kv_fallback="head_dim")}
 RUNS = (("llama3-8b", "default"), ("llama3-8b", "fsdp"), ("llama3-8b", "legacy"),
-        ("gemma2-9b", "default"))
+        ("gemma2-9b", "default"), ("qwen3-moe-30b-a3b", "default"), ("hymba-1.5b", "default"))
 # leaves whose grads and updated values are compared
 LEAVES = (("embed",), ("layers", "wq"), ("layers", "wk"), ("layers", "wo"),
           ("layers", "w_down"), ("layers", "ln1"))
+FAMILY_LEAVES = {"moe": (("layers", "w_router"), ("layers", "w_up")),
+                 "hybrid": (("layers", "w_in"), ("layers", "conv_w"), ("layers", "A_log"),
+                            ("layers", "w_out"))}
 
 
 def cfg_of(arch: str):
+    if arch == "qwen3-moe-30b-a3b":
+        return get_config(arch).reduced()
+    if arch == "hymba-1.5b":
+        return dataclasses.replace(get_config(arch).reduced(), n_heads=5, n_kv_heads=1)
     return dataclasses.replace(get_config(arch).reduced(), d_model=512, n_heads=16,
                                head_dim=32, d_ff=2048)
+
+
+def seq_of(cfg):
+    """(S, cache length): the window path needs S a multiple of 2 x 1024."""
+    return (2048, 2080) if cfg.family == "hybrid" else (S, MAX_LEN)
+
+
+def leaves_of(cfg):
+    """LEAVES that ``cfg`` has, and its family's."""
+    shapes = TT.param_struct(cfg)["layers"]
+    return tuple(p for p in LEAVES if len(p) == 1 or p[1] in shapes) + \
+        FAMILY_LEAVES.get(cfg.family, ())
 
 
 def params_of(cfg, seed: int = 0):
@@ -54,6 +79,7 @@ def params_of(cfg, seed: int = 0):
 
 def tokens_of(cfg, seed: int = 1):
     rng = np.random.default_rng(seed)
+    S = seq_of(cfg)[0]
     return (torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int64)),
             torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S)).astype(np.int64)),
             torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B,)).astype(np.int64)))
@@ -69,9 +95,13 @@ def run(cfg, params, tokens, labels, nxt, place=None, full=lambda t: t):
     with torch.no_grad():
         logits, cache = TT.prefill(place(params, "params"), place(tokens, "rows"), cfg)
         out["prefill"] = full(logits)
-        big = TT.init_cache(cfg, B, MAX_LEN, dtype=torch.float32, device="cpu")
-        for key in ("k", "v"):
-            big[key][:, :, :S] = full(cache[key])
+        S, max_len = seq_of(cfg)
+        big = TT.init_cache(cfg, B, max_len, dtype=torch.float32, device="cpu")
+        for key in big:
+            if key in ("k", "v"):
+                big[key][:, :, :S] = full(cache[key])
+            elif key != "pos":
+                big[key].copy_(full(cache[key]))
         big["pos"] = torch.tensor(S, dtype=torch.int32)
         step, _ = TT.decode_step(place(params, "params"), place(nxt, "tokens"), cfg,
                                  place(big, "cache"))
@@ -83,10 +113,10 @@ def run(cfg, params, tokens, labels, nxt, place=None, full=lambda t: t):
     loss, grads = train.grads(p, place({"tokens": tokens, "labels": labels}, "batch"))
     flat = dict(leaves_with_paths(grads))
     out["loss"] = full(loss)
-    for path in LEAVES:
+    for path in leaves_of(cfg):
         out["grad/" + "/".join(path)] = full(flat[path])
     p, _, _ = adamw_update(grads, opt, p, train.opt_cfg)
     flat = dict(leaves_with_paths(p))
-    for path in LEAVES:
+    for path in leaves_of(cfg):
         out["param/" + "/".join(path)] = full(flat[path])
     return {k: v.detach().cpu().numpy() for k, v in out.items()}

@@ -38,7 +38,7 @@ def main() -> int:
     results = {}
     for arch, knob in cases.RUNS:
         cfg = cases.cfg_of(arch)
-        cell = ShapeCell("t", cases.MAX_LEN, cases.B, "decode")
+        cell = ShapeCell("t", cases.seq_of(cfg)[1], cases.B, "decode")
 
         def place(tree, kind):
             if kind == "params":

@@ -20,7 +20,9 @@ on ``meta``.
   ``--fsdp --no-zero1`` (the same: it changes nothing) and
   ``--legacy-sharding``, and a train step's for the widened config whose
   query heads split;
-* (f) other families and ``--execute`` on a mesh give an ``error`` record;
+* (f) the encoder-decoder and prefix-LM families and ``--execute`` on a
+  mesh give an ``error`` record (the MoE, SSM and hybrid families are
+  tests/test_torch_mesh_dryrun_families.py's);
 * the partitioned view on values: a real 4-rank gloo world on the CPU
   (tests/_torch_partition_worker.py, cases in tests/_partition_cases.py)
   runs prefill, a decode step over a sequence-split cache and a train
@@ -320,7 +322,9 @@ def partitioned(tmp_path_factory):
 
 
 @pytest.mark.parametrize("arch,knob", [("llama3-8b", "default"), ("llama3-8b", "fsdp"),
-                                       ("llama3-8b", "legacy"), ("gemma2-9b", "default")])
+                                       ("llama3-8b", "legacy"), ("gemma2-9b", "default"),
+                                       ("qwen3-moe-30b-a3b", "default"),
+                                       ("hymba-1.5b", "default")])
 def test_the_partitioned_view_computes_what_one_process_does(partitioned, arch, knob):
     """prefill and decode logits (the decode over a cache split by sequence
     over both axes: the split softmax), the train step's loss and grads,
@@ -328,7 +332,8 @@ def test_the_partitioned_view_computes_what_one_process_does(partitioned, arch, 
     one process: to 1e-5 of the largest entry (grads 5e-5: four shards sum
     in another order), params where the grad is above 1e-3 of the leaf's
     largest (a first AdamW step moves each by ±lr, whose sign a grad near
-    0 leaves to rounding)."""
+    0 leaves to rounding).  qwen3-moe runs the expert-parallel block,
+    hymba the window path and the Mamba-2 mixer on local shards."""
     import _partition_cases as cases
 
     cfg = cases.cfg_of(arch)
@@ -521,8 +526,7 @@ def test_cli_counts_a_cell_on_both_meshes_and_resumes(tmp_path, capsys):
     assert not dist.is_initialized()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-130m", "whisper-medium",
-                                  "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b"])
 def test_other_families_on_a_mesh_write_an_error_record(arch, tmp_path):
     out = tmp_path / "d.jsonl"
     assert dryrun.main(["--arch", arch, "--cell", "prefill_32k", "--mesh", "single",
