@@ -184,9 +184,13 @@ Phases, each reported on its own line(s):
    ``chunked_attention`` runs and not on flash's prefill), and one decode
    step of full-width qwen3-4b over a prefilled cache with bf16 against
    f32 score tiles (:func:`scores_logit_check`, the logits within
-   SCORES_LOGIT_TOL);
+   SCORES_LOGIT_TOL); then train_4k again with ``chunked_attention``'s
+   tiled path switched off (:func:`tiled_attn_cell`: the generic loop's
+   time, counted flops and bytes and peaks beside the tiled record's; the
+   tiled flops must be the lower, no launch in either), and the tiled path
+   against the generic loop on the card at train_4k's attention shape;
 15b. mesh-dryrun — the dry-run on a mesh (:func:`mesh_dryrun_phase`),
-   counted in six processes of their own started once phase 15 is done,
+   counted in seven processes of their own started once phase 15 is done,
    so that no timed phase shares the host with them
    (:func:`start_mesh_dryrun`; the card hidden from them, a fake world
    their default group; the jobs spread longest first, :func:`_jobs_of`),
@@ -196,19 +200,30 @@ Phases, each reported on its own line(s):
    one, llama3-8b's train_4k under ``--fsdp`` and ``--legacy-sharding``,
    qwen3-moe's train_4k under ``--fsdp`` and prefill_32k under
    ``--no-ep``, every cell of mamba2-130m and hymba-1.5b (long_500k too)
-   on the single-pod mesh and their prefill_32k on the multi-pod one; no
+   on the single-pod mesh and their prefill_32k on the multi-pod one,
+   whisper-medium's and paligemma-3b's three cells on both meshes, a
+   train_4k of each under ``--fsdp`` and paligemma's prefill_32k under
+   ``--legacy-sharding``, and seven single-pod cells whose attention
+   passes one chunk again with ``chunked_attention``'s tiled path switched
+   off (tag ``untiled``; the tiled record's flops must be the lower and
+   its collectives the same); no
    ``error``, per-device argument bytes equal to the specs' reckoning,
    collective bytes on every train cell, all-to-all on every MoE record
    of the expert-parallel path and none under ``--no-ep`` (whose flops
    must exceed the expert-parallel path's), prefill's flash counted once
    a layer at its per-device ``wgmma`` work (hymba-1.5b's on the window
-   path's block of rank 0: S/16 queries, every head), none for mamba2 or
-   gemma2.  On a fake (2, 2) world, llama3-8b ``.reduced()``'s prefill
+   path's block of rank 0: S/16 queries, every head; whisper-medium's on
+   its decoder alone), none for mamba2, gemma2 or paligemma (the
+   prefix).  On a fake (2, 2) world, llama3-8b ``.reduced()``'s prefill
    and train step under each knob (and ``--fsdp --no-zero1``, which
    changes nothing), its widened train step, qwen3-moe ``.reduced()``'s
-   prefill and train step (default and ``--fsdp``) and hymba
-   ``.reduced()``'s window-path prefill must issue the collectives of a
-   hand count (:func:`hand_collectives`), by kind, bytes and number.
+   prefill and train step (default and ``--fsdp``), hymba
+   ``.reduced()``'s window-path prefill, whisper-medium widened (heads
+   split) and paligemma-3b ``.reduced()``: prefill, train (default and
+   ``--fsdp``) and decode, paligemma's prefill also under
+   ``--legacy-sharding`` and past one chunk (the tiled prefix path), must
+   issue the collectives of a hand count (:func:`hand_collectives`), by
+   kind, bytes and number.
    Counts of one rank on ``meta``, no card time; each record on a
    ``[mesh-dryrun]`` line;
 16. trace   — the modeling plane's front end (:func:`trace_phase`), on
@@ -3336,6 +3351,72 @@ def scores_logit_check(card: str) -> None:
 
 
 
+TILED_TOL = 1e-2        # tiled vs generic attention output, bf16 (a few ulps at |out| < 2)
+
+
+def tiled_attn_cell(executed: dict, card: str) -> None:
+    """qwen3-4b's train_4k again with ``chunked_attention``'s tiled path
+    switched off (``layers.set_tiled_attn(False)``: the generic loop, every
+    query against every kv chunk), into a ledger of its own
+    (``build/dryrun_untiled.jsonl``), printed beside the tiled record:
+    time, counted flops and bytes, counted and measured peak.  The tiled
+    flops must be below the generic loop's and neither may launch a
+    kernel.  Then one layer's attention at train_4k's shape (B 1, S 4096,
+    32 q heads over 8 kv heads of 128, seeded bf16) through both paths on
+    the card: the largest output difference within TILED_TOL."""
+    from repro_torch.configs import SHAPE_CELLS, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import layers
+
+    cell, batch = "train_4k", dict(DRYRUN_EXECUTED)["train_4k"]
+    ledger = HERE / "build" / "dryrun_untiled.jsonl"
+    ledger.unlink(missing_ok=True)
+    ops.reset_launch_counts()
+    prev = layers.set_tiled_attn(False)
+    try:
+        rc = dryrun.main(["--arch", "qwen3-4b", "--cell", cell, "--execute", str(DRYRUN_REPEATS),
+                          "--batch", str(batch), "--out", str(ledger), "--tag", "untiled"])
+    finally:
+        layers.set_tiled_attn(prev)
+    counts = ops.launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = json.loads(ledger.read_text().splitlines()[-1])
+    check(rc == 0 and "error" not in rec, f"qwen3-4b {cell} untiled failed: {rec}")
+    check(sum(counts.values()) == 0, f"qwen3-4b {cell} untiled launched {counts}")
+    tiled = executed[cell]
+    line = {"cell": cell, "batch": batch}
+    for key in ("time_s", "time_s_median", "flops", "bytes_accessed", "peak_bytes",
+                "measured_peak_bytes"):
+        line[key] = {"tiled": tiled[key], "generic": rec[key]}
+    line["time_ratio"] = tiled["time_s"] / rec["time_s"]
+    line["flops_ratio"] = tiled["flops"] / rec["flops"]
+    print(f"[dryrun] tiled attention, qwen3-4b {cell} B {batch}: {json.dumps(line)} [{card}]",
+          flush=True)
+    check(tiled["flops"] < rec["flops"], f"{cell}: the tiled path did not cut the counted flops")
+
+    cfg = get_config("qwen3-4b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    S, hd = SHAPE_CELLS[cell].seq_len, cfg.resolved_head_dim
+    q, k, v = (torch.randn(1, S, h, hd, generator=gen, device="cuda").bfloat16()
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    with torch.no_grad():
+        on = layers.chunked_attention(q, k, v)
+        prev = layers.set_tiled_attn(False)
+        try:
+            off = layers.chunked_attention(q, k, v)
+        finally:
+            layers.set_tiled_attn(prev)
+    err = float((on.float() - off.float()).abs().max())
+    print(f"[dryrun] tiled attention vs the generic loop on the card, q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} bf16: max_abs_err {err!r} (tol {TILED_TOL}), largest |out| "
+          f"{float(off.float().abs().max())!r} [{card}]", flush=True)
+    check(err <= TILED_TOL, f"tiled attention differs from the generic loop by {err}")
+    del q, k, v, on, off
+    torch.cuda.empty_cache()
+
+
 def emitted_trace_check(rec: dict) -> None:
     """An executed dry-run record's ``--emit-trace`` fields: all five, the
     graph on disk reloading to the recorded digest and lowering to the
@@ -3434,6 +3515,10 @@ def dryrun_phase(micro_samples: list, micro_prof) -> None:
     times["bf16 scores"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    tiled_attn_cell(executed, card)
+    times["tiled attention"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     long_flash_check(card)
     logit_check(card)
     gc.collect()
@@ -3482,7 +3567,11 @@ MESH_DRYRUN_DIR = HERE / "build" / "mesh_dryrun"
 # qwen3-moe-30b-a3b's cells on both meshes, its train step under --fsdp and
 # its prefill under --no-ep, dbrx-132b's prefill; every cell of mamba2-130m
 # and hymba-1.5b (long_500k too) on the single-pod mesh, their prefill on the
-# multi-pod one
+# multi-pod one; whisper-medium's and paligemma-3b's cells on both meshes
+# (paligemma's prefill, the longest count, one job a mesh), a train step of
+# each under --fsdp and paligemma's prefill under --legacy-sharding; and
+# seven cells whose attention passes one chunk, tagged "untiled", with
+# chunked_attention's tiled path switched off
 MESH_DRYRUN_JOBS = (
     *((arch, cell, "both", (), "") for arch in ("llama3-8b", "qwen3-4b")
       for cell in ("train_4k", "prefill_32k", "decode_32k")),
@@ -3498,13 +3587,31 @@ MESH_DRYRUN_JOBS = (
     *((arch, cell, "single", (), "") for arch in ("mamba2-130m", "hymba-1.5b")
       for cell in ("train_4k", "prefill_32k", "decode_32k", "long_500k")),
     *((arch, "prefill_32k", "multi", (), "") for arch in ("mamba2-130m", "hymba-1.5b")),
+    *((arch, cell, "both", (), "") for arch, cell in (
+        ("whisper-medium", "train_4k"), ("whisper-medium", "prefill_32k"),
+        ("whisper-medium", "decode_32k"), ("paligemma-3b", "train_4k"),
+        ("paligemma-3b", "decode_32k"))),
+    *(("paligemma-3b", "prefill_32k", mesh, (), "") for mesh in ("single", "multi")),
+    *((arch, "train_4k", "single", ("--fsdp",), "fsdp")
+      for arch in ("whisper-medium", "paligemma-3b")),
+    ("paligemma-3b", "prefill_32k", "single", ("--legacy-sharding",), "legacy"),
+    # chunked_attention's tiled path switched off (the generic loop), beside
+    # the tiled records of the same cells
+    *((arch, cell, "single", (), "untiled") for arch, cell in (
+        ("llama3-8b", "train_4k"), ("gemma2-9b", "prefill_32k"),
+        ("qwen3-moe-30b-a3b", "train_4k"), ("hymba-1.5b", "train_4k"),
+        ("whisper-medium", "train_4k"), ("paligemma-3b", "train_4k"),
+        ("paligemma-3b", "prefill_32k"))),
 )
 # (kind, config, knob, flags): steps counted on a fake (2, 2) world and held
 # to a hand count (:func:`hand_collectives`): llama3-8b ``.reduced()`` (heads
 # whole) under each knob, and widened so that its query heads split;
 # qwen3-moe-30b-a3b ``.reduced()``'s expert-parallel prefill and train step
 # (default and --fsdp); hymba-1.5b ``.reduced()`` with 5 query heads, whose
-# prefill at S 2048 takes the window path
+# prefill at S 2048 takes the window path; whisper-medium widened (heads
+# split) and paligemma-3b ``.reduced()``: prefill, train (default and
+# --fsdp) and decode, paligemma's prefill also under --legacy-sharding and
+# past one chunk ("tiled": the tiled prefix path)
 MESH_HAND_JOBS = (
     *(("prefill", "reduced", knob, flags) for knob, flags in (
         ("default", ()), ("fsdp", ("--fsdp",)), ("legacy", ("--legacy-sharding",)))),
@@ -3515,8 +3622,13 @@ MESH_HAND_JOBS = (
     *((kind, "moe", knob, flags) for kind in ("prefill", "train")
       for knob, flags in (("default", ()), ("fsdp", ("--fsdp",)))),
     ("prefill", "hymba", "default", ()),
+    *((kind, variant, knob, flags) for variant in ("whisper", "paligemma")
+      for kind, knob, flags in (("prefill", "default", ()), ("train", "default", ()),
+                                ("train", "fsdp", ("--fsdp",)), ("decode", "default", ()))),
+    ("prefill", "paligemma", "legacy", ("--legacy-sharding",)),
+    ("prefill-tiled", "paligemma", "default", ()),
 )
-MESH_DRYRUN_WORKERS = 6
+MESH_DRYRUN_WORKERS = 7
 MESH_DRYRUN_TIMEOUT_S = 600
 
 
@@ -3548,6 +3660,12 @@ def _hand_cfg(variant: str):
         return get_config("qwen3-moe-30b-a3b").reduced()
     if variant == "hymba":
         return dataclasses.replace(get_config("hymba-1.5b").reduced(), n_heads=5, n_kv_heads=1)
+    if variant == "whisper":
+        return dataclasses.replace(get_config("whisper-medium").reduced(), d_model=512,
+                                   n_heads=16, n_kv_heads=16, head_dim=32, d_ff=2048,
+                                   enc_seq=40, vocab_size=520)
+    if variant == "paligemma":
+        return get_config("paligemma-3b").reduced()
     cfg = get_config("llama3-8b").reduced()
     if variant == "widened":
         cfg = dataclasses.replace(cfg, d_model=512, n_heads=16, head_dim=32, d_ff=2048)
@@ -3561,14 +3679,24 @@ def _hand_cell(kind: str, variant: str = "reduced"):
         return ShapeCell("t", 2048, 2, kind)
     if variant == "moe":
         return ShapeCell("t", 128, 4, kind)
+    if kind == "prefill-tiled":
+        return ShapeCell("t", 1280, 4, "prefill")
+    if kind == "decode":
+        return ShapeCell("t", 128, 16, kind)
     return ShapeCell("t", 128 if kind == "prefill" else 64, 4, kind)
 
 
 def _job_weight(job) -> float:
     """A rough count time of a MESH_DRYRUN_JOBS entry (a train cell several
-    times a prefill or decode; both meshes twice one), to spread them."""
-    arch, cell, mesh, _, _ = job
-    return (4.0 if cell == "train_4k" else 1.0) * (2 if mesh == "both" else 1)
+    times a prefill or decode; a prefill whose attention is
+    ``chunked_attention``'s tiled path over 32k keys, paligemma-3b's prefix
+    or gemma2-9b's softcap, several times a train cell; both meshes twice
+    one), to spread them."""
+    arch, cell, mesh, _, tag = job
+    weight = 4.0 if cell == "train_4k" else 1.0
+    if cell == "prefill_32k" and arch in ("paligemma-3b", "gemma2-9b") and tag != "untiled":
+        weight = 15.0
+    return weight * (2 if mesh == "both" else 1)
 
 
 def _jobs_of(w: int, n: int) -> list:
@@ -3587,18 +3715,24 @@ def mesh_dryrun_worker(w: int, n: int) -> int:
     (:func:`_jobs_of`) through ``python -m repro_torch.launch.dryrun``'s
     ``main`` into ``build/mesh_dryrun/ledger<W>.jsonl``, and likewise of
     MESH_HAND_JOBS, each step's ``collective_bytes`` on a fake (2, 2)
-    world into ``hand<W>.json``; then its seconds."""
+    world into ``hand<W>.json``; then its seconds.  A job tagged
+    "untiled" runs with ``chunked_attention``'s tiled path switched off."""
     sys.path.insert(0, str(HERE / "src"))
     torch.set_num_threads(1)
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.models import layers
 
     t0 = time.perf_counter()
     rc = 0
     for arch, cell, mesh, knobs, tag in _jobs_of(w, n):
-        rc |= dryrun.main(["--arch", arch, "--cell", cell, "--mesh", mesh, *knobs,
-                           "--tag", tag, "--out", str(MESH_DRYRUN_DIR / f"ledger{w}.jsonl")])
+        prev = layers.set_tiled_attn(tag != "untiled")
+        try:
+            rc |= dryrun.main(["--arch", arch, "--cell", cell, "--mesh", mesh, *knobs,
+                               "--tag", tag, "--out", str(MESH_DRYRUN_DIR / f"ledger{w}.jsonl")])
+        finally:
+            layers.set_tiled_attn(prev)
     hand = []
     for kind, variant, knob, flags in MESH_HAND_JOBS[w::n]:
         opts = dryrun.knob_options(dryrun.parser().parse_args(list(flags)))
@@ -3725,6 +3859,101 @@ def _hand_family_collectives(cfg, cell, knob: str) -> dict:
     return out
 
 
+def _hand_encdec_collectives(cfg, cell, knob: str) -> dict:
+    """The collectives of a step of whisper-medium (widened, its heads
+    split) or paligemma-3b ``.reduced()`` on (2, 2), by hand: the copy of
+    tests/test_torch_mesh_dryrun_encdec.py's ``_hand_collectives``, whose
+    docstring gives the reckoning."""
+    m = dp = 2
+    B, S, d, L = cell.global_batch, cell.seq_len, cfg.d_model, cfg.n_layers
+    B_loc = B // dp
+    hd, Hq, Hkv, F, V = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, \
+        cfg.vocab_size
+    P, Le = cfg.prefix_len, cfg.enc_layers
+    rows = B_loc if cell.kind == "decode" else B_loc * S         # the token rows
+    T = B_loc if cell.kind == "decode" else B_loc * (S + P)      # the decoder's rows
+    Te = B_loc * cfg.enc_seq
+    bf16, f32 = 2, 4
+    train = cell.kind == "train"
+    out = dict.fromkeys(("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                         "collective-permute", "count"), 0)
+    out["count"] = 0
+
+    def add(kind, nbytes, n=1):
+        out[kind] += n * nbytes
+        out["count"] += n
+
+    h = Hq // m if Hq % 16 == 0 else Hq
+    hkv = Hkv // m if Hkv % 16 == 0 else Hkv
+    attn = (d * h * hd, d * hkv * hd, d * hkv * hd, h * hd * d)
+    mlp = (d * F // m,) * (3 if cfg.gated_mlp else 2)
+    if cfg.enc_dec:
+        add("all-gather", rows * d * bf16)                               # the lookup
+        if cell.kind != "decode":
+            add("all-reduce", Te * d * bf16, 2 * Le)                     # encoder wo, w_down
+        add("all-reduce", T * d * bf16, 3 * L)                           # wo, cross wo, w_down
+        add("all-reduce", (B_loc if cell.kind == "prefill" else T) * V * f32)   # the logits
+        if not train:
+            return out
+        add("all-reduce", T * d * bf16, 2 * L)                           # recomputed
+        add("all-reduce", rows * f32, 3)                                 # the loss
+        add("all-gather", T * V * f32)                                   # the logits' grad
+        add("all-gather", T * d * f32)                                   # the unembedding's
+        add("all-reduce", T * d * bf16, 5 * L)                           # input grads
+        add("all-reduce", Te * d * bf16, 4 * Le + 2 * L)
+        cross = (d * h * hd, d * h * hd)                                 # enc_cross wk, wv
+        weights = [(w, L) for w in (*attn, *mlp, d * h * hd, h * hd * d)] + \
+            [(w, Le) for w in (*attn, *mlp)] + [(w, L) for w in cross]
+        norms = (L * d, L * d, L * d, Le * d, Le * d, d, d)
+        tables = (V * d // m, d // m * V)
+        if knob == "fsdp":
+            for i, (w, n) in enumerate(weights):
+                again = 2 if i < len(attn) + len(mlp) + 2 else 1         # the decoder's
+                add("all-gather", w * bf16, again * n)
+                add("reduce-scatter", w // dp * bf16, n)
+            for w in (*norms, *tables):
+                add("all-reduce", w * bf16)
+            add("all-reduce", f32, 3)
+            return out
+        for w in (*(n * w for w, n in weights), *norms, *tables):
+            add("all-reduce", w * bf16)
+        add("all-reduce", f32)
+        return out
+    # the prefix-LM
+    add("all-reduce", rows * d * bf16)                                   # the lookup
+    if cell.kind == "decode":
+        add("all-reduce", B_loc * Hq * f32, 2 * L)                       # the softmax's max, sum
+        add("all-reduce", B_loc * Hq * hd * f32, L)                      # and accumulator
+    add("all-reduce", T * d * bf16, L)                                   # w_down
+    tables = (V // m * d, V // m * d)                                    # lookup, unembedding
+    if knob == "legacy":
+        for w in attn:
+            add("all-gather", w * bf16, L)
+    if knob == "fsdp":
+        for w in (*attn, *mlp):
+            add("all-gather", w * bf16, (2 if train else 1) * L)
+        for w in tables:
+            add("all-gather", w * bf16)
+    if not train:
+        return out
+    add("all-reduce", rows * f32, 3)                                     # the loss
+    add("all-reduce", T * d * bf16, 2 * L + 1)                           # w_gate, w_up, unembedding
+    norms = (L * d, L * d, d)
+    if knob == "fsdp":
+        for w in (*attn, *mlp):
+            add("reduce-scatter", w // dp * bf16, L)
+        for w in tables:
+            add("reduce-scatter", w // dp * bf16)
+        for w in norms:
+            add("all-reduce", w * bf16)
+        add("all-reduce", f32, 3)
+        return out
+    for w in (*(L * w for w in (*attn, *mlp)), tables[0], *norms):
+        add("all-reduce", w * bf16)
+    add("all-reduce", f32)
+    return out
+
+
 def hand_collectives(cfg, cell, knob: str) -> dict:
     """The collectives of a prefill or a train step on a (2, 2) ("data",
     "model") mesh, by hand (the copy of tests/test_torch_mesh_dryrun.py's
@@ -3733,7 +3962,10 @@ def hand_collectives(cfg, cell, knob: str) -> dict:
     a 16-wide "model" axis: ``.reduced()`` llama3-8b keeps its 4 query
     heads whole, the widened config splits its 16 (not its 2 kv heads).
     A train step is checkpointed (remat "minimal", the dry-run's default).
-    The MoE, SSM and hybrid configs: :func:`_hand_family_collectives`."""
+    The MoE, SSM and hybrid configs: :func:`_hand_family_collectives`; the
+    encoder-decoder and the prefix-LM: :func:`_hand_encdec_collectives`."""
+    if cfg.family in ("audio", "vlm"):
+        return _hand_encdec_collectives(cfg, cell, knob)
     if cfg.family != "dense":
         return _hand_family_collectives(cfg, cell, knob)
     m = dp = 2
@@ -3798,10 +4030,12 @@ def mesh_argument_bytes(rec: dict, knobs: tuple) -> int:
     """Per-device argument bytes of a mesh record by reckoning: each leaf's
     global bytes over its spec's shard count on the production mesh, the
     optimizer's m/v (f32) as their params, the batch inputs' rows over the
-    batch axes, the cache by ``cache_specs``."""
+    batch axes (an encoder's frames and a prefix too), the cache by
+    ``cache_specs`` (an encoder-decoder's cross k/v too); a decode step's
+    params without the encoder's, which it never reads."""
     from repro_torch.configs import SHAPE_CELLS, get_config
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch.dryrun import input_specs
+    from repro_torch.launch.dryrun import ENCODER_LEAVES, input_specs
     from repro_torch.models.transformer import param_struct
     from repro_torch.tree import leaves_with_paths
 
@@ -3820,6 +4054,8 @@ def mesh_argument_bytes(rec: dict, knobs: tuple) -> int:
     fallback = "head_dim" if "--legacy-sharding" in knobs else "replicate"
     with shd.options(fsdp="--fsdp" in knobs, attn_kv_fallback=fallback):
         params = param_struct(cfg)
+        if cell.kind == "decode":
+            params = {k: v for k, v in params.items() if k not in ENCODER_LEAVES}
         total = sum(share(t, shd.spec_for_param(path[-1], tuple(t.shape)))
                     for path, t in leaves_with_paths(params))
         specs = input_specs(cfg, cell)
@@ -3846,11 +4082,15 @@ def mesh_dryrun_phase(procs: list) -> None:
     ``--no-ep`` one, whose flops must exceed the expert-parallel path's;
     on a prefill, flash counted once a layer at the per-device work of its
     ``wgmma`` plan (batch over the batch axes, q heads over "model"; the
-    window path's block of rank 0 for hymba), or not at all where the
-    softcap keeps prefill off flash (gemma2-9b) or there is no attention
-    (mamba2-130m).  Each step of MESH_HAND_JOBS must issue the collectives
-    of its hand count (:func:`hand_collectives`), kind by kind and in
-    number.  The counts are of one rank, on ``meta``: no card time."""
+    window path's block of rank 0 for hymba; whisper-medium's decoder
+    alone, its encoder and cross step taking ``chunked_attention``), or not
+    at all where the softcap (gemma2-9b) or the prefix (paligemma-3b)
+    keeps prefill off flash or there is no attention (mamba2-130m).  Each
+    record tagged ``untiled`` (the tiled path switched off) is printed
+    beside its tiled record, whose flops must be the lower and whose
+    collectives the same.  Each step of MESH_HAND_JOBS must issue the
+    collectives of its hand count (:func:`hand_collectives`), kind by kind
+    and in number.  The counts are of one rank, on ``meta``: no card time."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import plans, work
 
@@ -3908,7 +4148,7 @@ def mesh_dryrun_phase(procs: list) -> None:
         flash = {}
         if rec["kind"] == "prefill":
             calls = rec["kernel_calls"].get("flash_attention", 0)
-            if cfg.attn_softcap > 0 or cfg.attention == "none":
+            if cfg.attn_softcap > 0 or cfg.attention == "none" or cfg.prefix_len:
                 check(calls == 0 and rec["kernel_flops"] == 0, f"{rec['arch']} prefill: flash")
             else:
                 n_b = 16 * (2 if rec["mesh"] == "multi" else 1)
@@ -3941,6 +4181,20 @@ def mesh_dryrun_phase(procs: list) -> None:
             line["flash_plan"] = flash
         print(f"[mesh-dryrun] {json.dumps(line)}", flush=True)
     by = {(r["arch"], r["cell"], r["mesh"], r["tag"]): r for r in recs}
+    for (arch, cell, mesh, tag), generic in sorted(by.items()):
+        if tag != "untiled":
+            continue
+        tiled = by[(arch, cell, mesh, "")]
+        line = {k: {"tiled": tiled[k], "generic": generic[k]}
+                for k in ("flops", "bytes_accessed", "peak_bytes", "collective_bytes")}
+        line.update(flops_ratio=tiled["flops"] / generic["flops"],
+                    bytes_ratio=tiled["bytes_accessed"] / generic["bytes_accessed"])
+        print(f"[mesh-dryrun] tiled attention, {arch} {cell} {mesh}: {json.dumps(line)}",
+              flush=True)
+        check(tiled["flops"] < generic["flops"] and
+              tiled["collective_bytes"] == generic["collective_bytes"],
+              f"{arch} {cell}: the tiled path's flops {tiled['flops']} not below the generic "
+              f"loop's {generic['flops']}, or its collectives moved")
     ep, noep = (by[("qwen3-moe-30b-a3b", "prefill_32k", "single", t)] for t in ("", "noep"))
     check(noep["flops"] > ep["flops"], f"--no-ep prefill flops {noep['flops']} not above the "
           f"expert-parallel path's {ep['flops']}")

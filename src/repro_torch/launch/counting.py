@@ -26,7 +26,13 @@ alike) is recorded:
 
 The dry-run counts on the ``meta`` device, where an op allocates nothing
 and computes nothing: shapes and dtypes are all there is, and they are all
-the counts need.
+the counts need.  A functional ATen op on plain ``meta`` tensors (no view,
+no in-place write, no aliased output) runs its meta kernel once per
+signature in a count (the op, its tensors' shapes, strides, offsets and
+dtypes, its other arguments); later calls with that signature get fresh
+``meta`` outputs of the recorded shapes and strides, which is all the
+meta kernel would have given (the long layer and tile loops repeat a few
+hundred signatures).
 
 On a mesh (the dry-run's partitioned view) the step runs on DTensors
 whose local shards are on ``meta``.  The counter steps aside for an op on
@@ -121,6 +127,47 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+class _Unkeyed(Exception):
+    """An argument with no place in a meta signature."""
+
+
+_PLAIN = (int, float, bool, str, torch.dtype, torch.device, torch.layout,
+          torch.memory_format)
+
+
+def _signature(a):
+    """A hashable key of an op argument: a plain ``meta`` tensor by its
+    layout and dtype, a sequence by its items, a plain value by its type
+    and value; raises :class:`_Unkeyed` otherwise (a subclass, values on
+    a device, anything else)."""
+    if isinstance(a, torch.Tensor):
+        if type(a) is not torch.Tensor or not a.is_meta:
+            raise _Unkeyed
+        return tuple(a.shape), a.stride(), a.storage_offset(), a.dtype
+    if isinstance(a, (list, tuple)):
+        return type(a), tuple(_signature(x) for x in a)
+    if a is None or isinstance(a, _PLAIN):
+        return type(a), a
+    raise _Unkeyed
+
+
+def _fresh(func) -> bool:
+    """Whether ``func`` may be replayed from its signature: an ATen op that
+    is no view, writes no argument and declares no aliased output."""
+    s = func._schema
+    return (func.namespace == "aten" and not func.is_view and not s.is_mutable
+            and all(r.alias_info is None for r in s.returns))
+
+
+def _layout(t: torch.Tensor):
+    return tuple(t.shape), t.stride(), t.dtype, t.untyped_storage().nbytes()
+
+
+def _empty(layout) -> torch.Tensor:
+    shape, stride, dtype, _ = layout
+    return torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+
+
 def is_reduction(func) -> bool:
     return (func.overloadpacket in _REDUCTIONS
             or (_REDUCTION_TAG is not None and _REDUCTION_TAG in func.tags
@@ -140,6 +187,7 @@ class Counter(TorchDispatchMode):
         self.output_bytes = 0
         self._live: Dict[int, Any] = {}       # storage key -> its finalizer
         self._paused = 0
+        self._replay: Dict[Any, Any] = {}     # meta signature -> output layouts
         self.collective_bytes: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
         self.collective_bytes["count"] = 0
         for t in _tensors(args):
@@ -191,12 +239,38 @@ class Counter(TorchDispatchMode):
 
     # -- dispatch -----------------------------------------------------------
 
+    def _run(self, func, args, kwargs):
+        """``func(*args, **kwargs)``; on ``meta``, replayed from its
+        signature where the op allows it (module docstring)."""
+        try:
+            key = (func, _signature(args), _signature(tuple(sorted(kwargs.items()))))
+        except _Unkeyed:
+            return func(*args, **kwargs)
+        layouts = self._replay.get(key)
+        if layouts is not None:
+            single, layouts = layouts
+            return _empty(layouts[0]) if single else tuple(_empty(l) for l in layouts)
+        out = func(*args, **kwargs)
+        single = isinstance(out, torch.Tensor)
+        outs = (out,) if single else out
+        if _fresh(func) and isinstance(outs, tuple) and all(
+                type(t) is torch.Tensor and t.is_meta and t.storage_offset() == 0
+                for t in outs):
+            layouts = tuple(_layout(t) for t in outs)
+            ins = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
+            # an output sharing an argument's storage, or one a fresh tensor of
+            # its strides would size apart, is not replayed
+            if not any(t.untyped_storage()._cdata in ins for t in outs) and all(
+                    _layout(_empty(l)) == l for l in layouts):
+                self._replay[key] = (single, layouts)
+        return out
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         dt = dtensor_type()
         if dt is not None and any(issubclass(t, dt) for t in types):
             return NotImplemented          # DTensor's dispatch issues the local ops
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        out = self._run(func, args, kwargs)
         if self._paused:
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)

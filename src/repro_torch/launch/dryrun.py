@@ -38,17 +38,17 @@ take the specs it gives m/v.  ``--no-ep`` reaches the MoE block: its
 global dispatch replaces the expert-parallel path, as in the reference
 (no dense decoder, SSM or hybrid config takes either).  GSPMD and DTensor
 pick their collectives each its own way, so these bytes are the port's
-program's, not the reference's.  A mesh takes the dense decoders
-(llama3-8b, qwen3-4b, gemma-7b, gemma2-9b), the MoE decoders
-(qwen3-moe-30b-a3b, dbrx-132b: the expert-parallel block or ``--no-ep``'s
-global dispatch), the SSM and hybrid families (mamba2-130m, hymba-1.5b:
-the Mamba-2 mixer by channels and heads, or by the state's N in decode,
-and hymba's sequence-parallel window attention in a prefill whose length
-divides into 16 x 1024; long_500k too), each of the reference's
-shard_map paths on this rank's shards
-(:mod:`repro_torch.distributed.partition`).  The encoder-decoder and
-prefix-LM families (whisper-medium, paligemma-3b) and ``--execute`` on a
-mesh write an ``error`` record.
+program's, not the reference's.  A mesh takes every family: the dense
+decoders, the MoE decoders (the expert-parallel block or ``--no-ep``'s
+global dispatch), the SSM and hybrid families (the Mamba-2 mixer by
+channels and heads, or by the state's N in decode, and hymba's
+sequence-parallel window attention in a prefill whose length divides into
+16 x 1024; long_500k too), the encoder-decoder (whisper-medium: the
+bidirectional encoder, the cross k/v and the cross step, heads over
+"model") and the prefix-LM (paligemma-3b: the prefix joined ahead of the
+tokens), each of the reference's shard_map paths on this rank's shards
+(:mod:`repro_torch.distributed.partition`).  ``--execute`` on a mesh
+writes an ``error`` record.
 
 ``--scores-bf16`` materialises ``chunked_attention``'s score tiles in bf16
 (:func:`repro_torch.models.layers.set_scores_dtype`) for the run, and puts
@@ -71,10 +71,6 @@ record's ``global_batch`` is then the batch that ran and its ``tag`` gains
 Results append to a JSONL ledger (``--out``), one record per cell and one
 ``error`` record per failed cell (exit 1 on any), so an interrupted
 matrix run resumes where it stopped (``--skip-done``).
-
-Not ported here: the dry-run on a mesh of the encoder-decoder and
-prefix-LM families (their attention variants: bidirectional, cross and
-prefix).
 
 ``--emit-trace`` also captures each cell's modeling-plane DAG
 (:mod:`repro_torch.trace`, on ``meta``: a train cell as the forward trace)
@@ -116,10 +112,10 @@ from .mesh import fake_world, make_production_mesh
 __all__ = ["param_struct", "input_specs", "place_structs", "count_cell", "run_cell", "main"]
 
 META = torch.device("meta")
-# the families whose dry-run on a mesh is ported: the dense decoders, which
-# take no shard_map path in the reference, and the MoE, SSM and hybrid
-# families, whose shard_map paths run on local shards
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the leaves a decode step never reads: the encoder's (its cache holds the
+# cross k/v).  jax.jit drops unused arguments, so the reference's argument
+# bytes hold none of them, and a decode cell's arguments leave them out
+ENCODER_LEAVES = ("enc_layers", "enc_final_norm", "enc_cross")
 MESH_CHIPS = {"single": 256, "multi": 512}
 # the port's CUDA kernels, as the counter logs them
 KERNELS = ("flash_attention", "block_sparse_matmul", "block_importance",
@@ -166,7 +162,8 @@ def _cell_step(cfg: ArchConfig, cell: ShapeCell, *, remat: bool = True,
     one.  A train step is ``TrainStep.grads`` then ``adamw_update`` (no
     loss read back, which a ``meta`` tensor cannot give); it writes params
     and optimizer state in place and returns them, as ``decode_step``
-    returns the cache it wrote."""
+    returns the cache it wrote.  A decode step's params leave out the
+    encoder's (:data:`ENCODER_LEAVES`)."""
     params = param_struct(cfg)
     specs = input_specs(cfg, cell)
     if cell.kind == "train":
@@ -192,6 +189,7 @@ def _cell_step(cfg: ArchConfig, cell: ShapeCell, *, remat: bool = True,
         with torch.no_grad():
             return decode_step(params, tokens, cfg, cache)
 
+    params = {k: v for k, v in params.items() if k not in ENCODER_LEAVES}
     return serve_step, (params, specs["tokens"], specs["cache"])
 
 
@@ -336,19 +334,14 @@ def run_cell(arch: str, cell_name: str, mesh_kind: str = "local", *,
     256 / 512 ranks started for the cell and closed after it, the
     arguments placed by the sharding options of
     :mod:`repro_torch.distributed.sharding`: per-device flops, bytes and
-    memory, and ``collective_bytes`` by kind.  A mesh takes the families
-    of :data:`MESH_FAMILIES`, and no ``execute``."""
+    memory, and ``collective_bytes`` by kind.  A mesh takes every family,
+    and no ``execute``."""
     cfg = get_config(arch)
     if mesh_kind not in ("local", *MESH_CHIPS):
         raise ValueError(f"mesh {mesh_kind!r}: one of local, single, multi")
-    if mesh_kind != "local":
-        if cfg.family not in MESH_FAMILIES:
-            raise NotImplementedError(
-                f"mesh {mesh_kind!r}: the dry-run on a mesh of the {cfg.family} family "
-                f"({arch}) is not ported; only the {', '.join(MESH_FAMILIES)} families are")
-        if execute:
-            raise NotImplementedError(f"mesh {mesh_kind!r}: --execute on a mesh is not ported "
-                                      "(the fake world has no devices)")
+    if mesh_kind != "local" and execute:
+        raise NotImplementedError(f"mesh {mesh_kind!r}: --execute on a mesh is not ported "
+                                  "(the fake world has no devices)")
     if ffn_compress > 0:
         # FullBlock row-compressed FFN: pruned rows of w_up/w_gate (and
         # cols of w_down) removed entirely, so the FFN is a smaller dense

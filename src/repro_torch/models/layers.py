@@ -200,13 +200,29 @@ def scores_dtype(dtype: torch.dtype) -> Iterator[None]:
         set_scores_dtype(prev)
 
 
+# The A/B switch of :func:`chunked_attention`'s statically tiled path (the
+# reference's ``_TILED_ATTN``, ``repro/models/layers.py:33-39``): on, the
+# default, causal self-attention from position 0 over more than one chunk
+# tiles the queries too and skips the kv tiles its mask hides whole.
+_TILED_ATTN = True
+
+
+def set_tiled_attn(on: bool) -> bool:
+    """Switch the tiled path on or off; returns the setting it replaces."""
+    global _TILED_ATTN
+    prev, _TILED_ATTN = _TILED_ATTN, bool(on)
+    return prev
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[Any] = None,
                       q_offset: Any = 0, kv_len: Optional[Any] = None,
                       attn_cap: float = 0.0, prefix: int = 0,
                       chunk: int = 1024) -> torch.Tensor:
-    """Online-softmax attention scanned over kv chunks (the generic path
-    of the reference, ``layers.py:277-294``).
+    """Online-softmax attention scanned over kv chunks: the reference's
+    generic path (``layers.py:277-294``), or, where the reference takes it
+    (:func:`_takes_tiled`), its statically tiled path (``:209-273``,
+    :func:`_tiled_attention`).
 
     q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd).  ``q_offset`` (absolute
     position of q[0]) and ``kv_len`` (valid cache length) may be scalars
@@ -230,21 +246,68 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On DTensors (the partitioned view) each rank attends its shards
     (:func:`~repro_torch.distributed.partition.attention_shards`); keys
     split by sequence combine their statistics by all-reduce, and there a
-    ``chunk`` that covers every key covers every local key.
+    ``chunk`` that covers every key covers every local key.  The tiled
+    path reads the local shards: keys split by sequence never tile.
     """
+    kw = dict(causal=causal, window=window, attn_cap=attn_cap, prefix=prefix, chunk=chunk)
     if shd.is_dtensor(q):
         sh = part.attention_shards(q, k, v, op="chunked_attention")
-        if sh.seq and chunk >= k.shape[1]:
-            chunk = sh.k.shape[1]
-        m, l, acc = _attention_stats(sh.q, sh.k, sh.v, causal=causal, window=window,
-                                     q_offset=part.local(q_offset), kv_len=part.local(kv_len),
-                                     attn_cap=attn_cap, prefix=prefix, chunk=chunk,
-                                     k_start=sh.k_start)
-        m, l, acc = part.combine_stats(m, l, acc, sh)
-        return part.from_local(_attention_out(acc, l, sh.q), sh.mesh, sh.placements, sh.shape)
-    m, l, acc = _attention_stats(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                                 kv_len=kv_len, attn_cap=attn_cap, prefix=prefix, chunk=chunk)
+        q_offset, kv_len = part.local(q_offset), part.local(kv_len)
+        if not sh.seq and _takes_tiled(sh.q, sh.k, q_offset=q_offset, kv_len=kv_len, **kw):
+            out = _tiled_attention(sh.q, sh.k, sh.v, **kw)
+        else:
+            if sh.seq and chunk >= k.shape[1]:
+                kw["chunk"] = sh.k.shape[1]
+            m, l, acc = _attention_stats(sh.q, sh.k, sh.v, q_offset=q_offset, kv_len=kv_len,
+                                         k_start=sh.k_start, **kw)
+            m, l, acc = part.combine_stats(m, l, acc, sh)
+            out = _attention_out(acc, l, sh.q)
+        return part.from_local(out, sh.mesh, sh.placements, sh.shape)
+    if _takes_tiled(q, k, q_offset=q_offset, kv_len=kv_len, **kw):
+        return _tiled_attention(q, k, v, **kw)
+    m, l, acc = _attention_stats(q, k, v, q_offset=q_offset, kv_len=kv_len, **kw)
     return _attention_out(acc, l, q)
+
+
+def _takes_tiled(q, k, *, causal, q_offset, kv_len, chunk, **_) -> bool:
+    """The reference's condition for its tiled path (``layers.py:216-217``):
+    the switch on, causal, no cache length, queries from position 0 (a
+    Python int), as many queries as keys, and more than one chunk."""
+    return (_TILED_ATTN and causal and kv_len is None and isinstance(q_offset, int)
+            and q_offset == 0 and q.shape[1] == k.shape[1] and q.shape[1] > chunk)
+
+
+def _tiled_attention(q, k, v, *, causal, window, attn_cap, prefix, chunk) -> torch.Tensor:
+    """The reference's statically tiled path (``layers.py:209-273``) for
+    causal self-attention from position 0 (:func:`_takes_tiled`): queries
+    in tiles of ``chunk`` rows, the last padded with rows past the end and
+    sliced off after; query tile ``qi`` attends kv tiles ``lo..hi`` only,
+    ``hi = qi`` (its own diagonal tile), widened to the prefix's last tile
+    where a prefix is seen, and without a prefix ``lo`` the first tile a
+    static int window reaches.  The tiles it skips are those its mask hides
+    whole, so each row's value is the generic loop's; each q tile is one
+    :func:`_attention_stats` call over its kv range, with the same masks."""
+    B, S = q.shape[:2]
+    nq = -(-S // chunk)
+    q_pad = nq * chunk - S
+    if q_pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, q_pad))
+    static_window = window if isinstance(window, int) else None
+    outs = []
+    for qi in range(nq):
+        lo, hi = 0, qi
+        if prefix > 0:
+            hi = min(max(qi, -(-prefix // chunk) - 1), nq - 1)
+        elif static_window is not None:
+            lo = max(0, (qi * chunk - static_window + 1) // chunk)
+        qt = q[:, qi * chunk:(qi + 1) * chunk]
+        kv = slice(lo * chunk, (hi + 1) * chunk)
+        m, l, acc = _attention_stats(qt, k[:, kv], v[:, kv], causal=causal, window=window,
+                                     q_offset=qi * chunk, kv_len=None, attn_cap=attn_cap,
+                                     prefix=prefix, chunk=chunk, k_start=lo * chunk)
+        outs.append(_attention_out(acc, l, qt))
+    out = torch.cat(outs, dim=1)
+    return out[:, :S] if q_pad else out
 
 
 def _attention_stats(q, k, v, *, causal, window, q_offset, kv_len, attn_cap, prefix, chunk,

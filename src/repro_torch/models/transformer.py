@@ -390,7 +390,8 @@ def _encoder_stack(params: Params, enc_embed: torch.Tensor, cfg: ArchConfig,
     the end.  Its weights are never pruned (the reference's
     ``prune_params`` walks ``params["layers"]`` only), so its projections
     are dense matmuls."""
-    positions = torch.arange(enc_embed.shape[1], device=enc_embed.device)[None]
+    positions = shd.replicated(torch.arange(enc_embed.shape[1], device=enc_embed.device),
+                              enc_embed)[None]
 
     def layer(x, l, lp):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -60,7 +60,8 @@ def main() -> int:
 
         tokens, labels, nxt = cases.tokens_of(cfg)
         with shd.options(**cases.KNOBS[knob]), shd.set_mesh(mesh):
-            got = cases.run(cfg, cases.params_of(cfg), tokens, labels, nxt, place, full)
+            got = cases.run(cfg, cases.params_of(cfg), tokens, labels, nxt, place, full,
+                            cases.extra_of(cfg))
         results.update({f"{arch}/{knob}/{k}": v for k, v in got.items()})
     np.savez(out / f"rank{rank}.npz", **results)
     torch.distributed.destroy_process_group()

@@ -194,6 +194,27 @@ def test_live_bytes_give_the_exact_peak_of_a_hand_built_program():
         del t, s
 
 
+@pytest.mark.parametrize("arch,cell", [("qwen3-4b", ShapeCell("t", 2048, 1, "train")),
+                                       ("paligemma-3b", ShapeCell("t", 1200, 2, "prefill")),
+                                       ("hymba-1.5b", ShapeCell("t", 64, 2, "decode"))])
+def test_replayed_meta_ops_count_what_running_each_counts(arch, cell, monkeypatch):
+    """An op replayed from its meta signature (fresh outputs of the shapes
+    and strides its meta kernel gave the first time) counts what running
+    it counts: flops by kind, bytes, the live bytes' peak, the arguments',
+    the outputs' and the op log, over a train step (the tiled attention
+    path, its backward and a checkpoint's recompute), a prefill with a
+    prefix and a decode step writing a cache in place."""
+    cfg = get_config(arch).reduced()
+    replayed = dryrun.count_cell(cfg, cell)
+    assert replayed._replay
+    monkeypatch.setattr(counting.Counter, "_run",
+                        lambda self, func, args, kwargs: func(*args, **kwargs))
+    run = dryrun.count_cell(cfg, cell)
+    fields = ("flops_by_kind", "bytes_accessed", "peak_bytes", "argument_bytes",
+              "output_bytes", "oplog")
+    assert {f: getattr(replayed, f) for f in fields} == {f: getattr(run, f) for f in fields}
+
+
 def test_a_kernel_counts_its_work_and_none_of_its_stand_ins_ops():
     """Under a counter the flash op is one launch of work.flash_attention;
     the plain version's einsums, masks and softmax are not counted, its

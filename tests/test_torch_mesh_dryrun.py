@@ -20,9 +20,11 @@ on ``meta``.
   ``--fsdp --no-zero1`` (the same: it changes nothing) and
   ``--legacy-sharding``, and a train step's for the widened config whose
   query heads split;
-* (f) the encoder-decoder and prefix-LM families and ``--execute`` on a
-  mesh give an ``error`` record (the MoE, SSM and hybrid families are
-  tests/test_torch_mesh_dryrun_families.py's);
+* (f) the encoder-decoder and prefix-LM families write a record on a
+  mesh, and ``--execute`` on a mesh an ``error`` record (the MoE, SSM and
+  hybrid families are tests/test_torch_mesh_dryrun_families.py's, the
+  encoder-decoder and prefix-LM families' counts
+  tests/test_torch_mesh_dryrun_encdec.py's);
 * the partitioned view on values: a real 4-rank gloo world on the CPU
   (tests/_torch_partition_worker.py, cases in tests/_partition_cases.py)
   runs prefill, a decode step over a sequence-split cache and a train
@@ -324,7 +326,8 @@ def partitioned(tmp_path_factory):
 @pytest.mark.parametrize("arch,knob", [("llama3-8b", "default"), ("llama3-8b", "fsdp"),
                                        ("llama3-8b", "legacy"), ("gemma2-9b", "default"),
                                        ("qwen3-moe-30b-a3b", "default"),
-                                       ("hymba-1.5b", "default")])
+                                       ("hymba-1.5b", "default"), ("whisper-medium", "default"),
+                                       ("paligemma-3b", "default")])
 def test_the_partitioned_view_computes_what_one_process_does(partitioned, arch, knob):
     """prefill and decode logits (the decode over a cache split by sequence
     over both axes: the split softmax), the train step's loss and grads,
@@ -333,13 +336,16 @@ def test_the_partitioned_view_computes_what_one_process_does(partitioned, arch, 
     in another order), params where the grad is above 1e-3 of the leaf's
     largest (a first AdamW step moves each by ±lr, whose sign a grad near
     0 leaves to rounding).  qwen3-moe runs the expert-parallel block,
-    hymba the window path and the Mamba-2 mixer on local shards."""
+    hymba the window path and the Mamba-2 mixer on local shards, whisper
+    the encoder, the cross k/v and the cross step (its decode over the
+    cross cache), paligemma the prefix."""
     import _partition_cases as cases
 
     cfg = cases.cfg_of(arch)
     tokens, labels, nxt = cases.tokens_of(cfg)
     with shd.options(**cases.KNOBS[knob]):
-        want = cases.run(cfg, cases.params_of(cfg), tokens, labels, nxt)
+        want = cases.run(cfg, cases.params_of(cfg), tokens, labels, nxt,
+                         extra=cases.extra_of(cfg))
     for key, w in want.items():
         got = [rank[f"{arch}/{knob}/{key}"] for rank in partitioned]
         assert all(np.array_equal(got[0], g) for g in got[1:]), key
@@ -526,13 +532,19 @@ def test_cli_counts_a_cell_on_both_meshes_and_resumes(tmp_path, capsys):
     assert not dist.is_initialized()
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b"])
-def test_other_families_on_a_mesh_write_an_error_record(arch, tmp_path):
+@pytest.mark.parametrize("arch,flash", [("whisper-medium", 24), ("paligemma-3b", 0)])
+def test_the_encoder_decoder_and_prefix_lm_families_write_a_record_on_a_mesh(arch, flash,
+                                                                              tmp_path):
+    """whisper-medium's decoder self-attention takes flash once a layer;
+    its encoder and cross step and paligemma-3b's prefix attention take
+    ``chunked_attention``."""
     out = tmp_path / "d.jsonl"
     assert dryrun.main(["--arch", arch, "--cell", "prefill_32k", "--mesh", "single",
-                        "--out", str(out)]) == 1
+                        "--out", str(out)]) == 0
     rec = json.loads(out.read_text())
-    assert rec["mesh"] == "single" and "not ported" in rec["error"]
+    assert "error" not in rec and (rec["mesh"], rec["chips"]) == ("single", 256)
+    assert rec["kernel_calls"].get("flash_attention", 0) == flash
+    assert rec["collective_bytes"]["count"] > 0
     assert not dist.is_initialized()
 
 

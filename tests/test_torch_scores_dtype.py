@@ -7,16 +7,19 @@ the dry-run's ``--scores-bf16``) against the reference's.
   as the card's does.  Jitted, XLA's CPU compiler drops some of the
   roundings between fused elementwise ops (it simplifies convert pairs),
   so the reference moves by up to 2^-6 at these magnitudes; eager, the two
-  agree to the bit here.  The reference tiles only where Sq = Skv > chunk
-  (``repro/models/layers.py:216-217``), so its tiled path is switched off.
-* In f32, the default, the output and the op log on ``meta`` equal those
-  of the loop as it was before the knob (a frozen copy below), bit for bit.
+  agree to the bit here.  Both packages tile where Sq = Skv > chunk
+  (``repro/models/layers.py:216-217``), so both tiled paths are switched
+  off: these cases hold the generic loop (tests/test_torch_attention_tiled.py
+  holds the tiled one).
+* In f32, the default, with the tiled path switched off, the output and
+  the op log on ``meta`` equal those of the loop as it was before the knob
+  (a frozen copy below), bit for bit.
 * On ``meta``, the counted bytes of qwen3-4b's train_4k and decode_32k fall
   by the fall of one layer's attention call, times the calls the cell
   makes; prefill_32k (flash) does not move.
 
 Both packages' knobs are module globals, and xdist reuses a worker: the
-fixtures put both back to f32 (and the reference's tiling on) even when a
+fixtures put both back to f32 (and both packages' tiling on) even when a
 test fails.
 """
 import math
@@ -41,13 +44,14 @@ BF16_TOL = 2.0 ** -8
 
 @pytest.fixture
 def f32_after():
-    """Both packages' scores dtype back to f32, the reference's tiling on."""
+    """Both packages' scores dtype back to f32, both packages' tiling on."""
     try:
         yield
     finally:
         TL.set_scores_dtype(torch.float32)
         R.layers.set_scores_dtype(jnp.float32)
         R.layers.set_tiled_attn(True)
+        TL.set_tiled_attn(True)
 
 
 def _set(dtype_name: str) -> None:
@@ -102,6 +106,7 @@ def _both(case, dtype_name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_bf16_scores_match_the_references(name, f32_after):
     R.layers.set_tiled_attn(False)
+    TL.set_tiled_attn(False)
     got, want = _both(CASES[name], "bfloat16")
     assert np.abs(got - want).max() <= BF16_TOL
     # the knob moves the result past that bound: f32 scores differ
@@ -180,7 +185,8 @@ def _frozen_chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0, 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", list(CASES) + ["prefix", "bidirectional"])
-def test_the_f32_default_is_the_loop_it_was_bit_for_bit(name, dtype):
+def test_the_f32_default_is_the_loop_it_was_bit_for_bit(name, dtype, f32_after):
+    TL.set_tiled_attn(False)
     case = CASES.get(name, CASES["causal"])
     _, _, q_offset, kv_len, window, cap, chunk = case
     q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(case))
