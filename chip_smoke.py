@@ -236,6 +236,24 @@ Phases, each reported on its own line(s):
    two captures of llama3-8b forward with equal digests; llama3-8b's own
    forward (``source="model"``) at S 8 and 128, its MVM weights equal to
    the hand DAG's and, at S 8, its macs within (0.9, 1.2) of them;
+16b. explore — the exploration plane's CLIs (:func:`start_explore`, read
+   by :func:`explore_phase`), started with phase 15b and each a process of
+   its own (the card hidden from all but ``collect``), in seven chains at
+   once: ``python -m repro_torch.calibrate collect --kernels --sizes 256
+   --repeats 1`` on the card (4 samples, each ``impl`` ``cuda`` and
+   timed); ``calibrate fit`` over this run's microbench samples, ``show
+   --check`` and ``diff`` against the profile phase 14 fitted from them
+   (identical peaks and efficiencies); ``python -m repro_torch.explore lm``
+   over qwen3-4b traced on ``meta`` (S 64, ``--workload traced:qwen3-4b``)
+   priced by that profile, with ``--diff-analytic``, schedules monolithic
+   and resident over 16 invocations and a run directory: every
+   calibrated/analytic ratio finite and positive, then ``--resume``
+   evaluating 0 points and ``--check-store`` passing; resnet18's sparsity
+   sweep on 2 workers without faults and under ``REPRO_FAULTS`` crashes
+   and exceptions, the two CSVs byte-identical; ``python -m
+   repro_torch.obs energy`` and ``timeline`` of qwen3-4b's cost report (c)
+   (its components summing to its total within 1e-9, the trace passing
+   ``obs check``);
 17. the ``{"kernels": [...]}`` line (flash's ``launches`` are the card's; the
    mesh records' counted calls are on the ``[mesh-dryrun]`` lines); 18. the
    card's name and power limit.
@@ -269,6 +287,7 @@ import gc
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -3139,6 +3158,8 @@ def cost_phase(samples: list, served: list):
         rep_c = simulate(arch, wl, mapping, input_sparsity=ratios, profile=prof)
         dense_c = dense_baseline(arch, wl, mapping, profile=prof)
         check_report(f"{label} (c)", rep_c)
+        if cfg.name == EXPLORE_REPORT_OF:
+            EXPLORE_REPORT.write_text(rep_c.to_json())
         check_report(f"{label} (c) dense baseline", dense_c)
         check_scaled(f"{label} (c)", rep_c, base, wl, prof)
         report_line(f"{label} (c) {'measured ratios + ' if ratios else ''}fitted profile",
@@ -4309,6 +4330,265 @@ VARIANT_KEYS = ("shape", "launches", "ms", "eager_ms", "general_ms", "general_co
                 "bound_by", "library_ms", "share_of_bound", "x_library")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16b: the exploration plane's CLIs, priced by this run's profile
+# ---------------------------------------------------------------------------
+
+EXPLORE_DIR = HERE / "build" / "explore"
+EXPLORE_REPORT_OF = "qwen3-4b"
+EXPLORE_REPORT = HERE / "build" / "qwen3-4b_cost.json"       # cost (c), written by cost_phase
+EXPLORE_FAULTS = "seed=3,crash=0.2,exc=0.25,times=1"
+EXPLORE_SWEEP = ("sparsity", "--model", "resnet18", "--ratios", "0.7,0.8", "--workers", "2",
+                 "--pareto")
+EXPLORE_LM_RATIOS = (0.5, 0.7, 0.8, 0.9)      # the CLI's default ratios
+EXPLORE_LM_POLICIES = ("monolithic", "resident")
+EXPLORE_CLI_LIMIT_S = 300
+
+
+class CliChains:
+    """Chains of CLI runs (``python -m <module> ...`` from the checkout's
+    root), each chain on a thread of its own and each run in a session of
+    its own, so that :meth:`stop` ends it with its fork server and
+    workers.  A run is on the host with the card hidden unless it asks for
+    the card."""
+
+    def __init__(self, prof_path: str):
+        import concurrent.futures
+        import threading
+
+        self.prof_path = prof_path                 # the cost phase's profile, repo-relative
+        self.pool = concurrent.futures.ThreadPoolExecutor(max_workers=8)
+        self.lock = threading.Lock()
+        self.procs, self.futures, self.seconds = [], {}, {}
+        self.stopped = False
+        self.t0 = time.perf_counter()
+
+    def run(self, label: str, args, *, card: bool = False, env=None) -> str:
+        """One CLI run's standard output; a nonzero exit fails the run."""
+        full = dict(os.environ, PYTHONPATH=str(HERE / "src"), OMP_NUM_THREADS="1", **(env or {}))
+        if not card:
+            full["CUDA_VISIBLE_DEVICES"] = ""
+        with self.lock:
+            if self.stopped:
+                raise CheckFailed(f"[explore] {label}: the phase was stopped")
+            proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE, env=full, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    start_new_session=True)
+            self.procs.append(proc)
+        t0 = time.perf_counter()
+        try:
+            out, err = proc.communicate(timeout=EXPLORE_CLI_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            self._kill(proc)
+            raise CheckFailed(f"[explore] {label}: no exit within {EXPLORE_CLI_LIMIT_S} s")
+        self.seconds[label] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[explore] {label} exited {proc.returncode}: "
+                                    f"python -m {' '.join(args)}\n{err[-3000:]}")
+        return out
+
+    def start(self, name: str, fn, *args) -> None:
+        self.futures[name] = self.pool.submit(fn, self, *args)
+
+    @staticmethod
+    def _kill(proc) -> None:
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+
+    def stop(self) -> None:
+        with self.lock:
+            self.stopped = True
+            procs = list(self.procs)
+        for proc in procs:
+            self._kill(proc)
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _explore_collect(ch):
+    ch.run("calibrate collect", ["repro_torch.calibrate", "collect", "--kernels", "--sizes", "256",
+                                 "--repeats", "1", "--fresh", "--out", "build/explore/calib.jsonl"],
+           card=True)
+
+
+def _explore_refit(ch, prof_path: str):
+    ch.run("calibrate fit", ["repro_torch.calibrate", "fit", "--ledger",
+                             "build/microbench_samples.jsonl", "--name", "refit", "--out",
+                             "build/explore/refit.json"])
+    show = ch.run("calibrate show", ["repro_torch.calibrate", "show", "build/explore/refit.json",
+                                     "--check"])
+    return show, ch.run("calibrate diff", ["repro_torch.calibrate", "diff",
+                                           "build/explore/refit.json", prof_path])
+
+
+def _explore_lm(ch, prof_path: str):
+    out = ch.run("explore lm", [
+        "repro_torch.explore", "lm", "--config", "qwen3-4b", "--workload", "traced:qwen3-4b",
+        "--seq-len", "64", "--ratios", ",".join(map(str, EXPLORE_LM_RATIOS)), "--profile",
+        prof_path, "--diff-analytic", "--schedule", ",".join(EXPLORE_LM_POLICIES),
+        "--invocations", "16", "--top-k", "3", "--workers", "1",
+        "--run-dir", "build/explore/lm", "--csv", "build/explore/lm.csv"])
+    resume = ch.run("explore lm --resume", ["repro_torch.explore", "--resume", "build/explore/lm"])
+    store = ch.run("explore --check-store", ["repro_torch.explore", "--check-store",
+                                             "build/explore/lm"])
+    return out, resume, store
+
+
+def _explore_sweep(ch, faulted: bool):
+    if not faulted:
+        return ch.run("explore sparsity", ["repro_torch.explore", *EXPLORE_SWEEP, "--csv",
+                                           "build/explore/clean.csv"])
+    return ch.run("explore sparsity under faults", [
+        "repro_torch.explore", *EXPLORE_SWEEP, "--run-dir", "build/explore/faults", "--timeout",
+        "60", "--csv", "build/explore/faulted.csv"], env={"REPRO_FAULTS": EXPLORE_FAULTS})
+
+
+def _explore_energy(ch):
+    return ch.run("obs energy", ["repro_torch.obs", "energy", "--report", str(
+        EXPLORE_REPORT.relative_to(HERE)), "--csv", "build/explore/energy.csv", "--json",
+        "build/explore/energy.json"])
+
+
+def _explore_timeline(ch):
+    out = ch.run("obs timeline", ["repro_torch.obs", "timeline", "--report", str(
+        EXPLORE_REPORT.relative_to(HERE)), "--out", "build/explore/timeline.json"])
+    return out, ch.run("obs check", ["repro_torch.obs", "check", "build/explore/timeline.json"])
+
+
+def start_explore(prof) -> CliChains:
+    """Start the exploration plane's CLIs (module docstring, phase 16b):
+    ``calibrate collect --kernels`` on the card, and on the host with the
+    card hidden the refit of this run's microbench samples, the traced
+    qwen3-4b sweep priced by the profile ``cost_phase`` fitted, the
+    sparsity sweep with and without faults, and the energy table and
+    timeline of qwen3-4b's cost report."""
+    import shutil
+
+    shutil.rmtree(EXPLORE_DIR, ignore_errors=True)
+    EXPLORE_DIR.mkdir(parents=True)
+    prof_path = str(prof.save_addressed(HERE / "build" / "profiles").relative_to(HERE))
+    ch = CliChains(prof_path)
+    ch.start("collect", _explore_collect)
+    ch.start("refit", _explore_refit, prof_path)
+    ch.start("lm", _explore_lm, prof_path)
+    ch.start("clean", _explore_sweep, False)
+    ch.start("faulted", _explore_sweep, True)
+    ch.start("energy", _explore_energy)
+    ch.start("timeline", _explore_timeline)
+    return ch
+
+
+def _diff_ratios(out: str) -> list:
+    """(row keys, latency ratio, energy ratio) of each row of the lm
+    sweep's ``calibrated vs analytic`` table."""
+    lines = out.split("== calibrated vs analytic (", 1)[1].splitlines()
+    rows = []
+    for line in lines[2:]:
+        if not line.strip():
+            break
+        cells = line.split()
+        rows.append((" ".join(cells[:-4]), float(cells[-2]), float(cells[-1])))
+    return rows
+
+
+def _top_rows(out: str, k: int) -> list:
+    lines = out.split(f"== top-{k} by latency_ms", 1)[1].splitlines()
+    return [" ".join(line.split()) for line in lines[1:k + 2]]
+
+
+def explore_phase(ch: CliChains, waited_from: float) -> None:
+    """Read and check the exploration plane's CLIs (phase 16b); every
+    failure fails the run."""
+    import csv
+
+    from repro_torch.calibrate.harvest import read_samples
+    from repro_torch.core import TABLE_II_PATTERNS
+    from repro_torch.core.report import CostReport
+
+    card = card_line()
+    results = {name: fut.result() for name, fut in ch.futures.items()}
+    done = time.perf_counter()
+
+    samples = read_samples(EXPLORE_DIR / "calib.jsonl")
+    check(sorted(s.op_class for s in samples) == ["attention", "intrablock", "matmul", "matmul"],
+          f"[explore] collect: op classes {[s.op_class for s in samples]}")
+    for s in samples:
+        meta = dict(s.meta)
+        check(meta["impl"] == "cuda" and s.time_s > 0 and meta["device"].startswith("cuda:"),
+              f"[explore] collect: {s.op_class} {meta} is not a timed CUDA sample")
+        print(f"[explore] calibrate collect --kernels (card): {s.op_class} {meta['shape']}: "
+              f"{s.time_s * 1e3:.4f} ms ({meta['impl']}, {meta['device']}) [{card}]", flush=True)
+
+    show, diff = results["refit"]
+    check("OK: schema-valid, round-trips" in show, f"[explore] show --check:\n{show}")
+    check("identical physical content (peaks + efficiencies)" in diff,
+          f"[explore] the refit differs from the cost phase's profile:\n{diff}")
+    print(f"[explore] calibrate fit over build/microbench_samples.jsonl, show --check, diff "
+          f"against {ch.prof_path}: identical physical content (peaks + efficiencies)",
+          flush=True)
+
+    out, resume, store = results["lm"]
+    check("calibrated mode: profile " in out and "traced workload 'traced-qwen3-4b-forward'" in out,
+          f"[explore] lm: no calibrated traced sweep:\n{out[:2000]}")
+    n_rows = len(EXPLORE_LM_POLICIES) * sum(len(TABLE_II_PATTERNS(r, c_in=16))
+                                            for r in EXPLORE_LM_RATIOS)
+    ratios = _diff_ratios(out)
+    check(len(ratios) == n_rows, f"[explore] lm: {len(ratios)} diff rows, want {n_rows}")
+    for keys, lat, en in ratios:
+        check(math.isfinite(lat) and lat > 0 and math.isfinite(en) and en > 0,
+              f"[explore] lm {keys}: calibrated/analytic ratios {lat}, {en}")
+    with open(EXPLORE_DIR / "lm.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == n_rows and all(
+        math.isfinite(float(r[c])) and float(r[c]) > 0 for r in rows
+        for c in ("latency_ms", "energy_uj", "speedup")), "[explore] lm: a row not finite")
+    engine = next(line for line in out.splitlines() if line.startswith("engine: "))
+    print(f"[explore] lm qwen3-4b traced (seq 64) priced by {ch.prof_path}, schedules "
+          f"monolithic,resident x 16 invocations: {len(rows)} rows; {engine}", flush=True)
+    for row in _top_rows(out, 3):
+        print(f"[explore] lm top-3 by latency_ms: {row}", flush=True)
+    lat = [r[1] for r in ratios]
+    en = [r[2] for r in ratios]
+    print(f"[explore] lm calibrated/analytic over {len(ratios)} rows: latency ratio "
+          f"{min(lat)}..{max(lat)}, energy ratio {min(en)}..{max(en)}", flush=True)
+    for keys, l_r, e_r in ratios[:2] + ratios[-2:]:
+        print(f"[explore] lm ratio {keys}: latency {l_r}, energy {e_r}", flush=True)
+    check(" 0 evaluated on " in resume, f"[explore] lm --resume evaluated points:\n{resume}")
+    check("store check: ok" in store, f"[explore] --check-store:\n{store}")
+    print(f"[explore] lm --resume: "
+          f"{next(x for x in resume.splitlines() if x.startswith('engine: '))}; --check-store: "
+          f"{' | '.join(store.strip().splitlines())}", flush=True)
+
+    clean, faulted = (EXPLORE_DIR / "clean.csv").read_bytes(), \
+        (EXPLORE_DIR / "faulted.csv").read_bytes()
+    check(clean == faulted and clean.count(b"\n") == 16,
+          "[explore] the CSV under faults differs from the fault-free one")
+    f_engine = next(x for x in results["faulted"].splitlines() if x.startswith("engine: "))
+    check(" retried" in f_engine and " 0 failed" in f_engine, f"[explore] faults: {f_engine}")
+    print(f"[explore] sparsity resnet18 under REPRO_FAULTS={EXPLORE_FAULTS}: CSV byte-identical "
+          f"to the fault-free run ({len(clean)} bytes); {f_engine}", flush=True)
+
+    rep = CostReport.from_dict(json.loads(EXPLORE_REPORT.read_text()))
+    with open(EXPLORE_DIR / "energy.csv", newline="") as f:
+        comps = list(csv.DictReader(f))
+    total = sum(float(r["energy_pj"]) for r in comps) / 1e6
+    err = abs(total - rep.total_energy_uj) / rep.total_energy_uj
+    check(len(comps) == len(rep.energy_pj) and err <= 1e-9,
+          f"[explore] energy rows sum to {total} uJ, the report {rep.total_energy_uj} uJ")
+    print(f"[explore] obs energy --report (qwen3-4b cost (c)): {len(comps)} components sum to "
+          f"{total!r} uJ, the report's total {rep.total_energy_uj!r} uJ (rel err {err:.3g})",
+          flush=True)
+    tl_out, tl_check = results["timeline"]
+    check(tl_check.startswith("ok: "), f"[explore] obs check: {tl_check}")
+    print(f"[explore] obs timeline: {' '.join(tl_out.split())[:300]}; check: {tl_check.strip()}",
+          flush=True)
+    print(f"[explore] CLI seconds (host, card hidden but for collect): "
+          + json.dumps({k: round(v, 2) for k, v in ch.seconds.items()}), flush=True)
+    print(f"[time] explore phase {done - ch.t0:.1f}s from its start, "
+          f"{max(0.0, done - waited_from):.1f}s past the mesh dry-run; checks "
+          f"{time.perf_counter() - done:.2f}s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4331,7 +4611,7 @@ def main() -> int:
     libs = _build.build()
     print(f"[build] {len(libs)} kernels built from src/repro_torch/kernels/csrc in "
           f"{time.perf_counter() - t0:.1f}s: {sorted(libs)}", flush=True)
-    mesh_dryrun = []
+    mesh_dryrun, explore = [], None
 
     csrc, kdir = "src/repro_torch/kernels/csrc", "src/repro/kernels"
     sources = {"flash_attention": ("cuda", f"{csrc}/flash_attention.cu",
@@ -4384,8 +4664,10 @@ def main() -> int:
         prof = cost_phase(samples, [qwen, llama, *later])
         dryrun_phase(samples, prof)
         mesh_dryrun = start_mesh_dryrun()          # the last timed card phase is done
+        explore = start_explore(prof)
         trace_phase()
         mesh_dryrun_phase(mesh_dryrun)
+        explore_phase(explore, time.perf_counter())
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4394,6 +4676,8 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        if explore is not None:
+            explore.stop()
 
     kernels = []
     for name, (route, source, replaces) in sources.items():

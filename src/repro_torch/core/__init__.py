@@ -1,9 +1,10 @@
 """CIMinus core of the port: copies of the reference's modeling plane.
 
 The FlexBlock specs, hardware description, workload DAG, mapping,
-scheduling and cost model are host-side numpy analytics, copied from
-``repro.core`` so the port imports nothing of the JAX package; the names
-below are the reference's.  Pruning (:mod:`.pruning`) and input-sparsity
+scheduling, cost model and the exploration sweeps' wrappers
+(:mod:`.explorer`, over :mod:`repro_torch.explore`) are host-side numpy
+analytics, copied from ``repro.core`` so the port imports nothing of the
+JAX package; the names below are the reference's.  Pruning (:mod:`.pruning`) and input-sparsity
 profiling (:mod:`.input_sparsity`) hold the port's tensor ops and are
 imported from their own modules.
 """
@@ -21,6 +22,7 @@ from .schedule import (POLICIES, OpExec, SchedulePolicy, ScheduledOp,
 from .workload import (MODEL_BUILDERS, OpNode, Workload, lm_workload,
                        mobilenet_v2, resnet18, resnet50, vgg16)
 from .presets import mars_arch, sdp_arch, usecase_arch, PRESET_ARCHS
+from .explorer import sweep_mappings, sweep_orgs, sweep_sparsity
 
 __all__ = [
     # flexblock
@@ -42,4 +44,6 @@ __all__ = [
     # workload
     "MODEL_BUILDERS", "OpNode", "Workload", "lm_workload", "mobilenet_v2",
     "resnet18", "resnet50", "vgg16",
+    # explorer
+    "sweep_mappings", "sweep_orgs", "sweep_sparsity",
 ]

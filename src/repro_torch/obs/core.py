@@ -1,34 +1,43 @@
-"""Observability core of the port: spans, counters, events → process-safe
-JSONL sinks (copy of ``repro/obs/core.py``: ``Observer``, ``enable`` /
-``disable`` / ``enabled``, ``span``, ``counter``, ``event``,
-``read_events``, ``read_manifest``; the sweep runner's heartbeats and run
-manifest have no caller in the port and are not copied).
+"""Observability core of the port: spans, counters, events, heartbeats →
+process-safe JSONL sinks.
 
-``repro_torch.obs`` records what a serving run did and never changes what
-it computes.  Its contracts are the reference's:
+Copy of ``repro.obs.core``: the port never imports the JAX package.
+
+``repro_torch.obs`` records what sweeps, schedules and serving runs did,
+and never changes what they compute.  Its contracts are the reference's:
 
 * **Zero overhead when disabled.**  Every recording entry point
-  (:func:`span`, :func:`counter`, :func:`event`) collapses to a
-  module-global ``None`` check and returns a shared no-op object.
-* **Observational only.**  No output of the engine or the model depends
-  on it.
+  (:func:`span`, :func:`counter`, :func:`event`, :func:`heartbeat`)
+  collapses to a module-global ``None`` check and returns a shared
+  no-op object.
+* **Observational only.**  Nothing here enters an
+  :class:`~repro_torch.explore.job.ExploreJob` cache key or alters a
+  :class:`~repro_torch.core.report.CostReport`; no output of the serving
+  engine or the model depends on it.
 * **Monotonic-clock event time.**  Event timestamps come from
-  ``time.monotonic()``, comparable across the processes of one host; the
-  one wall-clock read is the manifest's ``started_unix`` stamp.
+  ``time.monotonic()`` (CLOCK_MONOTONIC — comparable across the
+  processes of one host, which is exactly the merge domain of a run's
+  trace directory).  The one wall-clock read is the run manifest's
+  ``started_unix`` stamp — telemetry metadata, never a result.
 
 Enabling
 --------
 * ``REPRO_OBS=1`` in the environment — a default trace directory is
   created under ``obs_runs/``;
-* ``REPRO_OBS_DIR=<dir>`` — record into ``<dir>`` (worker processes join
-  the parent's run this way: :func:`enable` exports the variable);
+* ``REPRO_OBS_DIR=<dir>`` — record into ``<dir>`` (this is also how
+  worker processes join the parent's run: :func:`enable` exports the
+  variable, and a worker's first recording call attaches to the same
+  directory);
 * programmatically via :func:`enable` / :func:`disable` (tests use the
-  :func:`enabled` context manager).
+  :func:`enabled` context manager);
+* ``--obs`` on the CLIs (``python -m repro_torch.explore --obs``).
 
 Trace directory layout
 ----------------------
 ``manifest.json``      run metadata (id, argv, schema, start time)
 ``events-<pid>.jsonl`` one file per writing process: spans/counters/events
+``runs.jsonl``         one record per :meth:`SweepRunner.run` call
+``energy_components.csv``  per-component energy rows (``repro_torch.obs.energy``)
 """
 from __future__ import annotations
 
@@ -37,15 +46,16 @@ import os
 import sys
 import time
 from pathlib import Path
-from typing import Dict, IO, List, Optional, Union
+from typing import Callable, Dict, IO, Iterator, List, Optional, Union
 
 __all__ = [
     "OBS_SCHEMA", "Observer", "enable", "disable", "enabled", "is_enabled",
-    "get_observer", "span", "counter", "event", "read_events", "read_manifest",
+    "get_observer", "span", "counter", "event", "heartbeat", "Heartbeat",
+    "read_events", "read_manifest",
 ]
 
 # Bump when the JSONL event shape changes incompatibly; readers
-# (the reference's ``python -m repro.obs report`` and external tooling) key on it via
+# (``python -m repro_torch.obs report`` and external tooling) key on it via
 # the manifest.
 OBS_SCHEMA = 1
 
@@ -71,12 +81,14 @@ class Observer:
         self.echo = echo
         self._pid: Optional[int] = None
         self._fh: Optional[IO[str]] = None
+        self._aux: Dict[str, IO[str]] = {}
 
     # -- sinks ---------------------------------------------------------------
     def _file(self) -> IO[str]:
         pid = os.getpid()
         if self._fh is None or pid != self._pid:
             self._pid = pid
+            self._aux = {}                     # post-fork: never share handles
             self._fh = open(self.dir / f"events-{pid}.jsonl", "a",
                             buffering=1)
         return self._fh
@@ -90,13 +102,29 @@ class Observer:
             flat = " ".join(f"{k}={v}" for k, v in attrs.items())
             print(f"[obs] {rec.get('name')} {flat}", file=sys.stderr)
 
+    def append_jsonl(self, name: str, rec: Dict) -> None:
+        """Append one record to an auxiliary JSONL artifact (e.g. the
+        ``runs.jsonl`` sweep-run manifest)."""
+        pid = os.getpid()
+        if pid != self._pid:
+            self._file()                       # resets _aux on pid change
+        fh = self._aux.get(name)
+        if fh is None:
+            fh = self._aux[name] = open(self.dir / name, "a", buffering=1)
+        fh.write(json.dumps(rec, separators=(",", ":")) + "\n")
+
+    def artifact_path(self, name: str) -> Path:
+        """Path for a named artifact inside the trace directory."""
+        return self.dir / name
+
     def close(self) -> None:
-        if self._fh is not None:
-            try:
-                self._fh.close()
-            except OSError:
-                pass
-        self._fh = None
+        for fh in (self._fh, *self._aux.values()):
+            if fh is not None:
+                try:
+                    fh.close()
+                except OSError:
+                    pass
+        self._fh, self._aux = None, {}
 
     # -- manifest ------------------------------------------------------------
     def write_manifest(self, extra: Optional[Dict] = None) -> None:
@@ -204,7 +232,7 @@ class enabled:
 # -- recording entry points ---------------------------------------------------
 
 class _NullSpan:
-    """Shared no-op span: the whole disabled-mode surface."""
+    """Shared no-op span/heartbeat: the whole disabled-mode surface."""
 
     __slots__ = ()
 
@@ -215,6 +243,9 @@ class _NullSpan:
         pass
 
     def set(self, **attrs) -> None:
+        pass
+
+    def tick(self, done: int, **attrs) -> None:
         pass
 
 
@@ -272,6 +303,48 @@ def event(name: str, **attrs) -> None:
     obs.emit({"type": "event", "name": name, "attrs": attrs})
 
 
+class Heartbeat:
+    """Rate-limited progress events for long loops.
+
+    ``tick(done)`` emits at most one ``<name>.heartbeat`` event per
+    ``min_interval_s`` (plus always the final tick where
+    ``done == total``), carrying points/s, ETA, and any caller attrs.
+    """
+
+    __slots__ = ("_obs", "_name", "_total", "_min_interval", "_t0", "_last")
+
+    def __init__(self, obs: Observer, name: str, total: int,
+                 min_interval_s: float = 0.25):
+        self._obs, self._name, self._total = obs, name, total
+        self._min_interval = min_interval_s
+        self._t0 = time.monotonic()
+        self._last = 0.0                       # force an early first beat
+
+    def tick(self, done: int, **attrs) -> None:
+        now = time.monotonic()
+        if done < self._total and now - self._last < self._min_interval:
+            return
+        self._last = now
+        elapsed = max(now - self._t0, 1e-9)
+        rate = done / elapsed
+        eta = (self._total - done) / rate if rate > 0 else float("inf")
+        payload = {"done": done, "total": self._total,
+                   "elapsed_s": round(elapsed, 4),
+                   "points_per_s": round(rate, 2),
+                   "eta_s": round(eta, 3) if eta != float("inf") else None}
+        payload.update(attrs)
+        self._obs.emit({"type": "event", "name": f"{self._name}.heartbeat",
+                        "attrs": payload})
+
+
+def heartbeat(name: str, total: int, **kw):
+    """A :class:`Heartbeat` when enabled, the shared no-op otherwise."""
+    obs = get_observer()
+    if obs is None:
+        return _NULL
+    return Heartbeat(obs, name, total, **kw)
+
+
 # -- reading ------------------------------------------------------------------
 
 def read_events(trace_dir: Union[str, Path],
@@ -301,3 +374,18 @@ def read_manifest(trace_dir: Union[str, Path]) -> Optional[Dict]:
     if not path.exists():
         return None
     return json.loads(path.read_text())
+
+
+def iter_runs(trace_dir: Union[str, Path]) -> Iterator[Dict]:
+    """Records from the ``runs.jsonl`` sweep-run manifest, in order."""
+    path = Path(trace_dir) / "runs.jsonl"
+    if not path.exists():
+        return
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                try:
+                    yield json.loads(line)
+                except json.JSONDecodeError:
+                    continue

@@ -1297,3 +1297,51 @@ def test_mesh_paths_on_the_card_match_one_process(gen, tmp_path):
         want = want.cpu().numpy()
         assert np.abs(out[0][f"swa_flash/{name}"] - want).max() \
             <= TOL[torch.float32] * max(1.0, float(np.abs(want).max())), name
+
+
+def test_calibrate_collect_kernels_on_the_card(gen, tmp_path):
+    """``python -m repro_torch.calibrate collect --kernels`` times the
+    port's kernels on the card by default: 8 timed CUDA samples at two
+    sizes."""
+    from repro_torch.calibrate.__main__ import main
+    from repro_torch.calibrate.harvest import read_samples
+
+    out = tmp_path / "calib.jsonl"
+    assert main(["collect", "--kernels", "--sizes", "256,512", "--repeats", "1", "--fresh",
+                 "--out", str(out)]) == 0
+    samples = read_samples(out)
+    assert len(samples) == 8
+    assert sorted(s.op_class for s in samples) == ["attention"] * 2 + ["intrablock"] * 2 + \
+        ["matmul"] * 4
+    for s in samples:
+        meta = dict(s.meta)
+        assert meta["impl"] == "cuda" and meta["device"].startswith("cuda:") and s.time_s > 0
+
+
+def test_profile_fitted_on_the_card_prices_a_sweep(gen, tmp_path, capsys):
+    """A profile fitted from the card's samples prices ``explore
+    --profile``: finite, positive rows, beside their analytic twins, which
+    the fitted efficiencies move."""
+    import math
+
+    from repro_torch.calibrate.__main__ import main as calibrate
+    from repro_torch.explore.__main__ import main as explore
+
+    samples, prof = tmp_path / "calib.jsonl", tmp_path / "card.json"
+    assert calibrate(["collect", "--kernels", "--sizes", "256,512", "--repeats", "2",
+                      "--fresh", "--out", str(samples)]) == 0
+    assert calibrate(["fit", "--ledger", str(samples), "--name", "card", "--out",
+                      str(prof)]) == 0
+    capsys.readouterr()
+    rows = {}
+    for name, extra in (("cal", ("--profile", str(prof))), ("ana", ())):
+        out = tmp_path / f"{name}.json"
+        assert explore(["sparsity", "--model", "resnet18", "--ratios", "0.8", "--workers", "1",
+                        "--json", str(out), *extra]) == 0
+        rows[name] = json.loads(out.read_text())["rows"]
+    assert len(rows["cal"]) == len(rows["ana"]) > 0
+    for cal, ana in zip(rows["cal"], rows["ana"]):
+        assert (cal["pattern"], cal["ratio"]) == (ana["pattern"], ana["ratio"])
+        for col in ("latency_ms", "energy_uj", "speedup"):
+            assert math.isfinite(cal[col]) and cal[col] > 0, col
+    assert any(c["latency_ms"] != a["latency_ms"] for c, a in zip(rows["cal"], rows["ana"]))
