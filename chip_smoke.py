@@ -253,7 +253,17 @@ Phases, each reported on its own line(s):
    and exceptions, the two CSVs byte-identical; ``python -m
    repro_torch.obs energy`` and ``timeline`` of qwen3-4b's cost report (c)
    (its components summing to its total within 1e-9, the trace passing
-   ``obs check``);
+   ``obs check``); each CLI's seconds printed beside those of a run in
+   which every process of the port imported torch
+   (``EXPLORE_SECONDS_WITH_TORCH``);
+16c. analysis — the static checker on the host (:func:`_analysis_chain`,
+   read by :func:`analysis_phase`), one more chain beside phase 16b's: a
+   process with torch, triton and jax shadowed by modules that raise
+   ``ImportError`` imports ``repro_torch`` and every module of its host
+   plane (core, explore, trace, configs, calibrate, analysis, obs) and
+   must load none of the three; then ``python -m repro_torch.analysis
+   --all --format json --out build/analysis.json`` must exit 0 with 0
+   errors from all four passes, in a process shadowed the same way;
 17. the ``{"kernels": [...]}`` line (flash's ``launches`` are the card's; the
    mesh records' counted calls are on the ``[mesh-dryrun]`` lines); 18. the
    card's name and power limit.
@@ -4363,15 +4373,19 @@ class CliChains:
         self.stopped = False
         self.t0 = time.perf_counter()
 
-    def run(self, label: str, args, *, card: bool = False, env=None) -> str:
-        """One CLI run's standard output; a nonzero exit fails the run."""
-        full = dict(os.environ, PYTHONPATH=str(HERE / "src"), OMP_NUM_THREADS="1", **(env or {}))
+    def run(self, label: str, args, *, card: bool = False, env=None, module: bool = True,
+            phase: str = "explore") -> str:
+        """One run's standard output (``python -m *args``, or ``python
+        *args`` when not ``module``); a nonzero exit fails the run."""
+        full = {**os.environ, "PYTHONPATH": str(HERE / "src"), "OMP_NUM_THREADS": "1",
+                **(env or {})}
         if not card:
             full["CUDA_VISIBLE_DEVICES"] = ""
+        argv = [sys.executable, *(["-m"] if module else []), *args]
         with self.lock:
             if self.stopped:
-                raise CheckFailed(f"[explore] {label}: the phase was stopped")
-            proc = subprocess.Popen([sys.executable, "-m", *args], cwd=HERE, env=full, text=True,
+                raise CheckFailed(f"[{phase}] {label}: the phase was stopped")
+            proc = subprocess.Popen(argv, cwd=HERE, env=full, text=True,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     start_new_session=True)
             self.procs.append(proc)
@@ -4380,10 +4394,10 @@ class CliChains:
             out, err = proc.communicate(timeout=EXPLORE_CLI_LIMIT_S)
         except subprocess.TimeoutExpired:
             self._kill(proc)
-            raise CheckFailed(f"[explore] {label}: no exit within {EXPLORE_CLI_LIMIT_S} s")
+            raise CheckFailed(f"[{phase}] {label}: no exit within {EXPLORE_CLI_LIMIT_S} s")
         self.seconds[label] = time.perf_counter() - t0
-        check(proc.returncode == 0, f"[explore] {label} exited {proc.returncode}: "
-                                    f"python -m {' '.join(args)}\n{err[-3000:]}")
+        check(proc.returncode == 0, f"[{phase}] {label} exited {proc.returncode}: "
+                                    f"{' '.join(argv[1:])[:300]}\n{(err or out)[-3000:]}")
         return out
 
     def start(self, name: str, fn, *args) -> None:
@@ -4475,6 +4489,7 @@ def start_explore(prof) -> CliChains:
     ch.start("faulted", _explore_sweep, True)
     ch.start("energy", _explore_energy)
     ch.start("timeline", _explore_timeline)
+    ch.start("analysis", _analysis_chain)
     return ch
 
 
@@ -4582,11 +4597,83 @@ def explore_phase(ch: CliChains, waited_from: float) -> None:
     check(tl_check.startswith("ok: "), f"[explore] obs check: {tl_check}")
     print(f"[explore] obs timeline: {' '.join(tl_out.split())[:300]}; check: {tl_check.strip()}",
           flush=True)
-    print(f"[explore] CLI seconds (host, card hidden but for collect): "
-          + json.dumps({k: round(v, 2) for k, v in ch.seconds.items()}), flush=True)
+    print("[explore] CLI seconds (host, card hidden but for collect), each beside its seconds "
+          "when every process of the port imported torch: "
+          + json.dumps({k: [round(v, 2), EXPLORE_SECONDS_WITH_TORCH.get(k)]
+                        for k, v in ch.seconds.items() if k not in ANALYSIS_LABELS}), flush=True)
     print(f"[time] explore phase {done - ch.t0:.1f}s from its start, "
           f"{max(0.0, done - waited_from):.1f}s past the mesh dry-run; checks "
           f"{time.perf_counter() - done:.2f}s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 16c: the static checker, and the host plane with torch blocked
+# ---------------------------------------------------------------------------
+
+# Each CLI's seconds in a whole run of this script when every process of
+# the port imported torch (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
+EXPLORE_SECONDS_WITH_TORCH = {
+    "calibrate collect": 18.11, "calibrate fit": 21.15, "calibrate show": 15.04,
+    "calibrate diff": 10.66, "explore lm": 56.19, "explore lm --resume": 20.29,
+    "explore --check-store": 8.42, "explore sparsity": 34.79,
+    "explore sparsity under faults": 36.19, "obs energy": 16.58, "obs timeline": 16.35,
+    "obs check": 16.02}
+ANALYSIS_OUT = HERE / "build" / "analysis.json"
+ANALYSIS_PASSES = {"import-boundary", "cache-key", "model-plane", "determinism"}
+ANALYSIS_LABELS = ("host plane imports, torch blocked", "analysis --all")
+HOST_PLANE = ("core", "explore", "trace", "configs", "calibrate", "analysis", "obs")
+# imports repro_torch and every module of its host plane; prints how many,
+# the torch/triton/jax modules loaded and the seconds it took
+HOST_PLANE_IMPORTS = f"""
+import importlib, json, pkgutil, sys, time
+t0 = time.perf_counter()
+names = ["repro_torch"]
+for sub in {HOST_PLANE!r}:
+    pkg = importlib.import_module("repro_torch." + sub)
+    names.append(pkg.__name__)
+    names += [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "triton", "jax"))
+print(json.dumps({{"modules": len(names), "loaded": loaded,
+                  "seconds": time.perf_counter() - t0}}))
+"""
+
+
+def _analysis_chain(ch):
+    """Phase 16c's processes, one after the other, each with torch,
+    triton and jax shadowed: the host plane's imports, then the checker."""
+    t0 = time.perf_counter()
+    shadow = HERE / "build" / "analysis_shadow"
+    shadow.mkdir(parents=True, exist_ok=True)
+    for name in ("torch", "triton", "jax"):
+        (shadow / f"{name}.py").write_text(f"raise ImportError('{name} is shadowed')\n")
+    env = {"PYTHONPATH": f"{shadow}{os.pathsep}{HERE / 'src'}"}
+    imports = ch.run(ANALYSIS_LABELS[0], ["-c", HOST_PLANE_IMPORTS], module=False, env=env,
+                     phase="analysis")
+    ANALYSIS_OUT.unlink(missing_ok=True)
+    ch.run(ANALYSIS_LABELS[1], ["repro_torch.analysis", "--all", "--format", "json", "--out",
+                                str(ANALYSIS_OUT.relative_to(HERE))], env=env, phase="analysis")
+    return json.loads(imports), time.perf_counter() - t0
+
+
+def analysis_phase(ch: CliChains) -> None:
+    """Read and check phase 16c; every failure fails the run."""
+    imports, seconds = ch.futures["analysis"].result()
+    check(imports["loaded"] == [],
+          f"[analysis] importing the host plane loaded {imports['loaded'][:10]}")
+    check(imports["modules"] > 50, f"[analysis] only {imports['modules']} host-plane modules")
+    report = json.loads(ANALYSIS_OUT.read_text())
+    check(set(report["passes"]) == ANALYSIS_PASSES and len(report["passes"]) == 4,
+          f"[analysis] passes {report['passes']}")
+    check(report["ok"] and report["counts"]["error"] == 0,
+          f"[analysis] {report['counts']}: {report['diagnostics'][:5]}")
+    print(f"[analysis] host plane with torch, triton and jax shadowed: {imports['modules']} "
+          f"modules imported in {imports['seconds']:.2f}s, none of the three loaded", flush=True)
+    print(f"[analysis] python -m repro_torch.analysis --all (shadowed too): exit 0, passes "
+          f"{report['passes']}, counts {json.dumps(report['counts'])}", flush=True)
+    print(f"[analysis] seconds (host, beside the explore chains): phase {seconds:.2f}; "
+          + json.dumps({k: round(ch.seconds[k], 2) for k in ANALYSIS_LABELS}), flush=True)
 
 
 def main() -> int:
@@ -4668,6 +4755,7 @@ def main() -> int:
         trace_phase()
         mesh_dryrun_phase(mesh_dryrun)
         explore_phase(explore, time.perf_counter())
+        analysis_phase(explore)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

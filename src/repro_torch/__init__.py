@@ -12,15 +12,23 @@ given and no CUDA present they raise instead of carrying on on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import TYPE_CHECKING, Optional, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 __all__ = ["resolve_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` → ``cuda`` (raises when no card is present); else as given."""
+    """``None`` → ``cuda`` (raises when no card is present); else as given.
+
+    Imports torch itself: this module runs before every module of the
+    port, and the host plane (core, explore, trace, configs, calibrate,
+    analysis, obs) imports without torch.
+    """
+    import torch
+
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

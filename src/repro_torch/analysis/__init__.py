@@ -1,11 +1,27 @@
-"""Model-plane pre-flight of the port (copy of ``repro.analysis``'s
-``validate`` / ``preflight``; the source-level passes and their CLI
-check the repository, not a serving run, and are not copied).
+"""repro_torch.analysis — static invariant verification for the port
+(copy of ``repro.analysis`` over ``repro_torch``).
 
-``ServeEngine`` calls :func:`preflight` on its ``lm_workload`` when it is
-built, so a structurally broken config surfaces there rather than as a
-shape error mid-request.  Set ``REPRO_ANALYSIS_PREFLIGHT=0`` to turn the
-pre-flights off.
+A pass-based checker that keeps the port's load-bearing conventions
+machine-enforced:
+
+* ``import-boundary`` (CIM1xx) — the host plane (core/explore/trace/
+  configs/calibrate/analysis/obs and the package root) stays torch- and
+  triton-free; torch only through in-function lazy sites.
+* ``cache-key`` (CIM2xx) — every ``simulate()`` knob participates in
+  ``ExploreJob``'s content key and the CACHE_SCHEMA history.
+* ``model-plane`` (CIM3xx) — semantic validation of live
+  Workload/arch/mapping objects, also exposed as :func:`validate` /
+  :func:`preflight` for pre-flight use (``ServeEngine`` calls it on its
+  ``lm_workload`` when it is built).
+* ``determinism`` (CIM4xx) — no entropy (torch's global generator
+  included), wall clock, salted ``hash()``, or directory-order
+  dependence in result-producing code.
+
+CLI: ``python -m repro_torch.analysis [--all | --pass NAME] [--format
+text|json]`` — exits non-zero on error-severity diagnostics.  The whole
+package imports and runs without torch, triton or jax (it is itself part
+of the protected plane it checks).  The codes are the reference's,
+catalogued in ``docs/analysis.md``.
 """
 from __future__ import annotations
 
@@ -13,10 +29,15 @@ import os
 import warnings
 from typing import List
 
-from .diagnostics import AnalysisError, Diagnostic, Severity
+from .diagnostics import (AnalysisError, Diagnostic, Severity,
+                          render_json, render_text)
+from .framework import (AnalysisPass, PassContext, all_passes, get_pass,
+                        run_passes)
 from .modelplane_pass import validate
 
-__all__ = ["AnalysisError", "Diagnostic", "Severity", "preflight", "validate"]
+__all__ = ["AnalysisError", "AnalysisPass", "Diagnostic", "PassContext",
+           "Severity", "all_passes", "get_pass", "preflight",
+           "render_json", "render_text", "run_passes", "validate"]
 
 # set REPRO_ANALYSIS_PREFLIGHT=0 to disable library pre-flights (e.g.
 # when intentionally simulating ill-formed inputs in experiments)

@@ -1,19 +1,32 @@
-"""Structured diagnostics of the model-plane pre-flight (copy of
-``repro/analysis/diagnostics.py``, without the source-level suppression
-markers and the CLI's text/JSON rendering: the port runs no pass over
-source files and has no analysis CLI).
+"""Structured diagnostics for the port's static invariant-verification
+layer (copy of ``repro/analysis/diagnostics.py``).
 
-Every check reports through one shape: a :class:`Diagnostic` with a
-stable error code (``CIM3xx`` for the model plane), a severity, and a
-location, here an object path over live model-plane objects
-(``workload.nodes['s0b0_add'].inputs[1]``).
+Every check in :mod:`repro_torch.analysis` reports through one shape: a
+:class:`Diagnostic` with a stable error code (``CIM1xx``–``CIM4xx``, the
+reference's catalogue in ``docs/analysis.md``), a severity, and a *location* —
+either ``file:line`` for source-level findings or an object path
+(``workload.nodes['s0b0_add'].inputs[1]``) for semantic findings over
+live model-plane objects.
+
+Source-level diagnostics honour inline suppressions::
+
+    import torch  # ciminus: ignore[CIM101] -- capture shim, guarded by CI
+
+The marker may sit on the flagged line or on the line directly above it,
+and may list several codes (``ignore[CIM101,CIM402]``) or ``ignore[*]``
+for a blanket waiver.  Suppressed diagnostics are counted, not shown
+(``--format json`` still carries them with ``suppressed: true`` so CI
+artifacts record every waiver).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+import json
+import re
+from typing import Dict, List, Optional, Sequence
 
-__all__ = ["Severity", "Diagnostic", "AnalysisError"]
+__all__ = ["Severity", "Diagnostic", "AnalysisError", "suppressed_codes",
+           "apply_suppressions", "render_text", "render_json"]
 
 
 class Severity:
@@ -70,3 +83,86 @@ class AnalysisError(RuntimeError):
         lines += [f"  {d.code} [{d.location}] {d.message}"
                   for d in self.diagnostics]
         super().__init__("\n".join(lines))
+
+
+# -- suppression -------------------------------------------------------------
+
+_IGNORE_RE = re.compile(r"#\s*ciminus:\s*ignore\[([^\]]*)\]")
+
+
+def suppressed_codes(source_line: str) -> Optional[List[str]]:
+    """Codes waived by a ``# ciminus: ignore[...]`` marker (None = no
+    marker; ``["*"]`` = blanket)."""
+    m = _IGNORE_RE.search(source_line)
+    if not m:
+        return None
+    return [c.strip() for c in m.group(1).split(",") if c.strip()]
+
+
+def _line_suppresses(lines: Sequence[str], lineno: int, code: str) -> bool:
+    if not (1 <= lineno <= len(lines)):
+        return False
+    codes = suppressed_codes(lines[lineno - 1])
+    return codes is not None and ("*" in codes or code in codes)
+
+
+def apply_suppressions(diags: List[Diagnostic],
+                       sources: Dict[str, Sequence[str]]) -> List[Diagnostic]:
+    """Mark file:line diagnostics whose line (or the line directly above)
+    carries a matching ``ciminus: ignore`` marker.  Mutates and returns
+    ``diags``; ``sources`` maps repo-relative path → source lines."""
+    for d in diags:
+        if d.file is None or d.line is None:
+            continue
+        lines = sources.get(d.file)
+        if lines is None:
+            continue
+        if (_line_suppresses(lines, d.line, d.code)
+                or _line_suppresses(lines, d.line - 1, d.code)):
+            d.suppressed = True
+    return diags
+
+
+# -- rendering ---------------------------------------------------------------
+
+def _sorted(diags: Sequence[Diagnostic]) -> List[Diagnostic]:
+    return sorted(diags, key=lambda d: (Severity.rank(d.severity),
+                                        d.code, d.location))
+
+
+def render_text(diags: Sequence[Diagnostic], *, show_suppressed: bool = False
+                ) -> str:
+    shown = [d for d in diags if show_suppressed or not d.suppressed]
+    n_sup = sum(1 for d in diags if d.suppressed)
+    out = []
+    for d in _sorted(shown):
+        tag = " (suppressed)" if d.suppressed else ""
+        out.append(f"{d.severity}[{d.code}]{tag} {d.location}: {d.message}")
+        if d.hint:
+            out.append(f"    hint: {d.hint}")
+    errors = sum(1 for d in shown if not d.suppressed
+                 and d.severity == Severity.ERROR)
+    warns = sum(1 for d in shown if not d.suppressed
+                and d.severity == Severity.WARNING)
+    out.append(f"{errors} error(s), {warns} warning(s), "
+               f"{n_sup} suppressed")
+    return "\n".join(out)
+
+
+def render_json(diags: Sequence[Diagnostic], *,
+                passes: Sequence[str] = ()) -> str:
+    active = [d for d in diags if not d.suppressed]
+    payload = {
+        "passes": list(passes),
+        "counts": {
+            "error": sum(1 for d in active
+                         if d.severity == Severity.ERROR),
+            "warning": sum(1 for d in active
+                           if d.severity == Severity.WARNING),
+            "note": sum(1 for d in active if d.severity == Severity.NOTE),
+            "suppressed": sum(1 for d in diags if d.suppressed),
+        },
+        "ok": not any(d.severity == Severity.ERROR for d in active),
+        "diagnostics": [d.as_dict() for d in _sorted(diags)],
+    }
+    return json.dumps(payload, indent=2)

@@ -1,11 +1,17 @@
-"""Model-plane validation: semantic checks over live ``Workload`` /
-``OpNode`` / ``MappingSpec`` / ``CIMArch`` instances (copy of
-``validate`` and its helpers in ``repro/analysis/modelplane_pass.py``;
-the registered repo self-check pass over the sources is not part of the
-serving path and is not copied).
+"""Pass 3 — model-plane validation: semantic checks over live
+``Workload`` / ``OpNode`` / ``MappingSpec`` / ``CIMArch`` instances (copy
+of ``repro/analysis/modelplane_pass.py``).
 
-:func:`validate` is the library API; :func:`repro_torch.analysis.preflight`
-wraps it for ``ServeEngine``'s construction-time pre-flight.
+Two entry points share the checks:
+
+* :func:`validate` — the library API (also re-exported as
+  ``repro_torch.analysis.validate``); :func:`repro_torch.analysis.preflight`
+  wraps it for ``ServeEngine``'s construction-time pre-flight.
+* :class:`ModelPlanePass` — the ``--all`` repo self-check: every preset
+  arch × every hand-built model, ``lm_workload`` over every
+  ``configs/*`` entry, and the golden trace fixtures lowered and
+  validated: the reference's (``tests/fixtures/trace``) and the port's
+  own captures (``tests/fixtures/trace_torch``).  All torch-free.
 
 Codes
 -----
@@ -35,8 +41,9 @@ from typing import List, Optional
 
 from ..core.workload import MVM_KINDS
 from .diagnostics import Diagnostic, Severity
+from .framework import AnalysisPass, PassContext, register
 
-__all__ = ["validate"]
+__all__ = ["validate", "ModelPlanePass"]
 
 _ISSUE_CODES = {
     "dangling-edge": ("CIM301", Severity.ERROR),
@@ -204,3 +211,52 @@ def validate(workload, arch=None, mapping=None, *,
     if mapping is not None:
         diags += _validate_mapping(mapping, prefix="mapping")
     return diags
+
+
+# fixture directory under tests/fixtures -> workload-name prefix
+_TRACE_FIXTURES = (("trace", "trace"), ("trace_torch", "trace_torch"))
+
+
+@register
+class ModelPlanePass(AnalysisPass):
+    name = "model-plane"
+    codes = ("CIM301", "CIM302", "CIM303", "CIM304", "CIM305",
+             "CIM306", "CIM307", "CIM308", "CIM309", "CIM310")
+    description = ("validate every preset arch x hand-built model, every "
+                   "configs/* LM workload, and the golden trace fixtures "
+                   "(the reference's and the port's)")
+
+    def run(self, ctx: PassContext) -> List[Diagnostic]:
+        # live imports stay inside run() so `import repro_torch.analysis`
+        # is cheap and the source-only passes never need the package to
+        # be importable from the analysed tree
+        from ..configs import all_configs
+        from ..core.mapping import MappingSpec, ReshapeSpec
+        from ..core.presets import PRESET_ARCHS
+        from ..core.workload import MODEL_BUILDERS, lm_workload
+
+        mapping = MappingSpec(reshape=ReshapeSpec())
+        archs = {name: mk() for name, mk in sorted(PRESET_ARCHS.items())}
+        diags: List[Diagnostic] = []
+
+        workloads = {name: mk() for name, mk in sorted(MODEL_BUILDERS.items())}
+        for cfg_name, cfg in sorted(all_configs().items()):
+            workloads[f"lm:{cfg_name}"] = lm_workload(cfg, seq_len=32)
+
+        for folder, prefix in _TRACE_FIXTURES:
+            fixtures = sorted((ctx.root / "tests" / "fixtures" / folder)
+                              .glob("*.json"))
+            if fixtures:
+                from ..trace.ir import TraceGraph
+                from ..trace.lower import lower_graph
+                for fx in fixtures:
+                    graph = TraceGraph.load(fx)
+                    workloads[f"{prefix}:{fx.stem}"] = lower_graph(graph)
+
+        for wname, workload in workloads.items():
+            for aname, arch in archs.items():
+                for d in validate(workload, arch, mapping,
+                                  prefix=f"{wname}[{aname}]"):
+                    d.pass_name = self.name
+                    diags.append(d)
+        return diags

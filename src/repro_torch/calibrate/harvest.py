@@ -17,12 +17,14 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
-import torch
 
 from .. import resolve_device
+
+if TYPE_CHECKING:
+    import torch
 
 __all__ = ["Sample", "HarvestReport", "record_to_sample", "from_ledger",
            "read_samples", "write_samples", "microbench_kernels"]
@@ -150,6 +152,8 @@ def write_samples(samples: Sequence[Sample], path: Union[str, Path],
 def _time_call(fn, *args, repeats: int, device: torch.device, **kw) -> float:
     """Best-of-``repeats`` wall seconds, after one warm-up call, each call
     ended by a device synchronisation on a card."""
+    import torch
+
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -166,6 +170,8 @@ def _time_call(fn, *args, repeats: int, device: torch.device, **kw) -> float:
 
 
 def _device_name(device: torch.device) -> str:
+    import torch
+
     if device.type == "cuda":
         return f"cuda:{torch.cuda.get_device_name(device)}"
     return f"{device.type}:{device.type}"
@@ -187,6 +193,8 @@ def microbench_kernels(*, sizes: Sequence[int] = (256, 512), repeats: int = 3,
     ``shape`` meta equal those of ``repro.calibrate.harvest``.  Unlike
     the reference, a failing kernel is not skipped: its error propagates.
     """
+    import torch
+
     from ..kernels import ops
 
     dev = resolve_device(device)

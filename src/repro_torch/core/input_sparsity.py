@@ -17,18 +17,27 @@ one kernel reads the activation once, quantises it in registers and
 counts, after a min/max pass for the scale; the counts stay on the card
 until one host copy returns every profile's.  ``skippable_bit_ratio``
 counts an int8 tensor with the ``bitserial_zero_profile`` op.
+
+torch and the kernels are imported in the functions that use them, so
+that ``repro_torch.core`` imports without torch.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional
 
-import torch
-
-from ..kernels import ops
-from ..kernels.ref import quantize_int8
+if TYPE_CHECKING:
+    import torch
 
 __all__ = ["quantize_int8", "skippable_bit_ratio", "profile_activations",
            "analytic_skip_ratio", "capture_mlp_activations"]
+
+
+def quantize_int8(x: torch.Tensor, *, per_tensor_scale: Optional[float] = None) -> torch.Tensor:
+    """Symmetric int8 quantisation (round half to even, saturating), as the
+    reference's: :func:`repro_torch.kernels.ref.quantize_int8`."""
+    from ..kernels.ref import quantize_int8 as quantize
+
+    return quantize(x, per_tensor_scale=per_tensor_scale)
 
 
 def skippable_bit_ratio(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
@@ -39,6 +48,8 @@ def skippable_bit_ratio(q: torch.Tensor, group_rows: int, n_bits: int = 8, *,
     elements split into groups of ``group_rows`` (the array's broadcast
     span).  Sign-magnitude bit planes, as bit-serial digital CIM uses.
     """
+    from ..kernels import ops
+
     if q.dim() == 1:
         q = q[None, :]
     skippable, total = ops.bitserial_zero_profile(q, group_rows, n_bits, impl=impl).tolist()
@@ -53,6 +64,10 @@ def profile_activations(acts: Dict[str, torch.Tensor], group_rows: int, n_bits: 
     ``ops.quantized_zero_profile``; the counts come back to the host in
     one copy for the whole dict.
     """
+    import torch
+
+    from ..kernels import ops
+
     if not acts:
         return {}
     counts = [ops.quantized_zero_profile(a.reshape(-1, a.shape[-1]), group_rows, n_bits,

@@ -14,18 +14,23 @@ Port of ``block_losses``, ``fullblock_mask``, ``intrablock_mask`` and
   weight's dtype as the reference does; the column sums of
   ``align_cols`` are taken in f32 (the reference sums in the array's
   dtype, so for bf16 weights near-ties may order differently).
+* :func:`prune_matrix` composes the mask and its bookkeeping
+  (:class:`PruningResult`) as the reference's does.
+
+torch and the kernels are imported in the functions that use them, so
+that ``repro_torch.core`` imports without torch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
-import torch
-
-from ..kernels import ops
 from .flexblock import FlexBlockSpec, FullBlock, IntraBlock
 
+if TYPE_CHECKING:
+    import torch
+
 __all__ = ["block_losses", "keep_from_losses", "fullblock_keep", "fullblock_mask",
-           "intrablock_mask", "flexblock_mask"]
+           "intrablock_mask", "flexblock_mask", "prune_matrix", "PruningResult"]
 
 
 def block_losses(w: torch.Tensor, m: int, n: int, criterion: str = "l1", *,
@@ -34,6 +39,10 @@ def block_losses(w: torch.Tensor, m: int, n: int, criterion: str = "l1", *,
 
     The matrix is zero-padded up to whole blocks; padding adds no loss.
     """
+    import torch
+
+    from ..kernels import ops
+
     M, N = w.shape
     pm, pn = (-M) % m, (-N) % n
     if pm or pn:
@@ -47,6 +56,8 @@ def keep_from_losses(losses: torch.Tensor, n_keep: int,
     by block index (stable sort), as the reference's argsort does.
     ``eligible`` (block-grid bool) marks blocks already zero from a prior
     pattern: they count as pruned for free."""
+    import torch
+
     flat = losses.reshape(-1)
     if eligible is not None:
         flat = torch.where(eligible.reshape(-1).to(flat.device), flat,
@@ -91,6 +102,8 @@ def intrablock_mask(w: torch.Tensor, pattern: IntraBlock, criterion: str = "l1",
     pattern per row-block is shared by every column: such masks compress
     to a row subset (:func:`~repro_torch.kernels.ops.compress_intrablock_torch`).
     """
+    import torch
+
     if criterion not in ("l1", "l2"):
         raise ValueError(f"criterion must be l1 or l2, got {criterion!r}")
     m, n = pattern.m, pattern.n
@@ -126,6 +139,8 @@ def flexblock_mask(w: torch.Tensor, spec: FlexBlockSpec, criterion: str = "l1", 
     Coarse FullBlock first, then IntraBlock on the surviving weights
     ``w * mask``, as the §IV-D workflow (and the reference) orders them.
     """
+    import torch
+
     spec = spec.bind(tuple(w.shape))
     spec.validate_for(tuple(w.shape))
     mask = torch.ones(w.shape, dtype=torch.bool, device=w.device)
@@ -134,3 +149,40 @@ def flexblock_mask(w: torch.Tensor, spec: FlexBlockSpec, criterion: str = "l1", 
     if spec.intra is not None:
         mask &= intrablock_mask(w * mask, spec.intra, criterion, align_cols=align_cols)
     return mask
+
+
+class PruningResult:
+    """Mask + bookkeeping produced by :func:`prune_matrix`."""
+
+    __slots__ = ("mask", "spec", "block_keep", "density")
+
+    def __init__(self, mask: torch.Tensor, spec: FlexBlockSpec,
+                 block_keep: Optional[torch.Tensor], density: float):
+        self.mask = mask              # (M, N) bool keep-mask
+        self.spec = spec
+        self.block_keep = block_keep  # coarse block-grid keep map (or None)
+        self.density = density
+
+    def apply(self, w: torch.Tensor) -> torch.Tensor:
+        """``w`` times the mask, which moves to ``w``'s device and dtype."""
+        return w * self.mask.to(device=w.device, dtype=w.dtype)
+
+
+def prune_matrix(w: torch.Tensor, spec: FlexBlockSpec, criterion: str = "l1", *,
+                 align_cols: bool = False, impl: str = "auto") -> PruningResult:
+    """:func:`flexblock_mask` with the reference's bookkeeping: the bound
+    spec, the FullBlock grid's keep map (a block keeps when any of its
+    weights does) and the kept fraction."""
+    import torch
+
+    mask = flexblock_mask(w, spec, criterion, align_cols=align_cols, impl=impl)
+    spec_b = spec.bind(tuple(w.shape))
+    block_keep = None
+    if spec_b.full is not None:
+        f = spec_b.full
+        gm, gn = f.grid(tuple(w.shape))
+        M, N = mask.shape
+        mp = torch.nn.functional.pad(mask.to(torch.int32), (0, gn * f.n - N, 0, gm * f.m - M))
+        block_keep = mp.reshape(gm, f.m, gn, f.n).sum(dim=(1, 3)) > 0
+    density = int(mask.sum()) / mask.numel()
+    return PruningResult(mask, spec_b, block_keep, density)

@@ -304,8 +304,9 @@ class SweepRunner:
         self._seen_keys: set = set()     # distinct keys across the lifetime
 
     def _get_pool(self) -> ProcessPoolExecutor:
-        # Workers fork from a fork server, never from this process, which
-        # holds torch and may hold a CUDA context and its threads.  The
+        # Workers fork from a fork server, never from this process, whose
+        # caller may hold torch, a CUDA context and their threads (this
+        # module and the host plane it imports load no torch).  The
         # server imports this module once; every pool after it (a respawn
         # after a crash or a timeout too) forks from it in milliseconds.
         # The pool is amortised across every run() call of the runner's

@@ -59,21 +59,23 @@ Front doors, as the reference's: :func:`capture`, :func:`trace_model`
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
-
-import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+import functools
+from typing import TYPE_CHECKING, Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from ..core.workload import Workload
-from ..kernels import hook
 from .ir import TraceEqn, TraceGraph, TraceVar
 from .lower import TRANSPARENT_PRIMS, lower_graph
+
+if TYPE_CHECKING:
+    import torch
 
 __all__ = ["capture", "scan", "trace_model", "traced_workload", "traced_cnn", "TRACE_STEPS",
            "CaptureError"]
 
 TRACE_STEPS = ("forward", "prefill", "decode")
-META = torch.device("meta")
+# the device a capture runs on (a name, so that importing this module
+# loads no torch: the package is the port's torch-free host plane)
+META = "meta"
 
 
 class CaptureError(RuntimeError):
@@ -115,6 +117,8 @@ def _flatten(tree) -> Tuple[List[Tuple[Tuple[str, ...], Any]], Callable[[Dict], 
 
 
 def _tensors(tree) -> List[torch.Tensor]:
+    import torch
+
     return [t for _, t in _flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
@@ -127,6 +131,8 @@ def _scalar_dtype(v) -> str:
 
 
 def _meta_like(t: torch.Tensor, shape=None) -> torch.Tensor:
+    import torch
+
     return torch.empty(tuple(t.shape) if shape is None else tuple(shape), dtype=t.dtype,
                        device=META)
 
@@ -262,8 +268,9 @@ def _arg(args, kwargs, i: int, name: str, default=None):
     return kwargs.get(name, default)
 
 
-class _Recorder(TorchDispatchMode):
-    """The mode of one :func:`capture` block (see the module docstring)."""
+class _Recording:
+    """The state and recording of one :func:`capture` block (see the
+    module docstring); :func:`_recorder` mixes in the dispatch mode."""
 
     captures = True
 
@@ -300,6 +307,8 @@ class _Recorder(TorchDispatchMode):
 
     def operand(self, v, g: Optional[_Graph] = None) -> Optional[str]:
         """A tensor's variable, a Python number's constant, else None."""
+        import torch
+
         g = g or self.graph
         if isinstance(v, torch.Tensor):
             return self.use(v, g)
@@ -309,14 +318,9 @@ class _Recorder(TorchDispatchMode):
 
     # -- dispatch ------------------------------------------------------------
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if not self._paused:
-            self._record(func, args, kwargs, out)
-        return out
-
     def _record(self, func, args, kwargs, out) -> None:
+        import torch
+
         g = self.graph
         outs = _tensors(out)
         if not outs:
@@ -398,6 +402,8 @@ class _Recorder(TorchDispatchMode):
         """Flash attention's math over the real lengths: scores q·kᵀ, the
         scale, the causal/window mask, softmax, P·v (GQA: each kv head
         against its G query heads)."""
+        import torch
+
         g = self.graph
         q, k, v = args[:3]
         causal = kwargs.get("causal", True)
@@ -448,6 +454,8 @@ class _Recorder(TorchDispatchMode):
         """Record ``body`` once as a ``scan`` equation (module docstring).
         Every leaf of ``xs`` is a tensor stacked on ``length`` layers: a
         compressed weight has no traced form."""
+        import torch
+
         outer = self.graph
         xleaves, xrebuild = _flatten(xs)
         cleaves, crebuild = _flatten(init)
@@ -506,9 +514,28 @@ class _Recorder(TorchDispatchMode):
         return _flatten(new_carry)[1](c_new), ys
 
 
+@functools.lru_cache(maxsize=None)
+def _recorder():
+    """The ``TorchDispatchMode`` class of a capture, built on the first
+    capture so that importing this module loads no torch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Recorder(_Recording, TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if not self._paused:
+                self._record(func, args, kwargs, out)
+            return out
+
+    return _Recorder
+
+
 def _flat_args(args) -> List[Any]:
     """Positional arguments with list arguments (``cat``'s, ``index``'s)
     spread out, in order."""
+    import torch
+
     out: List[Any] = []
     for a in args:
         if isinstance(a, (list, tuple)):
@@ -520,6 +547,8 @@ def _flat_args(args) -> List[Any]:
 
 def _params(prim: Optional[str], base: str, func, args, kwargs, outs) -> dict:
     """The jaxpr params of a one-primitive op that the IR keeps."""
+    import torch
+
     x = args[0] if args and isinstance(args[0], torch.Tensor) else None
     if prim == "reshape":
         return {"new_sizes": list(outs[0].shape)}
@@ -773,6 +802,8 @@ def _rule_reciprocal(rec, g, func, args, kwargs, outs):
 
 
 def _rule_pow(rec, g, func, args, kwargs, outs):
+    import torch
+
     base, exp = args[0], args[1]
     if (isinstance(base, torch.Tensor) and isinstance(exp, (int, float))
             and not isinstance(exp, bool) and float(exp).is_integer()):
@@ -857,6 +888,10 @@ def scan(body: Callable, init, xs, length: Optional[int] = None):
     axis of every tensor leaf of ``xs``; returns (carry, the ``y``\\ s stacked
     leaf by leaf, or None).  Eagerly a plain loop; under a capture the body
     is recorded once (module docstring)."""
+    import torch
+
+    from ..kernels import hook
+
     rec = hook.capturing()
     if rec is not None:
         return rec.scan(body, init, xs, length)
@@ -883,7 +918,11 @@ def capture(fn: Callable, *example_args, param_argnums: Tuple[int, ...] = (0,),
     lowerer turns into weight attribution on the MVM nodes.  Leaves that
     are not tensors are passed through as they are.
     """
-    rec = _Recorder(name)
+    import torch
+
+    from ..kernels import hook
+
+    rec = _recorder()(name)
     args, weights = [], {}
     for ai, arg in enumerate(example_args):
         leaves, rebuild = _flatten(arg)
@@ -915,6 +954,8 @@ def _model_program(cfg, step: str, seq_len: int, batch: int):
     dense bf16 params of ``init_params``'s tree, int32 tokens, and the
     stub inputs an encoder-decoder (``enc_embed``) or a prefix-LM
     (``prefix_embed``) needs."""
+    import torch
+
     from ..models import transformer
 
     params = transformer.param_struct(cfg)

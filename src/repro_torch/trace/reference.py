@@ -28,18 +28,22 @@ tensors in float32, as the reference's on ``ShapeDtypeStruct``\\ s.
 """
 from __future__ import annotations
 
-from typing import Tuple
-
-import torch
-import torch.nn.functional as F
+from typing import TYPE_CHECKING, Optional, Tuple
 
 from .capture import scan
+
+if TYPE_CHECKING:
+    import torch
 
 __all__ = ["reference_program", "cnn_program", "CNN_REFERENCES"]
 
 
-def _sds(shape, dtype=torch.float32) -> torch.Tensor:
-    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+def _sds(shape, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A ``meta`` tensor, float32 unless ``dtype`` says otherwise."""
+    import torch
+
+    return torch.empty(tuple(shape), dtype=torch.float32 if dtype is None else dtype,
+                       device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -74,21 +78,29 @@ def _lm_params(cfg):
 
 def _wrap(idx: torch.Tensor, n: int) -> torch.Tensor:
     """jnp's wrap of a negative index: ``lt``, ``add``, ``select_n``."""
+    import torch
+
     return torch.where(idx < 0, idx + n, idx)
 
 
 def _take(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, tokens, axis=0)``: the wrap, then a row gather."""
+    import torch.nn.functional as F
+
     return F.embedding(_wrap(tokens, table.shape[0]), table)
 
 
 def _rms_norm(x, scale):
+    import torch
+
     m = (x * x).sum(-1, keepdim=True) / x.shape[-1]
     return x * torch.reciprocal(torch.sqrt(m + 1e-6)) * scale
 
 
 def _softmax(s: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax(s, axis=-1)``, primitive for primitive."""
+    import torch
+
     m = torch.maximum(torch.full((), float("-inf"), device=s.device), s.amax(-1))
     e = torch.exp(s - m[..., None].detach())
     return e / e.sum(-1, keepdim=True)
@@ -102,6 +114,8 @@ def _repeat_heads(t: torch.Tensor, G: int) -> torch.Tensor:
 
 def _attn_block(x, lp, cfg, *, kv=None):
     """Full (unmasked) attention over ``kv`` context (defaults to self)."""
+    import torch
+
     B, S, _ = x.shape
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ lp["wq"]).reshape(B, S, Hq, hd)
@@ -123,6 +137,8 @@ def _attn_block(x, lp, cfg, *, kv=None):
 
 
 def _silu_gate(h, cfg):
+    import torch.nn.functional as F
+
     if cfg.gated_mlp:
         a, b = h.split(h.shape[-1] // 2, dim=-1)
         return F.silu(a) * b
@@ -130,6 +146,8 @@ def _silu_gate(h, cfg):
 
 
 def _ffn_block(x, lp, cfg):
+    import torch
+
     if cfg.n_experts > 1:
         B, S, d = x.shape
         E, K = cfg.n_experts, cfg.top_k
@@ -152,6 +170,9 @@ def _ffn_block(x, lp, cfg):
 def _ssm_block(x, lp, cfg):
     """State mixing abstracted to elementwise work: the hand DAG prices
     only the in/out projections as MVMs, and so must the reference."""
+    import torch
+    import torch.nn.functional as F
+
     xp = x @ lp["w_in"]
     z, g = xp.split(xp.shape[-1] // 2, dim=-1)
     h = F.silu(z) * torch.tanh(g)
@@ -177,6 +198,8 @@ def _stacked(params, cfg):
 def reference_program(cfg, *, step: str, seq_len: int,
                       batch: int) -> Tuple[object, dict, tuple]:
     """(fn, meta params, meta args) for one LM step kind."""
+    import torch
+
     params = _lm_params(cfg)
     B, S = batch, seq_len
     toks = _sds((B, S), torch.int32)
@@ -242,14 +265,20 @@ def reference_program(cfg, *, step: str, seq_len: int,
 
 def _conv2d(x, w, stride=1):
     """A "SAME" convolution (odd kernels: the output is ceil(H / stride))."""
+    import torch.nn.functional as F
+
     return F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2)
 
 
 def _relu(x):
+    import torch.nn.functional as F
+
     return F.relu(x)
 
 
 def _maxpool2(x):
+    import torch.nn.functional as F
+
     return F.max_pool2d(x, 2, 2)
 
 

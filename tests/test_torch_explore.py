@@ -267,9 +267,7 @@ def test_core_exports_the_wrappers_as_the_reference():
     import repro_torch.core as port
     wrappers = {"sweep_mappings", "sweep_orgs", "sweep_sparsity"}
     assert wrappers <= set(port.__all__) and wrappers <= set(ref.__all__)
-    assert set(port.__all__) == set(ref.__all__) - {
-        "block_losses", "flexblock_mask", "fullblock_mask", "intrablock_mask", "prune_matrix",
-        "analytic_skip_ratio", "profile_activations", "quantize_int8", "skippable_bit_ratio"}
+    assert port.__all__ == ref.__all__
 
 
 def test_explore_exports_equal_reference():

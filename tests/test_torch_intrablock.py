@@ -24,6 +24,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core import input_sparsity as TI
 from repro_torch.core.flexblock import FlexBlockSpec, IntraBlock
+from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TK
 from repro_torch.models import transformer as TT
 from repro_torch.models.layers import IntraBlockLinear
@@ -217,7 +218,7 @@ def test_quantized_zero_profile_plain_equals_reference(R, dtype, case, g, n_bits
         torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32)
     q_ref = R.input_sparsity.quantize_int8(x_ref, per_tensor_scale=scale)
     want = np.asarray(R.kref.bitserial_zero_profile_ref(jnp.asarray(q_ref), g, n_bits)).tolist()
-    got = TI.ops.quantized_zero_profile(x_port, g, n_bits, per_tensor_scale=scale)
+    got = TO.quantized_zero_profile(x_port, g, n_bits, per_tensor_scale=scale)
     assert got.dtype == torch.int32 and got.tolist() == want
     assert want[0] / want[1] == R.input_sparsity.skippable_bit_ratio(q_ref, g, n_bits)
     s = TK.quantize_scale(x_port, scale).item()
