@@ -1,0 +1,11 @@
+"""ttft_p90_ms: the 90th percentile (numpy's linear interpolation) over
+every request whose first token came in the window, from the moment its
+client sent it to the end of the step that handed the token back."""
+from portbench.harness.rundata import percentile
+
+
+def read(run):
+    ttft = [r.stamps[0] - r.sent for r in run.records
+            if r.stamps and run.w0 < r.stamps[0] <= run.w1]
+    p = percentile(ttft, 90)
+    return None if p is None else 1e3 * p
