@@ -41,6 +41,7 @@ from ..distributed import sharding as shd
 from ..distributed.sharding import P
 from ..kernels import ops
 from ..kernels.intrablock_matmul import check_row_idx
+from .spans import span
 
 Params = Dict[str, Any]
 
@@ -703,7 +704,9 @@ def _expert_ffn(eb: torch.Tensor, p: Params, cfg, dtype: torch.dtype) -> torch.T
 def _moe_block_global(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     """The global-dispatch path over the B·S tokens of ``x`` (B, S, D):
     the reference's ``_moe_block_global``.  The expert leaves are dense
-    (masked) weights, so no kernel runs here."""
+    (masked) weights, so no kernel runs here.  Its three phases are the
+    spans ``moe.dispatch`` (route and scatter), ``moe.experts`` and
+    ``moe.combine``."""
     if shd.is_dtensor(x):
         return part.moe_global(x, p, cfg, _moe_dispatch, _expert_ffn, _moe_combine)
     B, S, D = x.shape
@@ -711,11 +714,14 @@ def _moe_block_global(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
     if p["w_up"].shape[0] != cfg.n_experts:
         raise ValueError(f"the expert leaves hold {p['w_up'].shape[0]} of {cfg.n_experts} "
                          "experts (a rank's slice): only the expert-parallel path takes them")
-    eb, top_p, keep, dest, tok_idx, _ = _moe_dispatch(
-        x.reshape(T, D), p["w_router"], cfg.n_experts, cfg.top_k, cfg.capacity_factor,
-        x.dtype)
-    eo = _expert_ffn(eb, p, cfg, x.dtype)
-    return _moe_combine(eo, top_p, keep, dest, tok_idx, T, D, x.dtype).reshape(B, S, D)
+    with span("moe.dispatch"):
+        eb, top_p, keep, dest, tok_idx, _ = _moe_dispatch(
+            x.reshape(T, D), p["w_router"], cfg.n_experts, cfg.top_k, cfg.capacity_factor,
+            x.dtype)
+    with span("moe.experts"):
+        eo = _expert_ffn(eb, p, cfg, x.dtype)
+    with span("moe.combine"):
+        return _moe_combine(eo, top_p, keep, dest, tok_idx, T, D, x.dtype).reshape(B, S, D)
 
 
 def _expert_leaf(w: torch.Tensor, key: str, cfg, mesh, fsdp: bool) -> torch.Tensor:

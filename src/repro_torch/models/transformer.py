@@ -56,6 +56,7 @@ from ..distributed.sharding import P
 from ..kernels import hook
 from .layers import (COMPRESSED, attention_block, chunked_attention, mlp_block, moe_block,
                      project, rms_norm, ssm_block)
+from .spans import span
 
 __all__ = ["init_params", "param_struct", "init_cache", "forward", "prefill", "decode_step", "layer_flags",
            "REMAT_POLICIES"]
@@ -333,9 +334,10 @@ def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None
         tap("attn_in", h)
     if cfg.attention != "none":
         kv = None if cache is None else (cache["k"], cache["v"])
-        ya, (new["k"], new["v"]) = attention_block(
-            h, lp, cfg, positions=positions, window=window, prefix=prefix, cache_kv=kv,
-            cache_len=cache_len, impl=impl)
+        with span("model.attention"):
+            ya, (new["k"], new["v"]) = attention_block(
+                h, lp, cfg, positions=positions, window=window, prefix=prefix, cache_kv=kv,
+                cache_len=cache_len, impl=impl)
     if cfg.ssm_state:
         state = conv = None
         if cache is not None:
@@ -360,7 +362,12 @@ def _decoder_layer(x, lp, cfg: ArchConfig, *, positions, window=None, cache=None
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if tap is not None:
         tap("mlp_in", h)
-    ff = moe_block(h, lp, cfg) if cfg.n_experts > 1 else mlp_block(h, lp, cfg, impl, tap)
+    if cfg.n_experts > 1:
+        with span("model.moe"):
+            ff = moe_block(h, lp, cfg)
+    else:
+        with span("model.mlp"):
+            ff = mlp_block(h, lp, cfg, impl, tap)
     if cfg.post_norms:
         ff = rms_norm(ff, lp["post_ln2"], cfg.norm_eps)
     return shd.maybe_shard(x + ff, _ROWS), new
@@ -603,12 +610,13 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     hd)}, each entry where the config has it.  An encoder-decoder needs
     ``enc_embed`` (B, Se, d) and raises ``ValueError`` without it (the
     reference's ``prefill`` fails there with an ``AttributeError``)."""
-    x, caches = _run(params, tokens, cfg, impl, keep_cache=True, prefix_embed=prefix_embed,
-                     enc_embed=enc_embed)
-    logits = _unembed(params, x[:, -1:], cfg)
-    cache = {"pos": torch.full((), x.shape[1], dtype=torch.int32, device=x.device)}
-    cache.update({key: ts if torch.is_tensor(ts) else torch.stack(ts)
-                  for key, ts in caches.items()})
+    with span("model.prefill"):
+        x, caches = _run(params, tokens, cfg, impl, keep_cache=True, prefix_embed=prefix_embed,
+                         enc_embed=enc_embed)
+        logits = _unembed(params, x[:, -1:], cfg)
+        cache = {"pos": torch.full((), x.shape[1], dtype=torch.int32, device=x.device)}
+        cache.update({key: ts if torch.is_tensor(ts) else torch.stack(ts)
+                      for key, ts in caches.items()})
     return logits, cache
 
 
@@ -621,26 +629,27 @@ def decode_step(params: Params, tokens: torch.Tensor, cfg: ArchConfig, cache: Ca
     reference's does (:func:`~.layers.write_cache`).  An encoder-decoder
     reads its cross k/v from ``cache["cross_k"]``/``["cross_v"]``."""
     _check_supported(cfg)
-    if tokens.dim() == 1:
-        tokens = tokens[:, None]
-    x = _embed(params, tokens)
-    B = x.shape[0]
-    pos = torch.as_tensor(cache["pos"], device=x.device)
-    positions = (pos if pos.dim() == 0 else pos[:, None]).expand(B, 1)
-    keys = [k for k in ("k", "v", "ssm", "conv") if k in cache]
-    windows = _windows(cfg)
+    with span("model.decode_step"):
+        if tokens.dim() == 1:
+            tokens = tokens[:, None]
+        x = _embed(params, tokens)
+        B = x.shape[0]
+        pos = torch.as_tensor(cache["pos"], device=x.device)
+        positions = (pos if pos.dim() == 0 else pos[:, None]).expand(B, 1)
+        keys = [k for k in ("k", "v", "ssm", "conv") if k in cache]
+        windows = _windows(cfg)
 
-    def layer(x, l, xs):
-        cross, lp, lc = xs
-        x, _ = _decoder_layer(x, lp, cfg, positions=positions, window=windows[l], cache=lc,
-                              cache_len=pos, impl=impl, cross=cross)
-        return x, None
+        def layer(x, l, xs):
+            cross, lp, lc = xs
+            x, _ = _decoder_layer(x, lp, cfg, positions=positions, window=windows[l], cache=lc,
+                                  cache_len=pos, impl=impl, cross=cross)
+            return x, None
 
-    cross = (dict(params["dec_cross"], k=cache["cross_k"], v=cache["cross_v"]) if cfg.enc_dec
-             else None)
-    x, _ = _scan(layer, x, (cross, params["layers"], {k: cache[k] for k in keys}),
-                 cfg.n_layers, unbind=False)
-    logits = _unembed(params, x, cfg)
-    new_cache = dict(cache)
-    new_cache["pos"] = pos + 1
-    return logits[:, 0], new_cache
+        cross = (dict(params["dec_cross"], k=cache["cross_k"], v=cache["cross_v"]) if cfg.enc_dec
+                 else None)
+        x, _ = _scan(layer, x, (cross, params["layers"], {k: cache[k] for k in keys}),
+                     cfg.n_layers, unbind=False)
+        logits = _unembed(params, x, cfg)
+        new_cache = dict(cache)
+        new_cache["pos"] = pos + 1
+        return logits[:, 0], new_cache

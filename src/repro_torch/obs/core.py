@@ -1,7 +1,9 @@
 """Observability core of the port: spans, counters, events, heartbeats →
 process-safe JSONL sinks.
 
-Copy of ``repro.obs.core``: the port never imports the JAX package.
+Begun as a copy of ``repro.obs.core`` (the port never imports the JAX
+package); the port adds the in-memory observer, span ids and parents,
+the clock anchor and the execution plane's span hooks, all below.
 
 ``repro_torch.obs`` records what sweeps, schedules and serving runs did,
 and never changes what they compute.  Its contracts are the reference's:
@@ -32,6 +34,30 @@ Enabling
   :func:`enabled` context manager);
 * ``--obs`` on the CLIs (``python -m repro_torch.explore --obs``).
 
+In memory
+---------
+``enable(in_memory=True)`` keeps every record in ``Observer.records``
+and JSON-encodes nothing while recording; the records are written to
+``events-<pid>.jsonl`` only at :meth:`Observer.close` (so at
+:func:`disable`), and only when the observer has a directory.  This is
+the mode for a hot path (the serving engine records some hundred spans a
+decode step); the line-per-record file mode stays the default.
+
+Spans and clocks
+----------------
+Each span record carries an integer ``id`` and the ``parent`` id of the
+innermost span open in the process when it began (a per-process stack;
+``None`` at the top).  Records that belong to one request carry its
+``rid`` in ``attrs``.  :attr:`Observer.anchor` is a
+(``time.monotonic()``, ``time.perf_counter()``) pair read together when
+the observer is made, and :meth:`Observer.perf_counter_of` moves a
+record's ``t`` onto the ``perf_counter`` clock with it.  The execution
+plane registers two hooks through :func:`set_span_hooks` when it is
+imported (this module imports no torch): one that suppresses spans (under
+a trace capture), and one that opens a profiler range of the span's name
+beside it while a torch profiler records, so that the profiler stamps the
+span on its own clock next to the device work launched inside it.
+
 Trace directory layout
 ----------------------
 ``manifest.json``      run metadata (id, argv, schema, start time)
@@ -41,17 +67,18 @@ Trace directory layout
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, IO, Iterator, List, Optional, Union
+from typing import Any, Callable, Dict, IO, Iterator, List, Optional, Tuple, Union
 
 __all__ = [
     "OBS_SCHEMA", "Observer", "enable", "disable", "enabled", "is_enabled",
     "get_observer", "span", "counter", "event", "heartbeat", "Heartbeat",
-    "read_events", "read_manifest",
+    "read_events", "read_manifest", "set_span_hooks",
 ]
 
 # Bump when the JSONL event shape changes incompatibly; readers
@@ -64,24 +91,38 @@ _ENV_DIR = "REPRO_OBS_DIR"
 
 
 class Observer:
-    """One run's recording sink: a trace directory of JSONL files.
+    """One run's recording sink: a trace directory of JSONL files, or,
+    with ``in_memory``, a list of records written there at :meth:`close`.
 
     Process-safe by construction: every process writes its *own*
     ``events-<pid>.jsonl`` (append mode, line-buffered), so concurrent
     writers never interleave within a line.  A forked worker inherits
     the parent's ``Observer``; the pid check in :meth:`_file` reopens a
-    fresh per-pid sink on first write after the fork.
+    fresh per-pid sink on first write after the fork.  ``trace_dir`` may
+    be None only in memory, and then nothing is ever written.
     """
 
-    def __init__(self, trace_dir: Union[str, Path], run_id: str, *,
-                 echo: bool = False):
-        self.dir = Path(trace_dir)
-        self.dir.mkdir(parents=True, exist_ok=True)
+    def __init__(self, trace_dir: Optional[Union[str, Path]], run_id: str, *,
+                 echo: bool = False, in_memory: bool = False):
+        if trace_dir is None and not in_memory:
+            raise ValueError("an observer that writes as it records needs a directory")
+        self.dir = None if trace_dir is None else Path(trace_dir)
+        if self.dir is not None:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.run_id = run_id
         self.echo = echo
+        self.in_memory = in_memory
+        self.records: List[Dict] = []
+        self._written = 0
+        self.anchor: Tuple[float, float] = (time.monotonic(), time.perf_counter())
         self._pid: Optional[int] = None
         self._fh: Optional[IO[str]] = None
         self._aux: Dict[str, IO[str]] = {}
+
+    def perf_counter_of(self, t: float) -> float:
+        """A record's ``t`` (``time.monotonic()``) on the
+        ``time.perf_counter()`` clock, through :attr:`anchor`."""
+        return t - self.anchor[0] + self.anchor[1]
 
     # -- sinks ---------------------------------------------------------------
     def _file(self) -> IO[str]:
@@ -95,8 +136,11 @@ class Observer:
 
     def emit(self, rec: Dict) -> None:
         rec.setdefault("t", time.monotonic())
-        rec["pid"] = os.getpid()
-        self._file().write(json.dumps(rec, separators=(",", ":")) + "\n")
+        if self.in_memory:
+            self.records.append(rec)
+        else:
+            rec["pid"] = os.getpid()
+            self._file().write(json.dumps(rec, separators=(",", ":")) + "\n")
         if self.echo and rec.get("type") == "event":
             attrs = rec.get("attrs") or {}
             flat = " ".join(f"{k}={v}" for k, v in attrs.items())
@@ -117,7 +161,19 @@ class Observer:
         """Path for a named artifact inside the trace directory."""
         return self.dir / name
 
+    def _flush(self) -> None:
+        """Write the records kept in memory since the last flush, each
+        line as the file mode writes it."""
+        if self.dir is None or self._written == len(self.records):
+            return
+        pid = os.getpid()
+        with open(self.dir / f"events-{pid}.jsonl", "a") as fh:
+            for rec in self.records[self._written:]:
+                fh.write(json.dumps({**rec, "pid": pid}, separators=(",", ":")) + "\n")
+        self._written = len(self.records)
+
     def close(self) -> None:
+        self._flush()
         for fh in (self._fh, *self._aux.values()):
             if fh is not None:
                 try:
@@ -128,6 +184,8 @@ class Observer:
 
     # -- manifest ------------------------------------------------------------
     def write_manifest(self, extra: Optional[Dict] = None) -> None:
+        if self.dir is None:
+            return
         path = self.dir / "manifest.json"
         if path.exists():                      # one manifest per run dir
             return
@@ -139,6 +197,7 @@ class Observer:
             "argv": list(sys.argv),
             "python": sys.version.split()[0],
             "pid": os.getpid(),
+            "anchor": {"monotonic": self.anchor[0], "perf_counter": self.anchor[1]},
         }
         if extra:
             manifest.update(extra)
@@ -150,6 +209,23 @@ class Observer:
 _OBSERVER: Optional[Observer] = None
 _ENV_CHECKED = False
 _OWNS_ENV = False
+# ids of the spans open in this process, innermost last, and the next id
+_OPEN: List[int] = []
+_IDS = itertools.count(1)
+# the execution plane's hooks (set_span_hooks)
+_SUPPRESSED: Optional[Callable[[], bool]] = None
+_MIRROR: Optional[Callable[[str], Any]] = None
+
+
+def set_span_hooks(*, suppressed: Optional[Callable[[], bool]] = None,
+                   mirror: Optional[Callable[[str], Any]] = None) -> None:
+    """Hooks of the execution plane, which this module cannot import:
+    while ``suppressed()`` is true a span records nothing; ``mirror(name)``
+    gives a context manager to hold open for the span's length (a
+    profiler range while a profiler records), or None.  Both are asked
+    only while an observer is enabled."""
+    global _SUPPRESSED, _MIRROR
+    _SUPPRESSED, _MIRROR = suppressed, mirror
 
 
 def get_observer() -> Optional[Observer]:
@@ -180,25 +256,27 @@ def _default_run_id() -> str:
 
 def enable(trace_dir: Optional[Union[str, Path]] = None, *,
            run_id: Optional[str] = None, echo: bool = False,
-           manifest: Optional[Dict] = None,
+           manifest: Optional[Dict] = None, in_memory: bool = False,
            _export_env: bool = True) -> Observer:
     """Turn recording on for this process (and, via ``REPRO_OBS_DIR``,
     for every worker process it spawns or forks).
 
-    ``trace_dir`` defaults to ``obs_runs/<run-id>``.  Idempotent-ish:
-    enabling while enabled replaces the observer (the previous one is
-    closed)."""
+    ``trace_dir`` defaults to ``obs_runs/<run-id>``; with ``in_memory``
+    the records stay in ``Observer.records`` until the observer closes,
+    and without a ``trace_dir`` they are never written (nor is anything
+    exported to workers).  Idempotent-ish: enabling while enabled
+    replaces the observer (the previous one is closed)."""
     global _OBSERVER, _ENV_CHECKED, _OWNS_ENV
     if _OBSERVER is not None:
         _OBSERVER.close()
     rid = run_id or _default_run_id()
-    if trace_dir is None:
+    if trace_dir is None and not in_memory:
         trace_dir = Path("obs_runs") / rid
-    obs = Observer(trace_dir, rid, echo=echo)
+    obs = Observer(trace_dir, rid, echo=echo, in_memory=in_memory)
     obs.write_manifest(manifest)
     _OBSERVER = obs
     _ENV_CHECKED = True
-    if _export_env:
+    if _export_env and obs.dir is not None:
         os.environ[_ENV_DIR] = str(obs.dir)
         _OWNS_ENV = True
     return obs
@@ -253,13 +331,20 @@ _NULL = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_obs", "_name", "_attrs", "_t0")
+    __slots__ = ("_obs", "_name", "_attrs", "_t0", "_range", "id", "parent")
 
-    def __init__(self, obs: Observer, name: str, attrs: Dict):
-        self._obs, self._name, self._attrs = obs, name, attrs
+    def __init__(self, obs: Observer, name: str, attrs: Dict, rng: Any = None):
+        self._obs, self._name, self._attrs, self._range = obs, name, attrs, rng
         self._t0 = 0.0
+        self.id: Optional[int] = None
+        self.parent: Optional[int] = None
 
     def __enter__(self) -> "_Span":
+        self.id = next(_IDS)
+        self.parent = _OPEN[-1] if _OPEN else None
+        _OPEN.append(self.id)
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = time.monotonic()
         return self
 
@@ -268,8 +353,12 @@ class _Span:
 
     def __exit__(self, exc_type, *exc) -> None:
         t1 = time.monotonic()
+        if self._range is not None:
+            self._range.__exit__(exc_type, *exc)
+        _OPEN.pop()
         rec = {"type": "span", "name": self._name, "t": self._t0,
-               "dur_s": t1 - self._t0, "attrs": self._attrs}
+               "dur_s": t1 - self._t0, "id": self.id, "parent": self.parent,
+               "attrs": self._attrs}
         if exc_type is not None:
             rec["error"] = exc_type.__name__
         self._obs.emit(rec)
@@ -277,11 +366,14 @@ class _Span:
 
 def span(name: str, **attrs):
     """Time a block: ``with obs.span("explore.evaluate", arch=...)``.
-    No-op (shared null object) when disabled."""
+    No-op (shared null object) when disabled, and while the execution
+    plane's hook suppresses spans."""
     obs = get_observer()
     if obs is None:
         return _NULL
-    return _Span(obs, name, attrs)
+    if _SUPPRESSED is not None and _SUPPRESSED():
+        return _NULL
+    return _Span(obs, name, attrs, None if _MIRROR is None else _MIRROR(name))
 
 
 def counter(name: str, value: Union[int, float] = 1, **attrs) -> None:

@@ -13,10 +13,23 @@ As in the reference, construction runs the warn-only model-plane
 pre-flight on the config's ``lm_workload`` (:func:`repro_torch.analysis.preflight`),
 and each step records an ``obs.counter("serve.step", ...)`` when an
 observer is enabled.  Neither changes an output.
+
+With an observer enabled the engine also records its own trace
+(:mod:`repro_torch.models.spans`): an ``engine.submit`` event (``rid``,
+``prompt_len``) and an ``engine.done`` event (``rid``, ``tokens``,
+``reason``) per request, and per step an ``engine.step`` span holding
+``engine.fill`` (the queue scan and the prefills, each an
+``engine.prefill`` span with ``rid``, ``slot`` and ``prompt_len``),
+``engine.decode`` (the ``decode_step`` call, with ``active`` slots, the
+``filled`` cache positions Σ ``slot_pos`` over them and the ``attended``
+positions ``slots × max_len``), ``engine.read`` (the host's wait for the
+next tokens) and ``engine.bookkeeping``.  Every attribute is host state
+the engine holds; no span reads a value back from the device.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, Dict, List, Optional, Union
 
@@ -27,6 +40,7 @@ from .. import obs, resolve_device
 from ..analysis import preflight
 from ..configs.base import ArchConfig
 from ..core.workload import lm_workload
+from ..models.spans import span
 from ..models.transformer import decode_step, init_cache, prefill
 from ..obs.metrics import ServeMetrics
 
@@ -45,6 +59,7 @@ class Request:
     done: bool = False
     reject_reason: Optional[str] = None   # "queue_full" | "deadline"
     submit_t: Optional[float] = None      # monotonic submit time, for TTFT
+    rid: Optional[int] = None             # the request's id in the engine's trace
 
 
 class ServeEngine:
@@ -71,13 +86,17 @@ class ServeEngine:
         self._last_tokens = np.zeros(slots, np.int32)
         self.metrics = ServeMetrics()
         self.last_stats: Dict[str, Any] = {}
+        self._rids = itertools.count()
 
     # -- request management --------------------------------------------------
     def submit(self, req: Request) -> bool:
         """Admit ``req`` (True) or reject it with backpressure (False)."""
+        req.rid = next(self._rids)
+        obs.event("engine.submit", rid=req.rid, prompt_len=len(req.prompt))
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             req.reject_reason = "queue_full"
             self.metrics.on_reject()
+            obs.event("engine.done", rid=req.rid, tokens=0, reason="queue_full")
             return False
         req.output = []
         req.submit_t = time.monotonic()
@@ -96,6 +115,7 @@ class ServeEngine:
             if self._expired(req, now):
                 req.reject_reason = "deadline"
                 self.metrics.on_expire(queued=True)
+                obs.event("engine.done", rid=req.rid, tokens=0, reason="deadline")
             else:
                 kept.append(req)
         self.queue = kept
@@ -106,19 +126,20 @@ class ServeEngine:
     def _prefill_slot(self, s: int, req: Request) -> None:
         """Batch-1 prefill of the prompt, merged into slot ``s`` of the pool
         (k/v, SSM and conv states, each where the cache has it)."""
-        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)[None]
-        S = prompt.shape[1]
-        if S >= self.max_len:
-            raise ValueError(f"prompt {S} ≥ max_len {self.max_len}")
-        logits, pc = prefill(self.params, prompt, self.cfg, impl=self.impl)
-        for key in ("k", "v"):
-            if key in self.cache:
-                self.cache[key][:, s, :S] = pc[key][:, 0].to(self.cache[key].dtype)
-        # the slot's SSM and conv states replace whatever its last request left
-        for key in ("ssm", "conv"):
-            if key in self.cache:
-                self.cache[key][:, s] = pc[key][:, 0].to(self.cache[key].dtype)
-        tok = int(torch.argmax(logits[0, -1]))
+        with span("engine.prefill", rid=req.rid, slot=s, prompt_len=len(req.prompt)):
+            prompt = torch.as_tensor(np.asarray(req.prompt, np.int64), device=self.device)[None]
+            S = prompt.shape[1]
+            if S >= self.max_len:
+                raise ValueError(f"prompt {S} ≥ max_len {self.max_len}")
+            logits, pc = prefill(self.params, prompt, self.cfg, impl=self.impl)
+            for key in ("k", "v"):
+                if key in self.cache:
+                    self.cache[key][:, s, :S] = pc[key][:, 0].to(self.cache[key].dtype)
+            # the slot's SSM and conv states replace whatever its last request left
+            for key in ("ssm", "conv"):
+                if key in self.cache:
+                    self.cache[key][:, s] = pc[key][:, 0].to(self.cache[key].dtype)
+            tok = int(torch.argmax(logits[0, -1]))
         req.output.append(tok)
         self._last_tokens[s] = tok
         self.slot_req[s] = req
@@ -133,16 +154,29 @@ class ServeEngine:
     def step(self) -> int:
         """Decode one token for all active slots; returns #active."""
         t0 = time.monotonic()
-        self._fill_slots()
-        active = [s for s in range(self.slots) if self.slot_req[s] is not None]
-        if not active:
-            return 0
-        self.cache["pos"] = torch.as_tensor(self.slot_pos, dtype=torch.int64,
-                                            device=self.device)
-        tokens = torch.as_tensor(self._last_tokens, dtype=torch.int64, device=self.device)
-        logits, self.cache = decode_step(self.params, tokens, self.cfg, self.cache,
-                                         impl=self.impl)
-        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+        with span("engine.step"):
+            with span("engine.fill"):
+                self._fill_slots()
+            active = [s for s in range(self.slots) if self.slot_req[s] is not None]
+            if not active:
+                return 0
+            self.cache["pos"] = torch.as_tensor(self.slot_pos, dtype=torch.int64,
+                                                device=self.device)
+            tokens = torch.as_tensor(self._last_tokens, dtype=torch.int64, device=self.device)
+            with span("engine.decode", active=len(active),
+                      filled=int(self.slot_pos[active].sum()),
+                      attended=self.slots * self.max_len):
+                logits, self.cache = decode_step(self.params, tokens, self.cfg, self.cache,
+                                                 impl=self.impl)
+            with span("engine.read"):
+                next_tokens = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)
+            with span("engine.bookkeeping"):
+                self._bookkeeping(active, next_tokens, t0)
+        return len(active)
+
+    def _bookkeeping(self, active: List[int], next_tokens: np.ndarray, t0: float) -> None:
+        """Hand each active slot its next token, free the slots whose
+        request ended, and record the step."""
         completed = 0
         now = time.monotonic()
         for s in active:
@@ -157,10 +191,15 @@ class ServeEngine:
                 req.done = True
                 self.slot_req[s] = None
                 completed += 1
+                reason = ("max_tokens" if self.slot_remaining[s] <= 0
+                          else "eos" if tok == req.eos_id else "max_len")
+                obs.event("engine.done", rid=req.rid, tokens=len(req.output), reason=reason)
             elif self._expired(req, now):
                 req.reject_reason = "deadline"
                 self.slot_req[s] = None
                 self.metrics.on_expire(queued=False)
+                obs.event("engine.done", rid=req.rid, tokens=len(req.output),
+                          reason="deadline")
         step_s = time.monotonic() - t0
         m = self.metrics
         m.on_step(len(active), step_s)
@@ -169,7 +208,6 @@ class ServeEngine:
             m.on_complete()
         obs.counter("serve.step", len(active),
                     queue_depth=m.queue_depth, completed=completed)
-        return len(active)
 
     def run(self) -> None:
         """Drain queue + slots; leaves this call's deltas in ``last_stats``."""

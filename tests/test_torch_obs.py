@@ -182,13 +182,14 @@ def test_preflight_switch_off_returns_nothing(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def _records(read_events, d):
-    return [{k: v for k, v in r.items() if k not in ("t", "pid", "dur_s")}
+    return [{k: v for k, v in r.items() if k not in ("t", "pid", "dur_s", "id", "parent")}
             for r in read_events(d)]
 
 
 def test_obs_records_equal_reference(R, tmp_path):
     """The same spans, counters and events give the same records (times
-    and pids aside), and nothing is written while disabled."""
+    and pids aside, and the span ids and parents that only the port's
+    records carry), and nothing is written while disabled."""
     def drive(obs):
         obs.counter("c", 3, a=1)
         with obs.span("s", x="y") as sp:
@@ -208,6 +209,8 @@ def test_obs_records_equal_reference(R, tmp_path):
         out.append(_records(obs.read_events, tmp_path / name))
     assert out[0] == out[1]
     assert [r["type"] for r in out[1]] == ["counter", "span", "event", "counter"]
+    (port_span,) = TO.read_events(tmp_path / "port", name="s")
+    assert isinstance(port_span["id"], int) and port_span["parent"] is None
 
 
 def test_obs_span_records_its_error(tmp_path):
