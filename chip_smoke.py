@@ -5,7 +5,7 @@ Run from the root of a checkout:  ``python3 chip_smoke.py``
 
 Phases, each reported on its own line(s):
 
-1. build    — compile the port's five CUDA kernels from
+1. build    — compile the port's six CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel),
    then print ptxas's registers and spill bytes of every flash wgmma
    setting built; a setting at hd 256 or one the plan picks must not spill;
@@ -29,7 +29,11 @@ Phases, each reported on its own line(s):
    block-importance and int8 bit-serial rows the first kernel's card time
    (``general_ms``); the fused quantise-and-count rows (bf16 and f32 at the
    profile's shapes) add the whole op, its min/max pass and the unfused
-   quantize_int8 + count;
+   quantize_int8 + count; decode attention at qwen3-4b longdoc's decode
+   step (``decode_attention_row``: ragged positions, its bound over the
+   filled keys only, ``F.scaled_dot_product_attention`` as the yardstick);
+   each served path then counts one decode-attention launch a layer and
+   decode step where the route takes it (``check_path_launches``);
 3. llama3-8b FullBlock path: init at full width (random bf16 weights
    from a seed), check the kernel's Eq. 1 block losses against the plain
    ones, prune with FullBlock(128, 128, 0.5), compress, serve 8 requests
@@ -977,7 +981,125 @@ def kernel_phase() -> dict:
                     library="none: no single PyTorch call computes the zero-plane count",
                     variants=bsp_variants)
             del sets, ksets, x
+    rows["decode_attention"] = decode_attention_row()
     return rows
+
+
+# the decode-attention row: qwen3-4b-intrablock.longdoc's decode step (32
+# slots of an 8320-key cache, 32 q / 8 kv heads of 128), each slot's
+# position drawn so that the cache is filled as that cell fills it (56.8%);
+# the MoE cell's decode step (one slot of 8256 keys, 32 q / 4 kv heads),
+# which the plan splits further, is checked beside it
+DA_SHAPE, DA_FILL, DA_MOE_SHAPE = (32, 8320, 32, 8), 0.568, (1, 8256, 32, 4)
+
+
+def da_edges(Smax: int) -> list:
+    """Positions where a kernel misreads first: the first keys, the last
+    slot, and past the end (the write dropped, every key attended)."""
+    return [0, 1, Smax - 1, Smax, Smax + 7]
+
+
+def da_check(what: str, q, k, v, K, V, pos) -> dict:
+    """``ops.decode_attention`` against its plain version: one launch, the
+    caches bit-equal, the output within two bf16 roundings of |V|'s
+    attention + |out| (tests/test_torch_gpu.py's bound).  Leaves K/V as
+    they were; returns the max error and the largest excess over the bound."""
+    from repro_torch.kernels import ops
+
+    K1, V1, K2, V2 = K.clone(), V.clone(), K.clone(), V.clone()
+    before = ops.launch_counts()["decode_attention"]
+    out = ops.decode_attention(q, k, v, K1, V1, pos)
+    check(ops.launch_counts()["decode_attention"] == before + 1, f"decode_attention {what}: "
+          "no launch")
+    want = ops.decode_attention(q, k, v, K2, V2, pos, impl="ref")
+    mag = ops.decode_attention(q, k, v.abs(), K.clone(), V.abs(), pos, impl="ref")
+    torch.cuda.synchronize()
+    check(torch.equal(K1, K2) and torch.equal(V1, V2), f"decode_attention {what}: caches differ")
+    err = (out.float() - want.float()).abs()
+    excess = float((err - 2 ** -7 * (mag.float() + want.float().abs())).max())
+    check(excess <= 0, f"decode_attention {what}: {excess} over the rounding bound")
+    return {"max_abs_err": float(err.max()), "excess_over_bound": excess}
+
+
+def da_checks(g) -> dict:
+    """:func:`da_check` at the longdoc shape with ragged positions that
+    hold :func:`da_edges`, with scores ~N(0, 1) and sharp ones (q x 8,
+    ~N(0, 64)); at the MoE shape at each edge and at a drawn position, and
+    sharp at a drawn one."""
+    hd = 128
+    done = {}
+    for shape in (DA_SHAPE, DA_MOE_SHAPE):
+        B, Smax, Hq, Hkv = shape
+        q = torch.randn(B, 1, Hq, hd, generator=g, device="cuda")
+        k, v = (torch.randn(B, 1, Hkv, hd, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        K, V = (torch.randn(B, Smax, Hkv, hd, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        drawn = torch.randint(0, Smax, (B,), generator=g, device="cuda")
+        if B > 1:
+            drawn[:5] = torch.tensor(da_edges(Smax), device="cuda")
+            cases = [("ragged", drawn, 1.0), ("sharp", drawn, 8.0)]
+        else:
+            cases = [(f"pos {p}", torch.tensor([p], device="cuda"), 1.0) for p in da_edges(Smax)]
+            cases += [(f"pos {int(drawn)}", drawn, 1.0), (f"sharp pos {int(drawn)}", drawn, 8.0)]
+        for name, pos, sharp in cases:
+            what = f"({B},{Smax},{Hq}/{Hkv}) {name}"
+            done[what] = da_check(what, q.mul(sharp).bfloat16(), k, v, K, V, pos)
+            print(f"[kernels] decode_attention check {what}: {json.dumps(done[what])}",
+                  flush=True)
+    return done
+
+
+def decode_attention_row() -> dict:
+    """``decode_attention`` held to its plain version (:func:`da_checks`),
+    then at the longdoc decode shape with ragged positions the kernel's
+    card time from a CUDA graph and eager, its bound (K and V of the
+    filled keys only, read once), the plain version's time and
+    ``F.scaled_dot_product_attention``'s over the whole cache with the
+    causal mask (kv heads as GQA groups), the yardstick only."""
+    from repro_torch.kernels import ops
+
+    B, Smax, Hq, Hkv = DA_SHAPE
+    hd = 128
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    checks = da_checks(g)
+
+    def inputs():
+        q = torch.randn(B, 1, Hq, hd, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(B, 1, Hkv, hd, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        K, V = (torch.randn(B, Smax, Hkv, hd, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        lo = int(Smax * DA_FILL / 2)
+        pos = torch.randint(lo, 2 * int(Smax * DA_FILL) - lo, (B,), generator=g, device="cuda")
+        return q, k, v, K, V, pos
+
+    cache_bytes = 2 * B * Smax * Hkv * hd * 2
+    sets = [inputs() for _ in range(max(2, math.ceil(400e6 / cache_bytes)))]
+    checks["longdoc fill"] = da_check("longdoc fill", *sets[0])
+    keys = sum(int((s[5] + 1).sum()) for s in sets) / len(sets)
+    nbytes = 2 * keys * Hkv * hd * 2 + 2 * B * (Hq + 2 * Hkv) * hd * 2
+    lib_sets = [(a.transpose(1, 2), c.transpose(1, 2).contiguous(),
+                 d.transpose(1, 2).contiguous(),
+                 (torch.arange(Smax, device="cuda")[None, :] <= p[:, None])[:, None, None])
+                for a, _, _, c, d, p in sets]
+    kern = lambda *a: ops.decode_attention(*a)
+    lib = lambda a, c, d, m: F.scaled_dot_product_attention(a, c, d, attn_mask=m, enable_gqa=True)
+    line = {"max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+            "excess_over_bound": max(c["excess_over_bound"] for c in checks.values()),
+            "checks": checks,
+            "filled_share": keys / (B * Smax), "ms": graph_ms(kern, sets),
+            "eager_ms": cuda_ms(kern, sets),
+            "plain_ms": cuda_ms(lambda *a: ops.decode_attention(*a, impl="ref"), sets[:2],
+                                iters=4, warmup=1),
+            "library_ms": graph_ms(lib, lib_sets), "eager_library_ms": cuda_ms(lib, lib_sets),
+            **bound(nbytes, 4 * hd * Hq * keys, BF16_TC_FLOPS)}
+    line.update(ratios(line))
+    print(f"[kernels] decode_attention B={B} Smax={Smax} Hq={Hq} Hkv={Hkv} hd={hd} bf16: "
+          + json.dumps(line), flush=True)
+    return dict(line, shape=f"q ({B},1,{Hq},{hd}), K/V ({B},{Smax},{Hkv},{hd}) bf16, ragged pos "
+                            f"({line['filled_share']:.3f} of the cache filled)",
+                library="F.scaled_dot_product_attention (whole cache, boolean mask, enable_gqa)")
 
 
 # ---------------------------------------------------------------------------
@@ -1182,6 +1304,17 @@ def prune_phase(cfg, spec, *, pre_check=None) -> dict:
             "comp_keys": comp_keys}
 
 
+# Whether each served family's decode steps take the decode-attention kernel
+# on every layer, stated here rather than asked of the route itself (as
+# tests/test_torch_kernels.py's route test states it): the hd-128 GQA
+# decoders without softcap or window do; hd 256 (gemma, paligemma), hd 64
+# (hymba, whisper), a softcap (gemma2), a window (hymba) or no attention
+# (mamba2) do not.
+DECODE_KERNEL_ROUTE = {"llama3-8b": True, "qwen3-4b": True, "qwen3-moe-30b-a3b": True,
+                       "gemma-7b": False, "gemma2-9b": False, "paligemma-3b": False,
+                       "hymba-1.5b": False, "whisper-medium": False, "mamba2-130m": False}
+
+
 def check_path_launches(cfg, rows: dict, model: dict, counts: dict, prefills: int,
                         flash) -> None:
     """Record the path's launches per kernel in ``rows`` and check them: the
@@ -1189,15 +1322,26 @@ def check_path_launches(cfg, rows: dict, model: dict, counts: dict, prefills: in
     for (:func:`check_main_variants`), the block losses (FullBlock) only
     through ``strip``, the prefill attention only through flash's ``flash``
     variant, one launch per layer and prefill (or, for ``flash=None``, no
-    flash launch), and the other compressed op not at all."""
+    flash launch), decode attention once a layer and decode step where
+    :data:`DECODE_KERNEL_ROUTE` says the family takes it and never where it
+    does not, and the other compressed op not at all."""
     intra = model["spec"].patterns[0].kind == "intra"
     op, other = (("intrablock_gather_matmul", "block_sparse_matmul") if intra
                  else ("block_sparse_matmul", "intrablock_gather_matmul"))
     cparams, keys = model["cparams"], pruned_keys(cfg)
     comp_keys = model["comp_keys"]
     for name in ("flash_attention", "block_sparse_matmul", "block_importance",
-                 "intrablock_gather_matmul"):
+                 "intrablock_gather_matmul", "decode_attention"):
         rows[name].setdefault("launches_by_path", {})[cfg.name] = counts[name]
+    # decode attention: one launch a layer and decode step where the route takes it
+    family = cfg.name.removesuffix(" fine-tuned")
+    check(family in DECODE_KERNEL_ROUTE, f"{cfg.name}: no decode-attention route stated")
+    want = cfg.n_layers * counts["steps"] if DECODE_KERNEL_ROUTE[family] else 0
+    print(f"[serve] {cfg.name}: decode_attention launches {counts['decode_attention']}; want "
+          f"{want} (route {'taken' if want else 'not taken'}, {counts['steps']} decode steps)",
+          flush=True)
+    check(counts["decode_attention"] == want,
+          f"{cfg.name}: decode_attention launched {counts['decode_attention']}, want {want}")
     check(counts[op] > 0, f"{op} was not launched on the {cfg.name} path")
     check(counts[other] == 0, f"{other} ran on the {cfg.name} path")
     check_main_variants(cfg, op, counts, prefills, cparams, comp_keys)
@@ -1664,7 +1808,8 @@ def intrablock_path(cfg, rows: dict) -> dict:
 
     model = served_path(cfg, rows, FlexBlockSpec((IntraBlock(INTRA_M, 1, 0.5),)),
                         flash="wgmma")
-    rows["intrablock_gather_matmul"]["launches"] = model["counts"]["intrablock_gather_matmul"]
+    for name in ("intrablock_gather_matmul", "decode_attention"):
+        rows[name]["launches"] = model["counts"][name]
     model["ratios"] = profile_phase(cfg, model["cparams"], model["prompts"], rows)
     return cost_inputs(model)
 
@@ -2631,7 +2776,7 @@ HYMBA_MESH_B, HYMBA_MESH_S, HYMBA_MESH_STEPS = 2, 4096, 4
 MOE_LOGITS = MESH_DIR / "moe_single_logits.pt"   # moe_path's prefill logits of prompt 0
 
 
-KERNEL_NAMES = ("flash_attention", "block_sparse_matmul", "block_importance",
+KERNEL_NAMES = ("flash_attention", "block_sparse_matmul", "block_importance", "decode_attention",
                 "intrablock_gather_matmul", "bitserial_zero_profile")
 
 
@@ -3534,6 +3679,10 @@ def dryrun_phase(micro_samples: list, micro_prof) -> None:
             check(variants["flash_attention"] == {"wgmma": want, "general": 0, "f32": 0},
                   f"prefill_32k launched flash {variants['flash_attention']}, want {want} wgmma")
             check(sum(counts.values()) == want, f"prefill_32k launched {counts}")
+        elif cell == "decode_32k":
+            want = get_config("qwen3-4b").n_layers * (DRYRUN_REPEATS + 1)   # per layer and step
+            check(counts["decode_attention"] == want and sum(counts.values()) == want,
+                  f"decode_32k launched {counts}, want {want} decode_attention")
         else:
             check(sum(counts.values()) == 0, f"qwen3-4b {cell} launched {counts}")
         emitted_trace_check(rec)
@@ -4710,7 +4859,9 @@ def main() -> int:
                "intrablock_gather_matmul": ("cuda", f"{csrc}/intrablock_matmul.cu",
                                             f"{kdir}/intrablock_matmul.py:41"),
                "bitserial_zero_profile": ("cuda", f"{csrc}/bitserial_profile.cu",
-                                          f"{kdir}/bitserial_profile.py:41")}
+                                          f"{kdir}/bitserial_profile.py:41"),
+               "decode_attention": ("cuda", f"{csrc}/decode_attention.cu",
+                                    "none (jnp chunked_attention over the cache)")}
     try:
         ptxas_phase()
         t0 = time.perf_counter()

@@ -1,4 +1,6 @@
-"""Hand-written Hopper kernels of the port, one per ported Pallas kernel.
+"""Hand-written Hopper kernels of the port: one per ported Pallas kernel,
+and decode attention over the cache, which ports none (the JAX package
+computes it in jnp).
 
 Each kernel ships:
 

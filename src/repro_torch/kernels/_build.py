@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` named in :data:`SOURCES` has a plain C interface
-(``csrc/sm90_common.cu`` holds Hopper helpers that three of them include,
+(``csrc/sm90_common.cu`` holds Hopper helpers that four of them include,
 and is not built on its own) and is compiled on first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own
 shared library under ``build/repro_torch_kernels/`` at the root of the
@@ -84,6 +84,11 @@ SOURCES: Dict[str, Dict[str, List]] = {
         # grid, stream
         "bsp_fused_bf16": [P, P, P, F, P, P, I, I, I, I, I, P],
         "bsp_fused_f32": [P, P, P, F, P, P, I, I, I, I, I, P],
+    },
+    "decode_attention": {
+        # q, k_new, v_new, K, V, pos, pos_stride, scratch, tickets, out, B, Smax, Hkv, G,
+        # chunk, nsplit, scale, stream
+        "da_decode_bf16": [P, P, P, P, P, P, I, P, P, P, I, I, I, I, I, I, F, P],
     },
 }
 

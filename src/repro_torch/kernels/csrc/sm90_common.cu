@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by block_sparse_matmul.cu,
-// intrablock_matmul.cu and flash_attention.cu, which include this file;
-// it is not built on its own.  Inline PTX only (no CuTe), so each source builds in seconds.
+// intrablock_matmul.cu, flash_attention.cu and decode_attention.cu, which
+// include this file; it is not built on its own.  Inline PTX only (no
+// CuTe), so each source builds in seconds.
 //
 // * mbarrier, bulk-copy and TMA (2D and 3D) helpers for rings of
 //   shared-memory stages;
 // * ldmatrix + mma.sync m16n8k16 helpers for the decode variants, on x
-//   tiles with padded rows and weight tiles in TMA's 128-byte swizzle;
+//   tiles with padded rows and weight tiles in TMA's 128-byte swizzle
+//   (decode attention uses the first three on tiles of its own);
 // * cluster_reduce_store: the split-K sum of f32 partials through
 //   distributed shared memory, in rank order, so a result is bitwise
 //   repeatable;

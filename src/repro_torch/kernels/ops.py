@@ -14,7 +14,7 @@ requires grad raises ``RuntimeError`` rather than return an output that
 silently cuts the autograd graph.  Each CUDA
 wrapper counts its launches in a plain integer; :func:`launch_counts`
 reads them, :func:`variant_counts` reads the per-variant counts of the
-five kernels, :func:`gather_matmul_shape_counts` and
+six kernels, :func:`gather_matmul_shape_counts` and
 :func:`block_sparse_shape_counts` the two compressed matmuls' per variant
 and weight shape, and :func:`reset_launch_counts` sets them all to 0.
 
@@ -39,6 +39,7 @@ import torch
 from . import bitserial_profile as _bsp
 from . import block_importance as _bi
 from . import block_sparse_matmul as _bsm
+from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import hook as _hook
 from . import intrablock_matmul as _igm
@@ -50,13 +51,14 @@ __all__ = ["IMPLS", "compress_fullblock", "compress_fullblock_torch",
            "decompress_intrablock",
            "block_sparse_matmul", "intrablock_gather_matmul", "block_importance",
            "bitserial_zero_profile", "quantized_zero_profile", "flash_attention",
+           "decode_attention",
            "launch_counts", "variant_counts", "gather_matmul_shape_counts",
            "block_sparse_shape_counts", "reset_launch_counts"]
 
 IMPLS = ("auto", "cuda", "ref")
 _KERNELS = {"flash_attention": _fa, "block_sparse_matmul": _bsm,
             "block_importance": _bi, "intrablock_gather_matmul": _igm,
-            "bitserial_zero_profile": _bsp}
+            "bitserial_zero_profile": _bsp, "decode_attention": _da}
 
 
 def _resolve(impl: str, t: torch.Tensor) -> str:
@@ -85,7 +87,7 @@ def launch_counts() -> Dict[str, int]:
 
 def variant_counts() -> Dict[str, Dict[str, int]]:
     """Launches per variant (see :mod:`~repro_torch.kernels.plans`) of the
-    five kernels, since the last reset."""
+    six kernels, since the last reset."""
     return {name: dict(mod.variant_launches) for name, mod in _KERNELS.items()}
 
 
@@ -407,3 +409,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sq % tile_q or Skv % tile_k:
         raise ValueError(f"Sq={Sq}/Skv={Skv} must tile by {tile_q}/{tile_k}")
     return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+@_counted("decode_attention", _work.decode_attention,
+          lambda q, *_, **__: (tuple(q.shape), q.dtype))
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, K: torch.Tensor,
+                     V: torch.Tensor, pos: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """One decode step's attention of a layer over its cache: the new k/v
+    (B, 1, Hkv, hd) written into the caches K/V (B, Smax, Hkv, hd) in
+    place at ``pos`` (a scalar or (B,) integer tensor, with
+    ``write_cache``'s semantics), then q (B, 1, Hq, hd) attended over keys
+    0..pos of each row; returns (B, 1, Hq, hd) in q's dtype.  The CUDA
+    path takes bf16, hd 128 and up to 16 q heads per kv head."""
+    if _route("decode_attention", impl, q, k, v) == "ref":
+        return _ref.decode_attention_ref(q, k, v, K, V, pos)
+    return _da.decode_attention_cuda(q, k, v, K, V, pos)

@@ -34,6 +34,10 @@ range, its masked tiles and its launch order.
 Block importance (``bi_plan``): ``"strip"`` (128 x 128 blocks, aligned)
 or ``"general"``.
 
+Decode attention (``da_plan``): the keys each split of a (slot, kv head)
+takes, from the shapes alone, so that a launch never depends on the
+positions and a CUDA graph can replay it.
+
 Bit-serial zero profile (``bsp_plan``): ``"strip"`` (int8 in 16-byte
 chunks, a group's chunks on neighbouring lanes), ``"fused"`` (bf16 or
 f32 quantised in registers and counted, the same layout) or
@@ -56,7 +60,7 @@ __all__ = ["Plan", "DECODE_MAX_B", "CHUNK", "TILE_N", "SMS", "BSM_DECODE_CTAS",
            "IGM_DECODE_CTAS", "IGM_DECODE_CAP", "PREFILL_CTAS", "split_range",
            "choose_cluster", "bsm_plan", "igm_plan", "live_partition", "chunk_partition",
            "FaPlan", "FA_BUILT", "FA_HEAD_DIMS", "FA_LEVERS", "fa_settings", "fa_plan", "fa_live_tiles", "fa_tile_needs_mask", "fa_tile_order",
-           "bi_plan", "BspPlan", "BSP_THREADS", "BSP_UNROLL", "BSP_CTAS_PER_SM", "bsp_plan"]
+           "DA_TILE", "DA_CTAS", "da_plan", "bi_plan", "BspPlan", "BSP_THREADS", "BSP_UNROLL", "BSP_CTAS_PER_SM", "bsp_plan"]
 
 DECODE_MAX_B = 16      # rows of x one mma.sync tile holds
 CHUNK = 64             # Kc rows of one gather-matmul stage
@@ -259,6 +263,33 @@ def fa_tile_order(S: int, B: int, Hq: int, rows: int, pack: int) -> List[Tuple[i
         rem = cta % per_qt
         order.append((n_qt - 1 - cta // per_qt, rem // groups, (rem % groups) * pack))
     return order
+
+
+# ---------------------------------------------------------------------------
+# Decode attention
+# ---------------------------------------------------------------------------
+
+# Keys of one ring stage of csrc/decode_attention.cu; the
+# CTAs a grid should reach (two resident on each SM, two waves), and the
+# bounds of a split, 2 to 8 stages: fewer leave a CTA's ring without a
+# tile to prefetch, more leave the last wave ragged where slots' lengths
+# differ.
+DA_TILE = 64
+DA_CTAS = 4 * SMS
+DA_SPLIT_TILES = (2, 8)
+
+
+@lru_cache(maxsize=1024)
+def da_plan(B: int, Smax: int, Hkv: int) -> Tuple[int, int]:
+    """``(chunk, nsplit)`` of ``decode_attention`` over a (B, Smax, Hkv, hd)
+    cache: each (slot, kv head) is split into ``nsplit`` ranges of
+    ``chunk`` keys (a multiple of DA_TILE), as many as bring the grid to
+    DA_CTAS CTAs within DA_SPLIT_TILES stages a split."""
+    tiles = -(-Smax // DA_TILE)
+    want = -(-DA_CTAS // (B * Hkv))
+    lo, hi = DA_SPLIT_TILES
+    chunk = min(hi, max(lo, -(-tiles // want))) * DA_TILE
+    return chunk, -(-Smax // chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 """Plain PyTorch versions of the ported kernels.
 
 Each function computes what the matching oracle in
-``repro/kernels/ref.py`` computes, on the same layouts.  They are the
+``repro/kernels/ref.py`` computes, on the same layouts;
+``decode_attention_ref``, whose kernel ports none, computes what the
+model's decode branch (``write_cache`` and ``chunked_attention`` in
+``repro_torch/models/layers.py``) computes.  They are the
 CPU path of :mod:`repro_torch.kernels.ops` and the yardstick the CUDA
 kernels are held to on the card.  ``quantize_int8`` is the port of
 ``repro/core/input_sparsity.py``'s, here because the fused quantise-and-
@@ -14,8 +17,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["flash_attention_ref", "block_sparse_matmul_ref",
-           "intrablock_gather_matmul_ref", "block_importance_ref",
+__all__ = ["flash_attention_ref", "write_cache_ref", "decode_attention_ref",
+           "block_sparse_matmul_ref", "intrablock_gather_matmul_ref", "block_importance_ref",
            "bitserial_zero_profile_ref", "check_slot_count", "quantize_scale",
            "quantize_int8", "quantized_zero_profile_ref"]
 
@@ -67,6 +70,46 @@ def _attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset:
     s = s.masked_fill(~ok[None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def write_cache_ref(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write ``new`` (B, S, Hkv, hd) into the cache ``buf`` (B, Smax, Hkv,
+    hd) in place at ``pos``, with no host sync.  A scalar ``pos`` starts
+    the write at ``pos`` clamped to [0, Smax - S]; a (B,) ``pos`` (one
+    token per row) writes row b at ``pos[b]`` and drops it where
+    ``pos[b] >= Smax``: the old slot is written back."""
+    Smax, S = buf.shape[1], new.shape[1]
+    new = new.to(buf.dtype)
+    if pos.dim() == 0:
+        start = pos.long().clamp(0, Smax - S)
+        buf.index_copy_(1, start + torch.arange(S, device=buf.device), new)
+        return
+    pos = pos.long()
+    slot = pos.clamp(max=Smax - 1)
+    bidx = torch.arange(buf.shape[0], device=buf.device)
+    keep = (pos < Smax)[:, None, None]
+    buf[bidx, slot] = torch.where(keep, new[:, 0], buf[bidx, slot])
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, K: torch.Tensor,
+                         V: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Write k/v (B, 1, Hkv, hd) into the caches K/V (B, Smax, Hkv, hd) at
+    ``pos`` (:func:`write_cache_ref`), then attend q (B, 1, Hq, hd) over
+    keys 0..pos of each row: a dense masked softmax of the f32 scores of
+    q and K widened to f32, p rounded to V's dtype and P·V summed in f32,
+    the rounding points of the model's decode branch."""
+    write_cache_ref(K, k, pos)
+    write_cache_ref(V, v, pos)
+    B, _, Hq, hd = q.shape
+    Smax, Hkv = K.shape[1], K.shape[2]
+    qg = q.reshape(B, 1, Hkv, Hq // Hkv, hd).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, K.float()) * (1.0 / math.sqrt(hd))
+    past = torch.arange(Smax, device=q.device) > pos.reshape(-1, 1)       # (B or 1, Smax)
+    s = s.masked_fill(past[:, None, None, None, :], float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p.to(V.dtype).float(), V.float()) / p.sum(
+        dim=-1, keepdim=True)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, Hq, hd).to(q.dtype)
 
 
 def block_sparse_matmul_ref(x: torch.Tensor, w_comp: torch.Tensor,

@@ -21,7 +21,8 @@ from . import _build
 from .plans import bsp_plan, fa_live_tiles, fa_plan
 
 __all__ = ["flash_attention", "block_sparse_matmul", "intrablock_gather_matmul",
-           "block_importance", "bitserial_zero_profile", "quantized_zero_profile"]
+           "block_importance", "bitserial_zero_profile", "quantized_zero_profile",
+           "decode_attention"]
 
 # the general flash kernel's tile (BQ query rows x BK keys, csrc/flash_attention.cu)
 _FA_GENERAL_TILE = (64, 64)
@@ -116,3 +117,16 @@ def quantized_zero_profile(x: torch.Tensor, group_rows: int, n_bits: int = 8, *,
         return _work(4 * n + count["flops"], _nbytes(x) + n + n + 8)
     amin = per_tensor_scale is None and n > 0
     return _work(4 * n + (n if amin else 0), _nbytes(x) * (2 if amin else 1) + 8)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, K: torch.Tensor,
+                     V: torch.Tensor, pos: torch.Tensor, **_) -> Dict[str, int]:
+    """4·hd flops for each (q head, key) pair a row attends: keys 0..pos
+    within the cache (on ``meta``, where pos has no values, every key).
+    Bytes: q and the new k/v read, the attended keys' K and V read, the
+    new k/v written into the caches, the output written."""
+    B, _, Hq, hd = q.shape
+    Smax, Hkv = K.shape[1], K.shape[2]
+    keys = B * Smax if pos.is_meta else int((pos.long() + 1).clamp(0, Smax).expand(B).sum())
+    row = Hkv * hd * K.element_size()
+    return _work(4 * hd * Hq * keys, _nbytes(q, k, v, q) + 2 * keys * row + 2 * B * row)

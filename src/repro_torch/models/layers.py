@@ -39,7 +39,9 @@ from ..distributed import collectives as coll
 from ..distributed import partition as part
 from ..distributed import sharding as shd
 from ..distributed.sharding import P
+from ..kernels import decode_attention as _da
 from ..kernels import ops
+from ..kernels import ref as _kref
 from ..kernels.intrablock_matmul import check_row_idx
 from .spans import span
 
@@ -539,7 +541,12 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
       [0, Smax - S], as ``dynamic_update_slice`` clamps it (a full cache
       overwrites its last slots); at per-sequence (B,) positions a row
       whose position is past the end is dropped, as JAX's scatter drops
-      it.  Neither reads the position back to the host.
+      it.  Neither reads the position back to the host.  Where the
+      decode-attention kernel takes the step (``impl`` not ``"ref"`` and
+      :func:`_takes_decode_kernel`: one token, a CUDA cache, no grad, f32
+      scores, no softcap or window, bf16 at a head dim it is built for),
+      the ``decode_attention`` op does the write and the attention in one
+      launch; it reads only each row's keys 0..pos.
     * on a mesh, a prefill or forward with no cache that meets the
       reference's condition (:func:`_takes_seqpar`) runs through
       :func:`_swa_seqpar_attention`.
@@ -567,36 +574,51 @@ def attention_block(x: torch.Tensor, p: Params, cfg, *, positions: torch.Tensor,
     else:
         K, V = cache_kv
         pos = torch.as_tensor(cache_len, device=x.device)
-        write_cache(K, k, pos)
-        write_cache(V, v, pos)
-        out = chunked_attention(q, K, V, causal=True, window=window, q_offset=pos,
-                                attn_cap=cfg.attn_softcap, chunk=K.shape[1])
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, K, V))
+        if impl != "ref" and _takes_decode_kernel(cfg, q, K, window=window,
+                                                  device=K.device.type, grad=grad):
+            out = ops.decode_attention(q, k, v, K, V, pos, impl=impl)
+        else:
+            write_cache(K, k, pos)
+            write_cache(V, v, pos)
+            out = chunked_attention(q, K, V, causal=True, window=window, q_offset=pos,
+                                    attn_cap=cfg.attn_softcap, chunk=K.shape[1])
         new_kv = (K, V)
     y = project(out, p["wo"], impl, n_in=2)
     return y, new_kv
 
 
+def _takes_decode_kernel(cfg, q: torch.Tensor, K: torch.Tensor, *, window: Optional[int],
+                         device: str, grad: bool) -> bool:
+    """Whether :func:`attention_block`'s decode branch takes the
+    ``decode_attention`` op: one new token per row against a cache on a
+    CUDA ``device`` that is not a DTensor, no input requiring grad under
+    grad mode (``grad``), no attention softcap, no window, the default f32
+    scores (:func:`set_scores_dtype`), and q and the cache bf16 at a head
+    dim the kernel is built for, with Hq a multiple of Hkv by at most its
+    group.  Decided from the arguments and ``cfg`` before any launch;
+    everything else keeps :func:`write_cache` + :func:`chunked_attention`."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = K.shape[2]
+    return (device == "cuda" and not shd.is_dtensor(K) and not grad and Sq == 1
+            and cfg.attn_softcap == 0 and window is None and _SCORES_DTYPE == torch.float32
+            and q.dtype == K.dtype == torch.bfloat16 and hd in _da.HEAD_DIMS
+            and Hq % Hkv == 0 and Hq // Hkv <= _da.MAX_GROUP)
+
+
 def write_cache(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
     """Write ``new`` (B, S, Hkv, hd) into the cache ``buf`` (B, Smax, Hkv,
     hd) in place at ``pos``, with the reference's semantics and no host
-    sync.  A scalar ``pos`` starts the write at ``pos`` clamped to
-    [0, Smax - S] (``jax.lax.dynamic_update_slice``).  A (B,) ``pos``
-    (one token per row) writes row b at ``pos[b]`` and drops it where
-    ``pos[b] >= Smax`` (``.at[b, pos].set``): the old slot is written back."""
-    Smax, S = buf.shape[1], new.shape[1]
+    sync (:func:`~repro_torch.kernels.ref.write_cache_ref`).  A scalar
+    ``pos`` starts the write at ``pos`` clamped to [0, Smax - S]
+    (``jax.lax.dynamic_update_slice``).  A (B,) ``pos`` (one token per
+    row) writes row b at ``pos[b]`` and drops it where ``pos[b] >= Smax``
+    (``.at[b, pos].set``): the old slot is written back."""
     new = new.to(buf.dtype)
     if shd.is_dtensor(buf):
         part.write_cache(buf, new, pos, write_cache)
         return
-    if pos.dim() == 0:
-        start = pos.long().clamp(0, Smax - S)
-        buf.index_copy_(1, start + torch.arange(S, device=buf.device), new)
-        return
-    pos = pos.long()
-    slot = pos.clamp(max=Smax - 1)
-    bidx = torch.arange(buf.shape[0], device=buf.device)
-    keep = (pos < Smax)[:, None, None]
-    buf[bidx, slot] = torch.where(keep, new[:, 0], buf[bidx, slot])
+    _kref.write_cache_ref(buf, new, pos)
 
 
 # ---------------------------------------------------------------------------

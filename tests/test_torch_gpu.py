@@ -1345,3 +1345,173 @@ def test_profile_fitted_on_the_card_prices_a_sweep(gen, tmp_path, capsys):
         for col in ("latency_ms", "energy_uj", "speedup"):
             assert math.isfinite(cal[col]) and cal[col] > 0, col
     assert any(c["latency_ms"] != a["latency_ms"] for c, a in zip(rows["cal"], rows["ana"]))
+
+
+# ---------------------------------------------------------------------------
+# Decode attention over the cache
+# ---------------------------------------------------------------------------
+
+# The kernel against its plain version (write_cache + chunked_attention):
+# the scores' sums run in another order, and p is rounded to bf16 against
+# each warp's running max within each split instead of against the row's
+# global max.  Each rounding moves a term p·v by at most 2^-9 of |p·v|, so
+# the two outputs before their own rounding to bf16 (2^-9 of |out| each)
+# differ by at most 2^-8 of Σ p·|v| / Σ p, the attention of |V|.
+# _within_rounding allows twice both.
+
+
+def _within_rounding(out, want, mag):
+    """|out - want| <= 2^-7 (|V|'s attention ``mag`` + |want|) everywhere."""
+    err = (out.float() - want.float()).abs()
+    bound = 2 ** -7 * (mag.float() + want.float().abs())
+    worst = float((err - bound).max())
+    assert worst <= 0, (f"max excess {worst} over the rounding bound; max err "
+                        f"{float(err.max())}")
+
+
+def _decode_inputs(gen, B, Smax, Hq, Hkv, sharp=1.0):
+    q = _randn(gen, B, 1, Hq, 128, dtype=torch.float32).mul(sharp).bfloat16()
+    k, v = (_randn(gen, B, 1, Hkv, 128, dtype=torch.bfloat16) for _ in range(2))
+    K, V = (_randn(gen, B, Smax, Hkv, 128, dtype=torch.bfloat16) for _ in range(2))
+    return q, k, v, K, V
+
+
+def _ragged_pos(B, Smax, gen):
+    """Per-slot positions: 0, 1, Smax - 1, Smax and past it (dropped
+    writes), the rest spread over the cache."""
+    pos = torch.randint(0, Smax, (B,), generator=gen, device="cuda")
+    edges = torch.tensor([0, 1, Smax - 1, Smax, Smax + 7], device="cuda")
+    if B >= len(edges):
+        pos[:len(edges)] = edges
+    return pos
+
+
+@pytest.mark.parametrize("B,Smax,Hq,Hkv", [(32, 8320, 32, 8), (1, 8256, 32, 4), (64, 4608, 32, 8),
+                                           (5, 200, 16, 1), (6, 1000, 6, 2), (3, 64, 8, 8)])
+@pytest.mark.parametrize("kind", ["ragged", "scalar", "sharp"])
+def test_decode_attention_kernel_matches_plain(gen, B, Smax, Hq, Hkv, kind):
+    """At both 4b cells' and the MoE cell's decode shapes and at ragged
+    ones (hd 128), with scores ~N(0, 1) and sharp ones ~N(0, 64): the
+    output within the plain version's rounding (:func:`_within_rounding`),
+    the caches after the op bit-equal to the plain write (the write
+    dropped at pos >= Smax, clamped at a scalar pos), one launch, and two
+    calls bitwise equal."""
+    q, k, v, K, V = _decode_inputs(gen, B, Smax, Hq, Hkv, sharp=8.0 if kind == "sharp" else 1.0)
+    if kind == "scalar":
+        pos = torch.tensor([Smax // 3, Smax - 1, Smax + 5][B % 3], device="cuda")
+    else:
+        pos = _ragged_pos(B, Smax, gen)
+    K1, V1, K2, V2 = K.clone(), V.clone(), K.clone(), V.clone()
+    before = ops.launch_counts()["decode_attention"]
+    out = ops.decode_attention(q, k, v, K1, V1, pos)
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    want = ops.decode_attention(q, k, v, K2, V2, pos, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(K1, K2) and torch.equal(V1, V2)
+    mag = ops.decode_attention(q, k, v.abs(), K.clone(), V.abs(), pos, impl="ref")
+    _within_rounding(out, want, mag)
+    assert torch.equal(out, ops.decode_attention(q, k, v, K1, V1, pos))
+
+
+def test_decode_attention_replays_from_a_cuda_graph(gen):
+    """Captured in a CUDA graph at the longdoc decode shape and replayed
+    with other positions under it: the eager result, bit for bit, output
+    and caches."""
+    B, Smax, Hq, Hkv = 32, 8320, 32, 8
+    q, k, v, K, V = _decode_inputs(gen, B, Smax, Hq, Hkv)
+    pos = _ragged_pos(B, Smax, gen)
+    Kg, Vg = K.clone(), V.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, k, v, Kg, Vg, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, Kg, Vg, pos)
+    for i in range(3):
+        pos.copy_(_ragged_pos(B, Smax, gen).flip(0) if i else pos)
+        Kg.copy_(K)
+        Vg.copy_(V)
+        graph.replay()
+        Ke, Ve = K.clone(), V.clone()
+        eager = ops.decode_attention(q, k, v, Ke, Ve, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager) and torch.equal(Kg, Ke) and torch.equal(Vg, Ve), i
+
+
+def test_decode_attention_graph_keeps_its_tickets_when_a_wider_batch_comes(gen, monkeypatch):
+    """A graph captured at a narrow batch, then an eager call at a wider
+    one (which takes a wider ticket buffer), then small tensors allocated
+    where a freed buffer would be reused: the replay gives the narrow
+    eager result bit for bit and writes into none of those tensors."""
+    from repro_torch.kernels import decode_attention as da
+
+    monkeypatch.setattr(da, "_TICKETS", {})
+    Smax, Hq, Hkv = 1000, 16, 4
+    q, k, v, K, V = _decode_inputs(gen, 2, Smax, Hq, Hkv)
+    pos = torch.tensor([5, 700], device="cuda")
+    Kg, Vg = K.clone(), V.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention(q, k, v, Kg, Vg, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, Kg, Vg, pos)
+    wide = _decode_inputs(gen, 16, Smax, Hq, Hkv)
+    ops.decode_attention(*wide, _ragged_pos(16, Smax, gen))
+    assert len(da._TICKETS[torch.cuda.current_device()]) == 2
+    others = [torch.full((2 * Hkv,), 7, dtype=torch.int32, device="cuda") for _ in range(64)]
+    for _ in range(3):
+        Kg.copy_(K)
+        Vg.copy_(V)
+        graph.replay()
+    Ke, Ve = K.clone(), V.clone()
+    eager = ops.decode_attention(q, k, v, Ke, Ve, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager) and torch.equal(Kg, Ke) and torch.equal(Vg, Ve)
+    assert all(bool((t == 7).all()) for t in others)
+
+
+def test_decode_attention_refuses_what_it_does_not_take(gen):
+    q, k, v, K, V = _decode_inputs(gen, 2, 64, 8, 2)
+    pos = torch.tensor([3, 9], device="cuda")
+    with pytest.raises(TypeError, match="bf16"):
+        ops.decode_attention(q.float(), k, v, K, V, pos)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q[..., :64], k[..., :64], v[..., :64], K[..., :64].contiguous(),
+                             V[..., :64].contiguous(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q, k, v, K.transpose(0, 1).contiguous().transpose(0, 1), V, pos)
+    with pytest.raises(ValueError, match="pos"):
+        ops.decode_attention(q, k, v, K, V, pos[:1])
+
+
+def test_decode_step_launches_decode_attention_once_a_layer(gen):
+    """A decoder at hd 128 (qwen3-4b reduced in depth and width, its head
+    dim kept) on the card: each decode step launches the kernel once a
+    layer, and its logits follow the plain path's over 4 steps from a
+    ragged cache (one slot at its last position)."""
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), head_dim=128, n_heads=8,
+                              n_kv_heads=2)
+    params = TT.init_params(cfg, seed=0, device="cuda")
+    B, Smax, steps = 4, 96, 4
+    cache = TT.init_cache(cfg, B, Smax, device="cuda")
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    cache["pos"] = torch.tensor([0, 17, 60, Smax - 1], device="cuda")
+    runs = {}
+    for impl in ("auto", "ref"):
+        c = {key: t.clone() for key, t in cache.items()}
+        tokens = torch.tensor([[1], [2], [3], [4]], device="cuda")
+        before = ops.launch_counts()["decode_attention"]
+        logits = []
+        with torch.no_grad():
+            for _ in range(steps):
+                out, c = TT.decode_step(params, tokens, cfg, c, impl=impl)
+                logits.append(out.float())
+        runs[impl] = (torch.stack(logits), ops.launch_counts()["decode_attention"] - before)
+    assert runs["auto"][1] == cfg.n_layers * steps and runs["ref"][1] == 0
+    torch.testing.assert_close(runs["auto"][0], runs["ref"][0], atol=0.05, rtol=0)

@@ -19,6 +19,10 @@ window, shape, alignment and block size; the Python mirrors of the flash
 kernel's live kv-tile range, its masked tiles and its heavy-first launch
 order against brute force; and an emulation of the wgmma variant's
 tiling and masking against the plain version.
+
+Decode attention: the splits of ``da_plan`` at the cells' shapes, and an
+emulation of the kernel's splits, tiles and per-warp online softmax
+against the plain version, within the rounding bound its card tests use.
 """
 import math
 from typing import List
@@ -577,3 +581,89 @@ def test_bsp_plan_grid_is_at_most_one_wave_and_covers_the_slots(V, K, g, dtype):
     assert plan.grid == 1 or (plan.grid - 1) * per_cta < slots
     if (V, K) == (2048, 9728):
         assert plan.grid == wave
+
+
+# ---------------------------------------------------------------------------
+# Decode attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Smax,Hkv,want", [(32, 8320, 8, (512, 17)), (64, 4608, 8, (512, 9)),
+                                             (1, 8256, 4, (128, 65)), (8, 32768, 8, (512, 64)),
+                                             (2, 100, 2, (128, 1)), (3, 1000, 2, (128, 8))])
+def test_da_plan_splits_cover_the_cache_from_the_shapes(B, Smax, Hkv, want):
+    """The longdoc, session-decode and MoE cells' caches, decode_32k's and
+    small ones: whole ring stages a split, 2 to 8 of them, the splits
+    covering every key, as many as bring the grid to DA_CTAS where the
+    cache is long enough."""
+    chunk, nsplit = plans.da_plan(B, Smax, Hkv)
+    assert (chunk, nsplit) == want
+    lo, hi = plans.DA_SPLIT_TILES
+    assert chunk % plans.DA_TILE == 0 and lo <= chunk // plans.DA_TILE <= hi
+    assert (nsplit - 1) * chunk < Smax <= nsplit * chunk
+    assert B * Hkv * nsplit >= plans.DA_CTAS or chunk == lo * plans.DA_TILE or chunk >= Smax
+
+
+def _da_emulate(q: torch.Tensor, K: torch.Tensor, V: torch.Tensor, n: int,
+                chunk: int) -> torch.Tensor:
+    """The decode-attention kernel's arithmetic for one (slot, kv head):
+    q (G, hd), K/V (Smax, hd) bf16, keys 0..n-1.  Each split of ``chunk``
+    keys walks 64-key tiles; each of 4 warps takes 16 keys of a tile with
+    its own online softmax (p rounded to bf16 against the warp's running
+    max); the warps' states merge, then the live splits'."""
+    G, hd = q.shape
+    inf = float("-inf")
+
+    def merge(states):
+        M = torch.stack([m for m, _, _ in states]).amax(0)
+        Ms = torch.where(torch.isinf(M), torch.zeros_like(M), M)
+        L, A = torch.zeros(G), torch.zeros(G, hd)
+        for m, l, a in states:
+            e = torch.where(torch.isinf(m), torch.zeros_like(m), torch.exp(m - Ms))
+            L, A = L + l * e, A + a * e[:, None]
+        return M, L, A
+
+    splits = []
+    for c0 in range(0, max(1, -(-n // chunk)) * chunk, chunk):
+        kend = min(c0 + chunk, n)
+        warps = [[torch.full((G,), inf), torch.zeros(G), torch.zeros(G, hd)] for _ in range(4)]
+        for t0 in range(c0, kend, 64):
+            for w, st in enumerate(warps):
+                keys = list(range(t0 + 16 * w, min(t0 + 16 * w + 16, kend)))
+                if not keys:
+                    continue
+                s = q.float() @ K[keys].float().T / math.sqrt(hd)
+                m_new = torch.maximum(st[0], s.amax(-1))
+                ms = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+                corr = torch.where(torch.isinf(st[0]), torch.zeros_like(ms), torch.exp(st[0] - ms))
+                p = torch.exp(s - ms[:, None])
+                st[1] = st[1] * corr + p.sum(-1)
+                st[2] = st[2] * corr[:, None] + p.bfloat16().float() @ V[keys].float()
+                st[0] = m_new
+        splits.append(merge(warps))
+    _, L, A = merge(splits)
+    return (A / L.clamp(min=1e-20)[:, None]).bfloat16()
+
+
+@pytest.mark.parametrize("pos", [[0, 1, 63, 64, 150, 299], [299, 300, 17, 200, 128, 8]])
+@pytest.mark.parametrize("sharp", [1.0, 8.0])
+def test_decode_attention_emulation_within_rounding_of_plain(pos, sharp):
+    """The kernel's split / tile / warp arithmetic over ragged positions
+    (0, a tile's last key, a split's first, Smax - 1, Smax: the write
+    dropped) stays within the rounding bound the card tests hold the
+    kernel to: |out - plain| <= 2^-7 (|V|'s attention + |plain|)."""
+    B, Smax, Hq, Hkv, hd, chunk = 6, 300, 8, 2, 32, 128
+    g = torch.Generator().manual_seed(int(sharp))
+    q = (torch.randn(B, 1, Hq, hd, generator=g) * sharp).bfloat16()
+    k, v = (torch.randn(B, 1, Hkv, hd, generator=g).bfloat16() for _ in range(2))
+    K, V = (torch.randn(B, Smax, Hkv, hd, generator=g).bfloat16() for _ in range(2))
+    p = torch.tensor(pos)
+    want = ref.decode_attention_ref(q, k, v, K1 := K.clone(), V1 := V.clone(), p)
+    mag = ref.decode_attention_ref(q, k, v.abs(), K.clone(), V.abs(), p)
+    G = Hq // Hkv
+    for b in range(B):
+        n = min(pos[b], Smax - 1) + 1
+        for h in range(Hkv):
+            out = _da_emulate(q[b, 0, h * G:(h + 1) * G], K1[b, :, h], V1[b, :, h], n, chunk)
+            w = want[b, 0, h * G:(h + 1) * G].float()
+            bound = 2 ** -7 * (mag[b, 0, h * G:(h + 1) * G].float() + w.abs())
+            assert ((out.float() - w).abs() <= bound).all(), (b, h)

@@ -324,9 +324,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_nothing():
     ops.intrablock_gather_matmul(x, torch.randn(32, 8), torch.arange(32, dtype=torch.int32))
     ops.bitserial_zero_profile(torch.ones(4, 64, dtype=torch.int8), 16)
     ops.quantized_zero_profile(torch.randn(4, 64), 16)
+    cache = torch.zeros(2, 8, 1, 64)
+    ops.decode_attention(torch.randn(2, 1, 2, 64), torch.randn(2, 1, 1, 64),
+                         torch.randn(2, 1, 1, 64), cache, cache.clone(), torch.tensor([0, 3]))
     assert ops.launch_counts() == {"flash_attention": 0, "block_sparse_matmul": 0,
                                    "block_importance": 0, "intrablock_gather_matmul": 0,
-                                   "bitserial_zero_profile": 0}
+                                   "bitserial_zero_profile": 0, "decode_attention": 0}
     variants = ops.variant_counts()
     assert variants["bitserial_zero_profile"] == {"strip": 0, "fused": 0, "general": 0}
     assert all(n == 0 for v in variants.values() for n in v.values())
@@ -349,6 +352,10 @@ def test_cuda_impl_refuses_cpu_tensors():
         ops.bitserial_zero_profile(torch.ones(2, 32, dtype=torch.int8), 8, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         ops.quantized_zero_profile(torch.randn(2, 32), 8, impl="cuda")
+    q, kv = torch.randn(2, 1, 4, 128).bfloat16(), torch.randn(2, 1, 2, 128).bfloat16()
+    cache = torch.zeros(2, 8, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.decode_attention(q, kv, kv, cache, cache.clone(), torch.tensor([0, 3]), impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ops.block_importance(torch.randn(32, 32), 16, 16, impl="pallas")
 
@@ -369,6 +376,130 @@ def test_kernel_path_keeps_reference_errors():
         ops.block_importance(torch.randn(32, 64), 16, 16, impl="cuda", tile_n=24)
     with pytest.raises(ValueError, match="criterion"):
         ops.block_importance(torch.randn(32, 32), 16, 16, "l3")
+
+
+# ---------------------------------------------------------------------------
+# Decode attention: the op's plain version ≡ the model's decode branch, and
+# the branch's route
+# ---------------------------------------------------------------------------
+
+def _decode_branch(q, k, v, K, V, pos):
+    """What ``attention_block``'s decode branch computes off the kernel."""
+    from repro_torch.models import layers
+
+    layers.write_cache(K, k, pos)
+    layers.write_cache(V, v, pos)
+    return layers.chunked_attention(q, K, V, causal=True, q_offset=pos, chunk=K.shape[1])
+
+
+@pytest.mark.parametrize("pos", [[0, 5, 47, 63, 64, 90], [63, 0, 64, 1, 32, 200], 0, 17, 63, 64,
+                                 100])
+@pytest.mark.parametrize("B,Hq,Hkv,hd,dtype", [(6, 8, 2, 128, torch.bfloat16),
+                                               (6, 8, 1, 128, torch.bfloat16),
+                                               (6, 4, 4, 32, torch.float32)])
+def test_decode_attention_plain_equals_the_decode_branch(B, Hq, Hkv, hd, dtype, pos):
+    """At ragged per-slot positions (0, Smax - 1, Smax and past it: the
+    write dropped) and at scalar ones (the write clamped), the op's plain
+    version gives today's branch bit for bit, output and caches."""
+    Smax = 64
+    g = torch.Generator().manual_seed(B * Hq + Hkv)
+    q, k, v = (torch.randn(B, 1, h, hd, generator=g).to(dtype) for h in (Hq, Hkv, Hkv))
+    K = torch.randn(B, Smax, Hkv, hd, generator=g).to(dtype)
+    V = torch.randn(B, Smax, Hkv, hd, generator=g).to(dtype)
+    p = torch.tensor(pos)
+    K1, V1, K2, V2 = K.clone(), V.clone(), K.clone(), V.clone()
+    out = ops.decode_attention(q, k, v, K1, V1, p)
+    want = _decode_branch(q, k, v, K2, V2, p)
+    assert out.shape == (B, 1, Hq, hd) and out.dtype == dtype
+    assert torch.equal(out, want)
+    assert torch.equal(K1, K2) and torch.equal(V1, V2)
+    rows = torch.arange(B)
+    slot = (p.clamp(0, Smax - 1) if p.dim() == 0 else p.clamp(max=Smax - 1)).expand(B)
+    kept = (p < Smax).expand(B) if p.dim() == 1 else torch.ones(B, dtype=torch.bool)
+    assert torch.equal(K1[rows[kept], slot[kept]], k[kept, 0])
+    assert torch.equal(K1[rows[~kept], slot[~kept]], K[rows[~kept], slot[~kept]])
+    untouched = torch.ones(B, Smax, dtype=torch.bool)
+    untouched[rows[kept], slot[kept]] = False
+    assert torch.equal(V1[untouched], V[untouched])
+
+
+def test_decode_attention_work_counts_the_attended_keys():
+    """One launch of the kernel: 4·hd flops per (q head, attended key);
+    bytes of q, the new k/v (read and written), the attended keys' K and V
+    and the output.  On ``meta`` every key of the cache, and no value."""
+    from repro_torch.kernels import work
+    from repro_torch.launch.counting import count
+
+    B, Smax, Hq, Hkv, hd = 3, 40, 8, 2, 128
+    q, kv = torch.zeros(B, 1, Hq, hd), torch.zeros(B, 1, Hkv, hd)
+    K = torch.zeros(B, Smax, Hkv, hd)
+    pos = torch.tensor([0, 9, 45])
+    keys = 1 + 10 + Smax
+    row = Hkv * hd * 4
+    want = {"flops": 4 * hd * Hq * keys,
+            "bytes": 2 * B * Hq * hd * 4 + 2 * B * row + 2 * keys * row + 2 * B * row}
+    assert work.decode_attention(q, kv, kv, K, K, pos) == want
+    assert work.decode_attention(q, kv, kv, K, K, torch.tensor(45))["flops"] == (
+        4 * hd * Hq * B * Smax)
+    meta = [t.to("meta") for t in (q, kv, kv, K, K, pos)]
+    with count(meta) as counter:
+        out = ops.decode_attention(*meta)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert counter.flops_by_kind["kernel"] == counter.flops == 4 * hd * Hq * B * Smax
+    assert list(counter.oplog) == ["decode_attention"]
+
+
+@pytest.mark.parametrize("arch,takes", [("qwen3-4b", True), ("qwen3-moe-30b-a3b", True),
+                                        ("llama3-8b", True), ("gemma2-9b", False),
+                                        ("hymba-1.5b", False), ("whisper-medium", False)])
+def test_decode_kernel_route_follows_config_device_grad_and_scores(arch, takes):
+    """The decode branch's route, layer by layer at the config's published
+    widths: the hd-128 GQA decoders without softcap or window take the
+    kernel on a CUDA device; gemma2-9b (softcap), hymba-1.5b (window, hd
+    64) and whisper-medium (hd 64) never do; on the CPU and on ``meta``,
+    under grad and with bf16 scores, none does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as TT
+
+    cfg = get_config(arch)
+    hd = cfg.resolved_head_dim
+    q = torch.empty(4, 1, cfg.n_heads, hd, dtype=torch.bfloat16, device="meta")
+    K = torch.empty(4, 256, cfg.n_kv_heads, hd, dtype=torch.bfloat16, device="meta")
+
+    def route(device="cuda", grad=False):
+        return [layers._takes_decode_kernel(cfg, q, K, window=w, device=device, grad=grad)
+                for w in TT._windows(cfg)]
+
+    assert route() == [takes] * cfg.n_layers
+    assert not any(route("cpu")) and not any(route("meta"))
+    assert not any(route(grad=True))
+    with layers.scores_dtype(torch.bfloat16):
+        assert not any(route())
+    assert not layers._takes_decode_kernel(cfg, q.float(), K.float(), window=None,
+                                           device="cuda", grad=False)
+
+
+def test_cpu_decode_step_keeps_the_plain_branch(monkeypatch):
+    """On the CPU the decode branch never reaches the op: a decode step of
+    an hd-128 decoder runs with ``ops.decode_attention`` made to raise."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(get_config("qwen3-4b").reduced(), head_dim=128)
+
+    def refuse(*_, **__):
+        raise AssertionError("decode_attention reached on the CPU")
+
+    monkeypatch.setattr(ops, "decode_attention", refuse)
+    params = TT.init_params(cfg, seed=0, device="cpu")
+    cache = TT.init_cache(cfg, 2, 16, device="cpu")
+    cache["pos"] = torch.tensor([3, 7])
+    with torch.no_grad():
+        logits, new = TT.decode_step(params, torch.tensor([[1], [2]]), cfg, cache)
+    assert logits.shape == (2, cfg.vocab_size) and torch.equal(new["pos"], torch.tensor([4, 8]))
 
 
 def _tile_case(R, op):
